@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, one line or more each; any failure exits non-zero:
+  1. device: versions, the card's name and power limit; TF32 off.
+  2. build: every CUDA kernel from src/repro_torch/csrc, with ptxas's
+     register and shared-memory report.
+  3. kernels: each kernel against its plain PyTorch version in bf16 at the
+     serving path's shapes, then its time beside the plain version's and
+     the library call's (SDPA), and its bound on the card.
+  4. reference: tiny qwen2.5-3b on the card against the plain CPU path.
+  5. serve: qwen2.5-3b at full width (36 layers, bf16, random weights from
+     a seed) answers 8 requests through ServeEngine; the kernels' launch
+     counts prove the prefill ran through them; prefill(S) is held against
+     prefill(S-1) + decode_step; torch.profiler splits one prefill and
+     four decode steps into device busy and idle time.
+The line before the last lists the kernels as JSON; the last line is the
+result as JSON. Exits non-zero without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# A kernel against its plain version in bf16: the largest relative L2
+# error of one output row (kernels/ref.py::row_rel_err; an absolute limit
+# cannot judge rows whose values range from ~1 to ~0.03). Both sides round
+# the output to bf16 (2^-8 relative at most) and the kernel also rounds P
+# to bf16 before P @ V, so a sound row errs by a few 1e-3; one wrong key
+# among a row's n shifts it by ~1/sqrt(n) of its size, 3e-2 at n = 1024.
+KERNEL_ROW_RTOL = 2e-2
+# tiny qwen2.5-3b in bf16 on the card against the plain path on the CPU:
+# largest relative L2 error of one row of logits. On the CPU the bf16 model
+# differs from the same weights in fp32 by <= 7.2e-3 so measured; two bf16
+# paths that round in another order differ by about as much, and a wrong
+# position, mask or cache slot by a sizeable fraction of 1.
+REFERENCE_ROW_RTOL = 3e-2
+# prefill(S) against prefill(S-1) + decode_step, relative L2 error of the
+# fp32 logits: the two paths round differently in each of 36 bf16 layers
+# (2^-8 per rounding; bf16 P in the kernel, fp32 in decode attention); a
+# wrong position, mask or cache slot gives an error of order 1.
+CONSISTENCY_RTOL = 5e-2
+
+ARCH = "qwen2.5-3b"
+BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
+PROMPT_LENS = (256, 1024)
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def fail(phase: str, msg: str) -> None:
+    say(phase, "FAIL " + msg)
+    raise SystemExit(1)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_bound(b: int, hq: int, hkv: int, s: int,
+                    d: int) -> tuple[float, str]:
+    """Least time (ms) for causal attention on these shapes, and what sets
+    it: the unmasked (q, k) pairs' 4*d FLOPs each over the bf16 peak, or
+    one read of q, k, v and one write of o over the memory rate."""
+    pairs = s * (s + 1) // 2
+    ops_ms = 1e3 * 4 * d * pairs * b * hq / PEAK_BF16_FLOPS
+    bytes_ms = 1e3 * 2 * b * s * d * (2 * hq + 2 * hkv) / PEAK_BYTES_PER_S
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def phase_device():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("device", f"python {sys.version.split()[0]}, torch {torch.__version__},"
+        f" CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s); "
+        "TF32 off for matmul and cuDNN")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    return card
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    lib = build.build()
+    say("build", f"{lib.path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in lib.ptxas_log.splitlines():
+        if any(w in line for w in ("registers", "spill", "Compiling entry")):
+            say("build", line.strip())
+
+
+def phase_kernels(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_reference, row_rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(b, s, hq, hkv, d):
+        return [torch.randn((b, s, h, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for h in (hq, hkv, hkv)]
+
+    # (name, B, S, Hq, Hkv, D, window): the serving path's prefill shape
+    # first (8 prompts padded to 1024, qwen2.5-3b heads), then its variants
+    cases = [("main", BATCH, PROMPT_LENS[1], 16, 2, 128, 0),
+             ("ragged", BATCH, 1000, 16, 2, 128, 0),
+             ("window", BATCH, 1024, 16, 2, 128, 256),
+             ("d64", 4, 512, 8, 2, 64, 0)]
+    worst, failed = 0.0, []
+    for name, b, s, hq, hkv, d, window in cases:
+        q, k, v = qkv(b, s, hq, hkv, d)
+        out = flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        ref = attention_reference(*(t.transpose(1, 2) for t in (q, k, v)),
+                                  causal=True, window=window).transpose(1, 2)
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        row = row_rel_err(out, ref)
+        worst = max(worst, err)
+        ok = math.isfinite(row) and row <= KERNEL_ROW_RTOL
+        if not ok:
+            failed.append(name)
+        say("kernels", f"flash_attention {name} B={b} S={s} Hq={hq} Hkv={hkv}"
+            f" D={d} window={window}: worst row rel L2 err {row:.3e} (tol "
+            f"{KERNEL_ROW_RTOL}), all rel L2 {rel:.3e}, max abs err "
+            f"{err:.3e}, mean |ref| {ref.float().abs().mean().item():.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+    if failed:
+        fail("kernels", f"flash_attention disagrees with plain: {failed}")
+
+    _, b, s, hq, hkv, d, _ = cases[0]
+    q, k, v = qkv(b, s, hq, hkv, d)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=50)
+    plain_ms = cuda_ms(lambda: attention_reference(qt, kt, vt, causal=True),
+                       iters=5, warmup=1)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=50)
+    bound_ms, bound_by = attention_bound(b, hq, hkv, s, d)
+    say("kernels", f"flash_attention main: {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}) on {card}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:31",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_serve(card: str) -> int:
+    """Returns the kernel's launch count over the main path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    say("serve", f"{ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{model.count_params() / 1e9:.3f} B params in {cfg.dtype}, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine = ServeEngine(model, params, batch=BATCH, cache_len=CACHE_LEN,
+                         device="cuda")
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, BATCH)
+    lens[0] = PROMPT_LENS[1]  # the batch pads to the kernel check's shape
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+
+    def make_requests(new_tokens):
+        return [Request(prompt=p, max_new_tokens=new_tokens,
+                        temperature=0.7 if i % 2 else 0.0)
+                for i, p in enumerate(prompts)]
+
+    # warm-up at the same shapes (cuBLAS heuristics, allocator), not counted
+    engine.generate(make_requests(2), seed=0)
+    requests = make_requests(NEW_TOKENS)
+
+    # every logit the engine samples from is checked after the run
+    finite = []
+    entry_points = model.prefill, model.decode_step
+
+    def watch(fn):
+        def watched(*args, **kwargs):
+            logits, cache = fn(*args, **kwargs)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return watched
+
+    model.prefill, model.decode_step = map(watch, entry_points)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    engine.generate(requests, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model.prefill, model.decode_step = entry_points
+
+    want = cfg.num_layers  # one prefill for the batch, one launch per layer
+    if launches != want:
+        fail("serve", f"flash_attention launched {launches} times, "
+             f"expected {want} (36 layers x 1 prefill)")
+    if len(finite) != 1 + NEW_TOKENS or not all(bool(f) for f in finite):
+        fail("serve", f"non-finite logits in the main path ({len(finite)} "
+             "calls watched)")
+    n_tok = sum(len(r.generated) for r in requests)
+    bad = [t for r in requests for t in r.generated
+           if not 0 <= t < cfg.vocab_size]
+    if n_tok != BATCH * NEW_TOKENS or bad:
+        fail("serve", f"{n_tok} tokens generated, out of range: {bad[:8]}")
+    say("serve", f"generate: {BATCH} requests, prompts {lens.min()}-"
+        f"{lens.max()}, {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tok/s, peak memory {peak_gb:.2f} GB, "
+        f"flash_attention launches {launches}, logits of all {len(finite)} "
+        f"prefill/decode calls finite, on {card}")
+
+    # The same batch again through the model's entry points, timed apart.
+    plen = int(lens.max())
+    toks = np.zeros((BATCH, plen), np.int32)
+    for i, r in enumerate(requests):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    toks = torch.from_numpy(toks).cuda()
+    unembed = engine.unembed
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: model.prefill(
+            params, {"tokens": toks}, cache_len=CACHE_LEN, unembed=unembed),
+            iters=3, warmup=1)
+        logits, cache = model.prefill(params, {"tokens": toks},
+                                      cache_len=CACHE_LEN, unembed=unembed)
+        all_finite = bool(torch.isfinite(logits).all())
+        nxt = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(NEW_TOKENS):
+            logits, cache = model.decode_step(params, nxt, cache, plen + step,
+                                              unembed=unembed)
+            all_finite &= bool(torch.isfinite(logits).all())
+            nxt = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / NEW_TOKENS
+    if not all_finite:
+        fail("serve", "non-finite logits")
+    say("serve", f"prefill B={BATCH} S={plen}: {prefill_ms:.2f} ms; decode: "
+        f"{decode_ms:.2f} ms/step ({BATCH * 1e3 / decode_ms:.1f} tok/s); "
+        f"all logits finite, on {card}")
+
+    # prefill(S) == prefill(S-1) + decode_step(token S-1)
+    with torch.no_grad():
+        full, _ = model.prefill(params, {"tokens": toks}, cache_len=CACHE_LEN,
+                                unembed=unembed)
+        _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+                                 cache_len=CACHE_LEN, unembed=unembed)
+        step, _ = model.decode_step(params, toks[:, -1:], cache, plen - 1,
+                                    unembed=unembed)
+    rel = ((step - full).norm() / full.norm()).item()
+    max_abs = (step - full).abs().max().item()
+    ok = math.isfinite(rel) and rel <= CONSISTENCY_RTOL
+    say("serve", f"prefill(S) vs prefill(S-1)+decode: relative L2 {rel:.3e} "
+        f"(tol {CONSISTENCY_RTOL}), max abs {max_abs:.3e}, max |logit| "
+        f"{full.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("serve", "prefill and decode disagree")
+
+    for name, fn in (
+            ("prefill", lambda: model.prefill(params, {"tokens": toks},
+                                              cache_len=CACHE_LEN,
+                                              unembed=unembed)),
+            ("decode x4", lambda: [model.decode_step(params, toks[:, -1:],
+                                                     cache, plen + i,
+                                                     unembed=unembed)
+                                   for i in range(4)])):
+        profile_window(name, fn, card)
+    return launches
+
+
+def profile_window(name: str, fn, card: str) -> None:
+    """Device busy share and the top kernels of one call, from
+    torch.profiler: kernel time summed over the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    # device-side events only: host ops also carry their kernels' time
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(r[0] for r in rows)
+    say("profile", f"{name}: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), idle "
+        f"{100 * (1 - busy_us / wall_us):.1f}%, {sum(r[1] for r in rows)} "
+        f"kernels, on {card} (profiler on)")
+    for us, count, key in sorted(rows, reverse=True)[:6]:
+        say("profile", f"  {name}: {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f}%"
+            f" x{count} {key[:90]}")
+
+
+def phase_small_reference(card: str) -> None:
+    """The card against the plain CPU path (which the CPU tests hold
+    against the JAX package) on tiny qwen2.5-3b in bf16, same weights:
+    prefill and three decode steps, to REFERENCE_ROW_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_tiny
+    from repro_torch.kernels.ref import row_rel_err
+    from repro_torch.models.model import Model
+
+    cfg = get_tiny(ARCH)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = {k: ({n: t.cuda() for n, t in v.items()} if k == "layers"
+                 else v.cuda()) for k, v in p_cpu.items()}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 100)).astype(np.int32))
+    worst = 0.0
+    with torch.no_grad():
+        lc, cc = cpu.prefill(p_cpu, {"tokens": toks}, cache_len=128)
+        lg, cg = gpu.prefill(p_gpu, {"tokens": toks.cuda()}, cache_len=128)
+        worst = max(worst, row_rel_err(lg.cpu(), lc))
+        for i in range(3):
+            nxt = lc.argmax(-1, keepdim=True)
+            lc, cc = cpu.decode_step(p_cpu, nxt, cc, 100 + i)
+            lg, cg = gpu.decode_step(p_gpu, nxt.cuda(), cg, 100 + i)
+            worst = max(worst, row_rel_err(lg.cpu(), lc))
+    ok = math.isfinite(worst) and worst <= REFERENCE_ROW_RTOL
+    say("reference", f"tiny {ARCH} bf16, card vs CPU plain path: prefill + 3 "
+        f"decode steps, worst row rel L2 logit err {worst:.3e} (tol "
+        f"{REFERENCE_ROW_RTOL}) {'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        fail("reference", "the card disagrees with the CPU path")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the card",
+              file=sys.stderr)
+        return 1
+    card = phase_device()
+    phase_build()
+    kernel = phase_kernels(card)
+    phase_small_reference(card)
+    kernel["launches"] = phase_serve(card)
+    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""Plain PyTorch versions of the kernels: what the CPU path runs and what
+every kernel is held against on the card."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Naive softmax attention.  q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D].
+
+    Positions count from 0 for both q and k (top-left aligned when
+    Sq != Sk), as in the flash kernel.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.reshape(b, hkv, g, sq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos >= kpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    s = torch.where(ok, s, torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest relative L2 error of one output row (the last axis) of a
+    kernel against its plain version: max over rows of |out - ref| / |ref|.
+
+    An absolute limit cannot judge attention: a causal row over n keys of
+    N(0, 1) values has entries of size ~1/sqrt(n), so outputs range from ~1
+    (row 0) to ~0.03 (row 1023), and a limit that admits the rounding of
+    the first rows admits errors of the size of the last rows' values. A
+    row's relative error is one scale for every row, and one wrong row
+    shows however many right ones surround it."""
+    diff = (out.float() - ref.float()).norm(dim=-1)
+    return (diff / ref.float().norm(dim=-1).clamp_min(1e-30)).max().item()

@@ -1,0 +1,36 @@
+"""Prefill and decode steps for the serving engine. PyTorch runs eagerly,
+so there is nothing to compile: each step is the model's entry point for a
+fixed batch and cache length, run without autograd."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.model import Model
+
+
+def make_prefill(model: Model, batch: int, cache_len: int):
+    def prefill(params: dict, batch_in: dict, *,
+                unembed: torch.Tensor | None = None):
+        tokens = batch_in["tokens"]
+        if tokens.shape[0] != batch:
+            raise ValueError(f"prefill: batch {tokens.shape[0]} != {batch}")
+        with torch.no_grad():
+            return model.prefill(params, batch_in, cache_len=cache_len,
+                                 unembed=unembed)
+    return prefill
+
+
+def make_decode_step(model: Model, batch: int, cache_len: int):
+    window = model.cache_window(cache_len)
+
+    def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
+                    pos: int, *, unembed: torch.Tensor | None = None):
+        if tokens.shape != (batch, 1) or caches["k"].shape[2] != window:
+            raise ValueError(f"decode_step: tokens {tuple(tokens.shape)}, "
+                             f"cache {tuple(caches['k'].shape)} do not match "
+                             f"batch {batch}, window {window}")
+        with torch.no_grad():
+            return model.decode_step(params, tokens, caches, pos,
+                                     unembed=unembed)
+    return decode_step
