@@ -7,13 +7,16 @@ Phases, one line or more each; any failure exits non-zero:
   1. device: versions, the card's name and power limit; TF32 off.
   2. build: every CUDA kernel from src/repro_torch/csrc, with ptxas's
      register and shared-memory report.
-  3. kernels: each kernel against its plain PyTorch version in bf16 at the
-     serving path's shapes, then its time beside the plain version's and
-     the library call's (SDPA), and its bound on the card.
-  4. reference: tiny qwen2.5-3b on the card against the plain CPU path.
-  5. serve: qwen2.5-3b at full width (36 layers, bf16, random weights from
-     a seed) answers 8 requests through ServeEngine; the kernels' launch
-     counts prove the prefill ran through them; prefill(S) is held against
+  3. kernels: each kernel (flash attention, the SSD scan) against its plain
+     PyTorch version at the serving paths' shapes, then its time beside
+     the plain version's and the library call's (SDPA; none for SSD), and
+     its bound on the card.
+  4. reference: tiny qwen2.5-3b and tiny mamba2-370m in bf16 on the card
+     against the plain CPU path.
+  5. serve, once per model: qwen2.5-3b (36 layers) and mamba2-370m (48
+     layers), at full width, bf16, random weights from a seed, each answer
+     8 requests through ServeEngine; the kernels' launch counts prove the
+     prefill ran through its kernel; prefill(S) is held against
      prefill(S-1) + decode_step; torch.profiler splits one prefill and
      four decode steps into device busy and idle time.
 The line before the last lists the kernels as JSON; the last line is the
@@ -34,6 +37,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12   # CUDA cores, outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 # A kernel against its plain version in bf16: the largest relative L2
@@ -54,10 +58,21 @@ REFERENCE_ROW_RTOL = 3e-2
 # (2^-8 per rounding; bf16 P in the kernel, fp32 in decode attention); a
 # wrong position, mask or cache slot gives an error of order 1.
 CONSISTENCY_RTOL = 5e-2
+# The SSD kernel against its plain version (the chunked scan at the
+# model's chunk of 256): y by the worst row over P, the final state by the
+# worst row over N. Both compute in fp32 from the same bf16 inputs, in
+# another order and with tiles of 64 instead of chunks of 256 (~1e-6
+# relative apart). y is then rounded to bf16 on both sides (2^-9 relative
+# per element), so a sound row of y errs by ~1e-3 at most, and the fp32
+# state by ~1e-5. A dropped term, a position past S or a diagonal off by
+# one moves whole rows by a sizeable fraction of their size.
+SSD_Y_ROW_RTOL = 1e-2
+SSD_STATE_ROW_RTOL = 1e-3
 
-ARCH = "qwen2.5-3b"
+QWEN, MAMBA = "qwen2.5-3b", "mamba2-370m"
 BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
 PROMPT_LENS = (256, 1024)
+SSD_TILE = 64  # csrc/ssd.cu's kTile
 
 
 def say(phase: str, msg: str) -> None:
@@ -91,6 +106,28 @@ def attention_bound(b: int, hq: int, hkv: int, s: int,
     pairs = s * (s + 1) // 2
     ops_ms = 1e3 * 4 * d * pairs * b * hq / PEAK_BF16_FLOPS
     bytes_ms = 1e3 * 2 * b * s * d * (2 * hq + 2 * hkv) / PEAK_BYTES_PER_S
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def ssd_bound(b: int, s: int, h: int, p: int, g: int, n: int, *,
+              tile: int = SSD_TILE,
+              peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """Least time (ms) for the SSD scan on these shapes at ``peak_flops``,
+    and what sets it. Operations: per (batch, group, tile) the lower
+    triangle of C . B^T, 2 N FLOPs per (i >= j) pair; per (batch, head,
+    tile) the triangle of M @ x, 2 P per pair; per token and head the
+    inter-chunk term and the state update, 2 N P each. Bytes: one read of
+    x, dt, B, C and one write of y (bf16 except dt) and of the fp32 final
+    state. Decays and dt weights are O(S H) and left out."""
+    tiles = -(-s // tile)
+    pairs = tile * (tile + 1) // 2
+    flops = (b * g * tiles * pairs * 2 * n + b * h * tiles * pairs * 2 * p
+             + b * h * s * 4 * n * p)
+    nbytes = (2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * g * n
+              + 4 * b * h * p * n)
+    ops_ms = 1e3 * flops / peak_flops
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
@@ -180,21 +217,103 @@ def phase_kernels(card: str) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def phase_serve(card: str) -> int:
-    """Returns the kernel's launch count over the main path."""
+def ssd_inputs(gen, b: int, s: int, h: int, p: int, g: int, n: int):
+    """The JAX kernel tests' distributions: x ~ N(0, 1), dt =
+    softplus(N(0, 1)), A = -exp(U[0, 1]), B/C ~ N(0, 1/4), D = 1; x, B, C
+    in bf16, the rest fp32, on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(b, s, h, p).bfloat16()
+    dt = F.softplus(randn(b, s, h))
+    A = -torch.exp(torch.rand((h,), generator=gen, device="cuda"))
+    B = (randn(b, s, g, n) * 0.5).bfloat16()
+    C = (randn(b, s, g, n) * 0.5).bfloat16()
+    D = torch.ones((h,), device="cuda")
+    return x, dt, A, B, C, D
+
+
+def phase_ssd_kernels(card: str) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import row_rel_err, ssd_chunked_reference
+    from repro_torch.kernels.ssd import ssd_chunked_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scfg = get_config(MAMBA).ssm
+    chunk = scfg.chunk_size
+    heads = scfg.expand * get_config(MAMBA).d_model // scfg.head_dim
+    # (name, B, S, H, P, G, N): the serving path's prefill shape first (8
+    # prompts padded to 1024, mamba2-370m's heads and state), then its
+    # variants and tiny mamba2-370m's shape
+    cases = [("main", BATCH, PROMPT_LENS[1], heads, scfg.head_dim, 1,
+              scfg.state_dim),
+             ("ragged", BATCH, 1000, heads, scfg.head_dim, 1, scfg.state_dim),
+             ("grouped", 2, 512, 8, 64, 2, 64),
+             ("tiny", 2, 100, 16, 32, 1, 16)]
+    worst, failed = 0.0, []
+    for name, b, s, h, p, g, n in cases:
+        args = ssd_inputs(gen, b, s, h, p, g, n)
+        y, st = ssd_chunked_kernel(*args)
+        torch.cuda.synchronize()
+        y_ref, st_ref = ssd_chunked_reference(*args, chunk=chunk)
+        y_row, st_row = row_rel_err(y, y_ref), row_rel_err(st, st_ref)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        st_err = (st - st_ref).abs().max().item()
+        worst = max(worst, err)
+        ok = (math.isfinite(y_row) and y_row <= SSD_Y_ROW_RTOL
+              and math.isfinite(st_row) and st_row <= SSD_STATE_ROW_RTOL)
+        if not ok:
+            failed.append(name)
+        say("kernels", f"ssd {name} B={b} S={s} H={h} P={p} G={g} N={n}: "
+            f"y worst row rel L2 err {y_row:.3e} (tol {SSD_Y_ROW_RTOL}), "
+            f"max abs {err:.3e}; final_state worst row {st_row:.3e} (tol "
+            f"{SSD_STATE_ROW_RTOL}), max abs {st_err:.3e}, max |state| "
+            f"{st_ref.abs().max().item():.3e} {'ok' if ok else 'FAIL'}")
+    if failed:
+        fail("kernels", f"ssd disagrees with plain: {failed}")
+
+    _, b, s, h, p, g, n = cases[0]
+    args = ssd_inputs(gen, b, s, h, p, g, n)
+    ms = cuda_ms(lambda: ssd_chunked_kernel(*args), iters=20)
+    plain_ms = cuda_ms(lambda: ssd_chunked_reference(*args, chunk=chunk),
+                       iters=5, warmup=1)
+    bound_ms, bound_by = ssd_bound(b, s, h, p, g, n)
+    tc_ms, tc_by = ssd_bound(b, s, h, p, g, n, peak_flops=PEAK_BF16_FLOPS)
+    say("kernels", f"ssd main: {ms:.4f} ms, plain {plain_ms:.4f} ms, no "
+        f"library call, bound {bound_ms:.4f} ms ({bound_by}, fp32 CUDA "
+        f"cores, the kernel's arithmetic), tensor-core bound {tc_ms:.4f} ms "
+        f"({tc_by}, bf16) on {card}")
+    return {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd.py:27", "launches": None,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper, by the name the kernels line gives it."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd_chunked_kernel
+    return {"flash_attention": flash_attention, "ssd": ssd_chunked_kernel}
+
+
+def phase_serve(card: str, arch: str, kernel: str) -> int:
+    """Serves ``arch`` at full width; returns ``kernel``'s launch count
+    over the main path, which must be one prefill's, one per layer."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    say("serve", f"{ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    say("serve", f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{model.count_params() / 1e9:.3f} B params in {cfg.dtype}, init "
         f"{time.perf_counter() - t0:.1f} s")
     engine = ServeEngine(model, params, batch=BATCH, cache_len=CACHE_LEN,
@@ -229,19 +348,24 @@ def phase_serve(card: str) -> int:
     model.prefill, model.decode_step = map(watch, entry_points)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     engine.generate(requests, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    counts = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model.prefill, model.decode_step = entry_points
 
-    want = cfg.num_layers  # one prefill for the batch, one launch per layer
-    if launches != want:
-        fail("serve", f"flash_attention launched {launches} times, "
-             f"expected {want} (36 layers x 1 prefill)")
+    # one prefill for the batch, one launch per layer; no other kernel
+    want = {name: cfg.num_layers if name == kernel else 0
+            for name in counters}
+    if counts != want:
+        fail("serve", f"{arch}: kernel launches {counts}, expected {want} "
+             f"({cfg.num_layers} layers x 1 prefill)")
+    launches = counts[kernel]
     if len(finite) != 1 + NEW_TOKENS or not all(bool(f) for f in finite):
         fail("serve", f"non-finite logits in the main path ({len(finite)} "
              "calls watched)")
@@ -250,10 +374,10 @@ def phase_serve(card: str) -> int:
            if not 0 <= t < cfg.vocab_size]
     if n_tok != BATCH * NEW_TOKENS or bad:
         fail("serve", f"{n_tok} tokens generated, out of range: {bad[:8]}")
-    say("serve", f"generate: {BATCH} requests, prompts {lens.min()}-"
+    say("serve", f"{arch} generate: {BATCH} requests, prompts {lens.min()}-"
         f"{lens.max()}, {n_tok} tokens in {wall:.3f} s = "
         f"{n_tok / wall:.1f} tok/s, peak memory {peak_gb:.2f} GB, "
-        f"flash_attention launches {launches}, logits of all {len(finite)} "
+        f"{kernel} launches {launches}, logits of all {len(finite)} "
         f"prefill/decode calls finite, on {card}")
 
     # The same batch again through the model's entry points, timed apart.
@@ -282,7 +406,7 @@ def phase_serve(card: str) -> int:
         decode_ms = 1e3 * (time.perf_counter() - t0) / NEW_TOKENS
     if not all_finite:
         fail("serve", "non-finite logits")
-    say("serve", f"prefill B={BATCH} S={plen}: {prefill_ms:.2f} ms; decode: "
+    say("serve", f"{arch} prefill B={BATCH} S={plen}: {prefill_ms:.2f} ms; decode: "
         f"{decode_ms:.2f} ms/step ({BATCH * 1e3 / decode_ms:.1f} tok/s); "
         f"all logits finite, on {card}")
 
@@ -297,7 +421,7 @@ def phase_serve(card: str) -> int:
     rel = ((step - full).norm() / full.norm()).item()
     max_abs = (step - full).abs().max().item()
     ok = math.isfinite(rel) and rel <= CONSISTENCY_RTOL
-    say("serve", f"prefill(S) vs prefill(S-1)+decode: relative L2 {rel:.3e} "
+    say("serve", f"{arch} prefill(S) vs prefill(S-1)+decode: relative L2 {rel:.3e} "
         f"(tol {CONSISTENCY_RTOL}), max abs {max_abs:.3e}, max |logit| "
         f"{full.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -311,7 +435,7 @@ def phase_serve(card: str) -> int:
                                                      cache, plen + i,
                                                      unembed=unembed)
                                    for i in range(4)])):
-        profile_window(name, fn, card)
+        profile_window(f"{arch} {name}", fn, card)
     return launches
 
 
@@ -341,9 +465,9 @@ def profile_window(name: str, fn, card: str) -> None:
             f" x{count} {key[:90]}")
 
 
-def phase_small_reference(card: str) -> None:
+def phase_small_reference(card: str, arch: str) -> None:
     """The card against the plain CPU path (which the CPU tests hold
-    against the JAX package) on tiny qwen2.5-3b in bf16, same weights:
+    against the JAX package) on tiny ``arch`` in bf16, same weights:
     prefill and three decode steps, to REFERENCE_ROW_RTOL."""
     import numpy as np
     import torch
@@ -351,7 +475,7 @@ def phase_small_reference(card: str) -> None:
     from repro_torch.kernels.ref import row_rel_err
     from repro_torch.models.model import Model
 
-    cfg = get_tiny(ARCH)
+    cfg = get_tiny(arch)
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
     p_cpu = cpu.init(torch.Generator().manual_seed(0))
     p_gpu = {k: ({n: t.cuda() for n, t in v.items()} if k == "layers"
@@ -369,7 +493,7 @@ def phase_small_reference(card: str) -> None:
             lg, cg = gpu.decode_step(p_gpu, nxt.cuda(), cg, 100 + i)
             worst = max(worst, row_rel_err(lg.cpu(), lc))
     ok = math.isfinite(worst) and worst <= REFERENCE_ROW_RTOL
-    say("reference", f"tiny {ARCH} bf16, card vs CPU plain path: prefill + 3 "
+    say("reference", f"tiny {arch} bf16, card vs CPU plain path: prefill + 3 "
         f"decode steps, worst row rel L2 logit err {worst:.3e} (tol "
         f"{REFERENCE_ROW_RTOL}) {'ok' if ok else 'FAIL'} on {card}")
     if not ok:
@@ -384,10 +508,12 @@ def main() -> int:
         return 1
     card = phase_device()
     phase_build()
-    kernel = phase_kernels(card)
-    phase_small_reference(card)
-    kernel["launches"] = phase_serve(card)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    flash, ssd = phase_kernels(card), phase_ssd_kernels(card)
+    phase_small_reference(card, QWEN)
+    phase_small_reference(card, MAMBA)
+    flash["launches"] = phase_serve(card, QWEN, "flash_attention")
+    ssd["launches"] = phase_serve(card, MAMBA, "ssd")
+    print(json.dumps({"kernels": [flash, ssd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from repro_torch.models import ssm
+
 NEG_INF = -1e30
 
 
@@ -33,6 +35,22 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def ssd_reference(x, dt, A, B, C, D, init_state=None):
+    """Naive Mamba2 recurrence, step by step. See
+    ``repro_torch.models.ssm.ssd_reference``."""
+    return ssm.ssd_reference(x, dt, A, B, C, D, init_state=init_state)
+
+
+def ssd_chunked_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                          B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                          *, chunk: int = 256):
+    """The SSD kernel's plain version: the chunked scan the JAX model runs,
+    ``ssd_chunked(..., return_state=True)``. x [B, S, H, P]; dt [B, S, H];
+    A, D [H]; B/C [B, S, G, N]. Returns (y in x's dtype, fp32 final state
+    [B, H, P, N])."""
+    return ssm.ssd_chunked(x, dt, A, B, C, D, chunk=chunk, return_state=True)
 
 
 def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:

@@ -2,7 +2,7 @@
 + decode over a shared ring cache), on random weights from ``Model.init``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --arch qwen2.5-3b --requests 6 --new-tokens 16
+        --arch mamba2-370m --requests 6 --new-tokens 16
 
 Runs on the CUDA card unless ``--device cpu`` is given, and fails if there
 is no card. The model is the arch's reduced (tiny) variant. BootSeer's
@@ -25,7 +25,7 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="mamba2-370m", choices=list(ARCHS))
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
@@ -61,7 +61,7 @@ def main(argv: list[str] | None = None) -> None:
     where = (torch.cuda.get_device_name(model.device)
              if model.device.type == "cuda" else "CPU")
     print(f"served {args.requests} requests, {done} tokens "
-          f"in {dt:.2f}s ({done / dt:.1f} tok/s on {where})")
+          f"in {dt:.2f}s ({done / dt:.1f} tok/s on {where}, {cfg.name})")
 
 
 if __name__ == "__main__":

@@ -14,8 +14,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
                       dtype: torch.dtype | None = None) -> dict:
     """The reference's ``Model.init`` tree, as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's parameters: the
-    same names and shapes, cast once to ``dtype`` (default: ``cfg.dtype``).
-    Raises if a name or shape differs from the port's schema."""
+    same names and shapes, cast once to ``dtype`` (default: ``cfg.dtype``);
+    the leaves the reference uses in fp32 (``Leaf.fp32``) stay fp32, bit
+    for bit. Raises if a name or shape differs from the port's schema."""
     dtype = dtype or getattr(torch, cfg.dtype)
     schema = param_schema(cfg)
 
@@ -33,7 +34,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
                 raise ValueError(f"params_from_numpy: {where}{name} has shape "
                                  f"{arr.shape}, expected {tuple(leaf.shape)}")
             out[name] = torch.from_numpy(arr.astype(np.float32)).to(
-                device=device, dtype=dtype)
+                device=device, dtype=torch.float32 if leaf.fp32 else dtype)
         return out
 
     return convert(schema, tree, "")

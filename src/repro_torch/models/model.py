@@ -1,5 +1,5 @@
-"""The dense decoder-only LM in PyTorch: the counterpart of the dense path
-of the JAX package's ``models/model.py``.
+"""The decoder-only LM in PyTorch, dense and SSM (Mamba2) families: the
+counterpart of those paths of the JAX package's ``models/model.py``.
 
 Parameters keep the reference's names, shapes and ``x @ W`` orientation:
 stacked ``[L, ...]`` leaves under ``params["layers"]`` (``wq`` is
@@ -8,12 +8,17 @@ can name its entries the same way in both packages. The layer loop is a
 Python loop over the views ``layers[name][i]``.
 
 The reference keeps fp32 masters and casts each to the compute dtype where
-it is used; here every parameter is cast once, when it is made or loaded.
-The result is the same, bit for bit, at half the memory.
+it is used. Here a parameter the reference only uses in the compute dtype
+is cast once, when it is made or loaded: the same bits at half the memory.
+The SSM leaves the reference uses in fp32 (``A_log``, ``ssm_D``,
+``dt_bias``, the conv weights and biases: ``Leaf.fp32``) stay fp32 and are
+cast where the reference casts them.
 
 Two entry points, matching the reference's serving path:
-  ``prefill``      fills the ring KV cache, returns last-token fp32 logits;
-  ``decode_step``  one new token against that cache, updated in place.
+  ``prefill``      fills the caches (a ring KV cache for the dense family,
+                   the SSM and conv states for Mamba2), returns last-token
+                   fp32 logits;
+  ``decode_step``  one new token against those caches, updated in place.
 """
 
 from __future__ import annotations
@@ -22,14 +27,19 @@ import math
 from collections import namedtuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ops import attention_op
+from repro_torch.kernels.ops import attention_op, ssd_op
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 
-# init is ("normal", std), ("ones",) or ("zeros",)
-Leaf = namedtuple("Leaf", ["shape", "init"])
+# init is ("normal", std), ("ones",), ("zeros",), ("a_log",) or
+# ("dt_bias",); fp32: kept in fp32 whatever the compute dtype
+Leaf = namedtuple("Leaf", ["shape", "init", "fp32"], defaults=(False,))
+
+PORTED_ARCH_TYPES = ("dense", "ssm")
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -42,10 +52,54 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
+def _ssm_leaves(cfg: ModelConfig) -> dict:
+    """The reference's ``_ssm_leaves``: one Mamba2 block per layer."""
+    s = cfg.ssm
+    d, n = cfg.d_model, cfg.num_layers
+    di = s.expand * d
+    h = di // s.head_dim
+    gn = s.ngroups * s.state_dim
+    s_in = ("normal", 0.02)
+    s_out = ("normal", 0.02 / math.sqrt(2 * n))
+    return {
+        "norm": Leaf((n, d), ("ones",)),
+        "z_proj": Leaf((n, d, di), s_in),
+        "x_proj": Leaf((n, d, di), s_in),
+        "B_proj": Leaf((n, d, gn), s_in),
+        "C_proj": Leaf((n, d, gn), s_in),
+        "dt_proj": Leaf((n, d, h), s_in),
+        "conv_x_w": Leaf((n, s.conv_width, di), ("normal", 0.2), True),
+        "conv_x_b": Leaf((n, di), ("zeros",), True),
+        "conv_B_w": Leaf((n, s.conv_width, gn), ("normal", 0.2), True),
+        "conv_B_b": Leaf((n, gn), ("zeros",), True),
+        "conv_C_w": Leaf((n, s.conv_width, gn), ("normal", 0.2), True),
+        "conv_C_b": Leaf((n, gn), ("zeros",), True),
+        "A_log": Leaf((n, h), ("a_log",), True),
+        "ssm_D": Leaf((n, h), ("ones",), True),
+        "dt_bias": Leaf((n, h), ("dt_bias",), True),
+        "gate_norm": Leaf((n, di), ("ones",)),
+        "out_proj": Leaf((n, di, d), s_out),
+    }
+
+
 def param_schema(cfg: ModelConfig) -> dict:
-    """Shapes and initialisers of the dense family's parameters, under the
-    reference's names."""
-    d, v, f = cfg.d_model, cfg.vocab_size, cfg.d_ff
+    """Shapes and initialisers of the parameters, under the reference's
+    names."""
+    schema = {"embed": Leaf((cfg.vocab_size, cfg.d_model), ("normal", 0.02)),
+              "final_norm": Leaf((cfg.d_model,), ("ones",))}
+    if not cfg.tie_embeddings:
+        schema["lm_head"] = Leaf((cfg.d_model, cfg.vocab_size),
+                                 ("normal", 0.02))
+    if cfg.arch_type == "ssm":
+        schema["layers"] = _ssm_leaves(cfg)
+    else:
+        schema["layers"] = _dense_leaves(cfg)
+    return schema
+
+
+def _dense_leaves(cfg: ModelConfig) -> dict:
+    """The reference's ``_attn_leaves`` and dense ``_mlp_leaves``."""
+    d, f = cfg.d_model, cfg.d_ff
     hd, nq, nkv, n = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
     s_in = ("normal", 0.02)
     s_out = ("normal", 0.02 / math.sqrt(2 * n))
@@ -66,19 +120,16 @@ def param_schema(cfg: ModelConfig) -> dict:
         "w_up": Leaf((n, d, f), s_in),
         "w_down": Leaf((n, f, d), s_out),
     })
-    schema = {"embed": Leaf((v, d), s_in), "final_norm": Leaf((d,), ("ones",))}
-    if not cfg.tie_embeddings:
-        schema["lm_head"] = Leaf((d, v), s_in)
-    schema["layers"] = layers
-    return schema
+    return layers
 
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str = "cuda"):
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in PORTED_ARCH_TYPES:
             raise NotImplementedError(
                 f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
-                "the port serves the dense family only (ROADMAP.md, queue A)")
+                f"the port serves {PORTED_ARCH_TYPES} only (ROADMAP.md, "
+                "queue A)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.dtype)
@@ -86,19 +137,30 @@ class Model:
     # ----- params -----
 
     def init(self, generator: torch.Generator) -> dict:
-        """Random parameters in the compute dtype, drawn on the model's device
-        from ``generator`` (which must live there too): the reference's
-        distributions, not its numbers."""
+        """Random parameters in the compute dtype (``Leaf.fp32`` ones in
+        fp32), drawn on the model's device from ``generator`` (which must
+        live there too): the reference's distributions, not its numbers."""
+        def uniform(shape, lo, hi):
+            return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                               device=self.device)
+
         def make(leaf: Leaf) -> torch.Tensor:
             kind = leaf.init[0]
             if kind == "ones":
                 t = torch.ones(leaf.shape, device=self.device)
             elif kind == "zeros":
                 t = torch.zeros(leaf.shape, device=self.device)
+            elif kind == "a_log":  # A uniform in [1, 16] (Mamba2 default)
+                t = torch.log(uniform(leaf.shape, 1.0, 16.0))
+            elif kind == "dt_bias":
+                # dt log-uniform in [1e-3, 1e-1], stored as inverse softplus
+                dt = torch.exp(uniform(leaf.shape, math.log(1e-3),
+                                       math.log(1e-1)))
+                t = dt + torch.log(-torch.expm1(-dt))
             else:
                 t = torch.randn(leaf.shape, generator=generator,
                                 device=self.device) * leaf.init[1]
-            return t.to(self.compute_dtype)
+            return t if leaf.fp32 else t.to(self.compute_dtype)
 
         schema = param_schema(self.cfg)
         params = {k: make(v) for k, v in schema.items() if k != "layers"}
@@ -147,17 +209,76 @@ class Model:
             return params["embed"].T.float()
         return params["lm_head"].float()
 
+    def mamba_sublayer(self, p: dict, h: torch.Tensor, cache: dict, *,
+                       decode: bool) -> torch.Tensor:
+        """One Mamba2 block: the reference's ``mamba_sublayer``. ``cache``
+        holds this layer's views of the SSM caches; the prefill (``decode``
+        false, from zero states) and the one-token decode write the new
+        states into them in place. Returns h with the block's output added."""
+        cfg, s_cfg = self.cfg, self.cfg.ssm
+        b, s, d = h.shape
+        di = s_cfg.expand * d
+        nh, pd = di // s_cfg.head_dim, s_cfg.head_dim
+        g, n = s_cfg.ngroups, s_cfg.state_dim
+        a = L.rms_norm(h, p["norm"], cfg.norm_eps)
+        z = a @ p["z_proj"]
+        x = a @ p["x_proj"]
+        Bm = a @ p["B_proj"]
+        Cm = a @ p["C_proj"]
+        dtr = a @ p["dt_proj"]
+        A = -torch.exp(p["A_log"])
+        if not decode:
+            x, cx = ssm_lib.causal_conv(x, p["conv_x_w"], p["conv_x_b"])
+            Bm, cb = ssm_lib.causal_conv(Bm, p["conv_B_w"], p["conv_B_b"])
+            Cm, cc = ssm_lib.causal_conv(Cm, p["conv_C_w"], p["conv_C_b"])
+            dt = F.softplus(dtr.float() + p["dt_bias"])
+            y, state = ssd_op(x.reshape(b, s, nh, pd), dt, A,
+                              Bm.reshape(b, s, g, n), Cm.reshape(b, s, g, n),
+                              p["ssm_D"], chunk=s_cfg.chunk_size)
+            y = y.reshape(b, s, di)
+        else:
+            x1, cx = ssm_lib.conv_decode_step(cache["conv_x"], x[:, 0],
+                                              p["conv_x_w"], p["conv_x_b"])
+            B1, cb = ssm_lib.conv_decode_step(cache["conv_B"], Bm[:, 0],
+                                              p["conv_B_w"], p["conv_B_b"])
+            C1, cc = ssm_lib.conv_decode_step(cache["conv_C"], Cm[:, 0],
+                                              p["conv_C_w"], p["conv_C_b"])
+            dt1 = F.softplus(dtr[:, 0].float() + p["dt_bias"])
+            y1, state = ssm_lib.ssd_decode_step(
+                cache["ssm"], x1.reshape(b, nh, pd), dt1, A,
+                B1.reshape(b, g, n), C1.reshape(b, g, n), p["ssm_D"])
+            y = y1.reshape(b, 1, di)
+        for name, new in (("ssm", state), ("conv_x", cx), ("conv_B", cb),
+                          ("conv_C", cc)):
+            cache[name].copy_(new)
+        gated = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+        return h + gated @ p["out_proj"]
+
+    def _mamba_layers(self, params: dict, h: torch.Tensor, caches: dict, *,
+                      decode: bool) -> torch.Tensor:
+        layers = params["layers"]
+        for i in range(self.cfg.num_layers):
+            p = {name: t[i] for name, t in layers.items()}
+            layer_cache = {name: t[i] for name, t in caches.items()}
+            h = self.mamba_sublayer(p, h, layer_cache, decode=decode)
+        return h
+
     # ----- entry points -----
 
     def prefill(self, params: dict, batch: dict, *, cache_len: int,
                 unembed: torch.Tensor | None = None):
         """Fill caches for ``batch["tokens"]`` [B, S]; ``unembed`` is
-        ``unembed_table(params)``, made here if not given.
+        ``unembed_table(params)``, made here if not given. The SSM family
+        builds no ring and ignores ``cache_len``, as the reference does.
         Returns (last_logits [B, V] fp32, caches)."""
         cfg = self.cfg
         tokens = batch["tokens"].long()
         b, s = tokens.shape
         h = L.embed(tokens, params["embed"], self.compute_dtype)
+        if cfg.arch_type == "ssm":
+            caches = self.init_cache(b, cache_len)
+            h = self._mamba_layers(params, h, caches, decode=False)
+            return self._logits(params, h[:, -1:], unembed)[:, 0], caches
         positions = torch.arange(s, device=self.device)
         w = self.cache_window(cache_len)
         caches = self.init_cache(b, cache_len)
@@ -186,10 +307,14 @@ class Model:
                     pos: int, *, unembed: torch.Tensor | None = None):
         """One token: tokens [B, 1]; pos, the absolute position; ``unembed``
         as in ``prefill``.
-        Writes the token's k/v into ``caches`` in place (the reference
-        donates the cache buffer) and returns (logits [B, V] fp32, caches)."""
+        Writes the token's k/v (or SSM and conv states) into ``caches`` in
+        place (the reference donates the cache buffer) and returns
+        (logits [B, V] fp32, caches)."""
         cfg = self.cfg
         h = L.embed(tokens.long(), params["embed"], self.compute_dtype)
+        if cfg.arch_type == "ssm":
+            h = self._mamba_layers(params, h, caches, decode=True)
+            return self._logits(params, h, unembed)[:, 0], caches
         b = h.shape[0]
         positions = torch.tensor([pos], device=self.device)
         layers = params["layers"]
@@ -218,12 +343,28 @@ class Model:
 
     def cache_shapes(self, batch: int, cache_len: int) -> dict:
         cfg = self.cfg
+        if cfg.arch_type == "ssm":
+            s = cfg.ssm
+            di = s.expand * cfg.d_model
+            gn = s.ngroups * s.state_dim
+            conv = (cfg.num_layers, batch, s.conv_width - 1)
+            return {"ssm": (cfg.num_layers, batch, di // s.head_dim,
+                            s.head_dim, s.state_dim),
+                    "conv_x": conv + (di,), "conv_B": conv + (gn,),
+                    "conv_C": conv + (gn,)}
         w = self.cache_window(cache_len)
         kv = (cfg.num_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
         return {"k": kv, "v": kv, "slot_pos": (cfg.num_layers, w)}
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
+        """Zero caches (slot_pos -1); the SSM state is fp32, every other
+        state or k/v leaf is in the compute dtype."""
         shapes = self.cache_shapes(batch, cache_len)
+        if self.cfg.arch_type == "ssm":
+            return {name: torch.zeros(
+                shape, device=self.device,
+                dtype=torch.float32 if name == "ssm" else self.compute_dtype)
+                for name, shape in shapes.items()}
         return {
             "k": torch.zeros(shapes["k"], dtype=self.compute_dtype,
                              device=self.device),

@@ -22,14 +22,15 @@ def make_prefill(model: Model, batch: int, cache_len: int):
 
 
 def make_decode_step(model: Model, batch: int, cache_len: int):
-    window = model.cache_window(cache_len)
+    want = model.cache_shapes(batch, cache_len)
 
     def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
                     pos: int, *, unembed: torch.Tensor | None = None):
-        if tokens.shape != (batch, 1) or caches["k"].shape[2] != window:
+        got = {name: tuple(t.shape) for name, t in caches.items()}
+        if tokens.shape != (batch, 1) or got != want:
             raise ValueError(f"decode_step: tokens {tuple(tokens.shape)}, "
-                             f"cache {tuple(caches['k'].shape)} do not match "
-                             f"batch {batch}, window {window}")
+                             f"caches {got} do not match batch {batch}, "
+                             f"cache_len {cache_len}: {want}")
         with torch.no_grad():
             return model.decode_step(params, tokens, caches, pos,
                                      unembed=unembed)

@@ -4,11 +4,15 @@ file imports no JAX, so it runs as it is on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels.py
 
-Tolerance: in bf16, the largest relative L2 error of one output row
-(``row_rel_err``) to 2e-2. Both sides round the output to bf16 (2^-8
-relative at most) and the kernel also rounds P to bf16 before P @ V, so a
-sound row errs by a few 1e-3; an absolute limit cannot serve, since causal
-rows range in size from ~1 (row 0) to ~1/sqrt(S).
+Tolerances, by the largest relative L2 error of one output row
+(``row_rel_err``): flash attention in bf16 to 2e-2. Both sides round the
+output to bf16 (2^-8 relative at most) and the kernel also rounds P to
+bf16 before P @ V, so a sound row errs by a few 1e-3; an absolute limit
+cannot serve, since causal rows range in size from ~1 (row 0) to
+~1/sqrt(S). The SSD scan: y (bf16, rows over P) to 1e-2 and the fp32 final
+state (rows over N) to 1e-3. Both sides compute in fp32 from the same bf16
+inputs, in another order and with tiles of 64 instead of chunks of 256
+(~1e-6 apart), then round y to bf16 (2^-9 relative per element).
 """
 
 import shutil
@@ -19,10 +23,14 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ops import attention_op
-from repro_torch.kernels.ref import attention_reference, row_rel_err
+from repro_torch.kernels.ops import attention_op, ssd_op
+from repro_torch.kernels.ref import (attention_reference, row_rel_err,
+                                     ssd_chunked_reference)
+from repro_torch.kernels.ssd import ssd_chunked_kernel
 
 BF16_ROW_RTOL = 2e-2
+SSD_Y_ROW_RTOL = 1e-2
+SSD_STATE_ROW_RTOL = 1e-3
 
 # (B, Hq, Hkv, Sq, Sk, D, window): tests/test_kernels.py's grid and
 # windows, then the serving path's shapes
@@ -51,6 +59,34 @@ def test_flash_attention_refuses_cpu_tensors():
     assert flash_attention.launches == before
 
 
+def _ssd_inputs(b, s, h, p, g, n, device="cpu", seed=0):
+    """x ~ N(0, 1), dt = softplus(N(0, 1)), A = -exp(U[0, 1]),
+    B/C ~ N(0, 1/4), D = 1, as in tests/test_kernels.py; x, B, C bf16."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    return (randn(b, s, h, p).bfloat16(),
+            torch.nn.functional.softplus(randn(b, s, h)),
+            -torch.exp(torch.rand((h,), generator=gen, device=device)),
+            (randn(b, s, g, n) * 0.5).bfloat16(),
+            (randn(b, s, g, n) * 0.5).bfloat16(),
+            torch.ones((h,), device=device))
+
+
+def test_ssd_kernel_refuses_cpu_tensors():
+    """The kernel wrapper never computes on the CPU: the plain version
+    does, chosen by ssd_op, and the launch counter stays still."""
+    args = _ssd_inputs(1, 40, 2, 32, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunked_kernel(*args)
+    before = ssd_chunked_kernel.launches
+    y, st = ssd_op(*args, chunk=32)
+    assert y.shape == args[0].shape and y.dtype == torch.bfloat16
+    assert st.shape == (1, 2, 32, 16) and st.dtype == torch.float32
+    assert ssd_chunked_kernel.launches == before
+
+
 def test_build_without_nvcc_raises():
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("nvcc is installed here")
@@ -62,6 +98,7 @@ def test_source_hash_names_the_library():
     h = build.source_hash()
     assert len(h) == 16 and h == build.source_hash()
     assert (build.CSRC / "flash_attention.cu").is_file()
+    assert (build.CSRC / "ssd.cu").is_file()
 
 
 def test_row_rel_err_finds_one_wrong_row():
@@ -122,3 +159,65 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         flash_attention(q, q, q)
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(*(torch.zeros((1, 64, 2, 64), device=cuda),) * 3)
+
+
+# (B, S, H, P, G, N): tests/test_kernels.py's SSD grid, then the serving
+# path's shapes (mamba2-370m, 8 prompts padded to 1024; ragged 1000)
+SSD_SHAPES = [
+    (2, 128, 4, 32, 1, 16),
+    (1, 64, 2, 64, 1, 64),
+    (1, 128, 4, 64, 1, 128),
+    (1, 96, 4, 32, 2, 16),
+    (1, 100, 2, 32, 1, 16),
+    (8, 1024, 32, 64, 1, 128),
+    (8, 1000, 32, 64, 1, 128),
+    (2, 512, 8, 64, 2, 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_SHAPES)
+def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n):
+    args = _ssd_inputs(b, s, h, p, g, n, device=cuda, seed=s + h)
+    before = ssd_chunked_kernel.launches
+    y, st = ssd_op(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd_chunked_kernel.launches == before + 1
+    y_ref, st_ref = ssd_chunked_reference(*args, chunk=256)
+    assert y.dtype == torch.bfloat16 and y.shape == args[0].shape
+    assert st.dtype == torch.float32 and st.shape == (b, h, p, n)
+    assert row_rel_err(y, y_ref) <= SSD_Y_ROW_RTOL
+    assert row_rel_err(st, st_ref) <= SSD_STATE_ROW_RTOL
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_reads_strided_views(cuda):
+    """x, B and C sliced out of one fused projection give the same result
+    as contiguous copies."""
+    b, s, h, p, n = 2, 130, 4, 32, 16
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    fused = torch.randn((b, s, h * p + 2 * n), generator=gen, device=cuda,
+                        dtype=torch.bfloat16)
+    x = fused[..., :h * p].unflatten(-1, (h, p))
+    B = fused[..., h * p:h * p + n].unsqueeze(2)
+    C = fused[..., h * p + n:].unsqueeze(2)
+    _, dt, A, _, _, D = _ssd_inputs(b, s, h, p, 1, n, device=cuda)
+    y, st = ssd_chunked_kernel(x, dt, A, B, C, D)
+    y2, st2 = ssd_chunked_kernel(x.contiguous(), dt, A, B.contiguous(),
+                                 C.contiguous(), D)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
+    args = list(_ssd_inputs(1, 64, 2, 48, 1, 16, device=cuda))
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_chunked_kernel(*args)
+    args = list(_ssd_inputs(1, 64, 2, 32, 1, 32, device=cuda))
+    with pytest.raises(ValueError, match="state_dim"):
+        ssd_chunked_kernel(*args)
+    args = list(_ssd_inputs(1, 64, 2, 32, 1, 16, device=cuda))
+    args[0] = args[0].float()
+    with pytest.raises(TypeError, match="bfloat16"):
+        ssd_chunked_kernel(*args)

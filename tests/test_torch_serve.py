@@ -1,6 +1,6 @@
 """The port's serving path against the JAX package's ``ServeEngine`` on
-tiny fp32 qwen2.5-3b, the serving CLI on the CPU, and the port's
-independence from JAX and from the reference package.
+tiny fp32 qwen2.5-3b and mamba2-370m, the serving CLI on the CPU, and the
+port's independence from JAX and from the reference package.
 
 Greedy tokens must be identical: fp32 logits agree to ~1e-6 (see
 test_torch_model.py), far inside any gap between the top two logits of
@@ -31,25 +31,35 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.step import make_decode_step
 
 ARCH = "qwen2.5-3b"
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
-@pytest.fixture(scope="module")
-def engines():
+def _engines(arch: str):
     """(JAX engine, port engine) over the same fp32 weights, batch 3."""
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
-    jcfg = jreduced(jget_config(ARCH), dtype="float32")
+    jcfg = jreduced(jget_config(arch), dtype="float32")
     jm = JModel(jcfg, make_rules(mesh))
     jp = jm.init(jax.random.key(0))
-    cfg = reduced(get_config(ARCH), dtype="float32")
+    cfg = reduced(get_config(arch), dtype="float32")
     m = Model(cfg, device="cpu")
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     return (JServeEngine(jm, jp, batch=3, cache_len=24),
             ServeEngine(m, tp, batch=3, cache_len=24, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return _engines(ARCH)
+
+
+@pytest.fixture(scope="module")
+def mamba_engines():
+    return _engines("mamba2-370m")
 
 
 def _prompts(vocab, lens, seed=0):
@@ -68,6 +78,27 @@ def test_greedy_tokens_match_reference(engines, lens, new):
                           for p in prompts])
     assert [r.generated for r in tout] == [r.generated for r in jout]
     assert all(len(r.generated) == new for r in tout[:len(lens)])
+
+
+@pytest.mark.parametrize("lens,new", [((5, 11, 8), 6),   # mixed lengths
+                                      ((40, 3), 12)])    # padded batch, 2 chunks
+def test_mamba_greedy_tokens_match_reference(mamba_engines, lens, new):
+    jeng, teng = mamba_engines
+    prompts = _prompts(teng.model.cfg.vocab_size, lens, seed=len(lens) + 7)
+    jout = jeng.generate([JRequest(prompt=p, max_new_tokens=new)
+                          for p in prompts])
+    tout = teng.generate([Request(prompt=p, max_new_tokens=new)
+                          for p in prompts])
+    assert [r.generated for r in tout] == [r.generated for r in jout]
+    assert all(len(r.generated) == new for r in tout[:len(lens)])
+
+
+def test_mamba_decode_step_checks_the_cache(mamba_engines):
+    _, teng = mamba_engines
+    step = make_decode_step(teng.model, 3, 24)
+    with pytest.raises(ValueError, match="batch 3"):
+        step(teng.params, torch.zeros((3, 1), dtype=torch.long),
+             teng.model.init_cache(2, 24), 0)
 
 
 def test_engine_keeps_the_reference_quirks(engines):
@@ -110,11 +141,19 @@ def test_engine_defaults_to_the_card(engines):
         ServeEngine(teng.model, teng.params, batch=3, cache_len=24)
 
 
-def test_serve_cli_on_cpu(capsys):
-    serve_cli.main(["--device", "cpu", "--requests", "3", "--new-tokens", "4",
-                    "--batch", "2", "--cache-len", "32"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2.5-3b"])
+def test_serve_cli_on_cpu(capsys, arch):
+    serve_cli.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                    "--new-tokens", "4", "--batch", "2", "--cache-len", "32"])
     out = capsys.readouterr().out
     assert "served 3 requests, 12 tokens" in out and "on CPU" in out
+    assert f"{arch}-tiny" in out
+
+
+def test_serve_cli_defaults_to_mamba2(capsys):
+    serve_cli.main(["--device", "cpu", "--requests", "1", "--new-tokens", "2",
+                    "--batch", "1"])
+    assert "mamba2-370m-tiny" in capsys.readouterr().out
 
 
 def _imported_modules(path: Path) -> set[str]:
