@@ -8,9 +8,9 @@ Phases, one line or more each; any failure exits non-zero:
   2. build: every CUDA kernel from src/repro_torch/csrc, with ptxas's
      register and shared-memory report.
   3. kernels: each kernel (flash attention, the SSD scan) against its plain
-     PyTorch version at the serving paths' shapes, then its time beside
-     the plain version's and the library call's (SDPA; none for SSD), and
-     its bound on the card.
+     PyTorch version at the serving paths' shapes and their edges, then its
+     time and achieved TFLOP/s beside the plain version's time, the
+     library call's (SDPA; none for SSD) and its bound on the card.
   4. reference: tiny qwen2.5-3b and tiny mamba2-370m in bf16 on the card
      against the plain CPU path.
   5. serve, once per model: qwen2.5-3b (36 layers) and mamba2-370m (48
@@ -60,19 +60,20 @@ REFERENCE_ROW_RTOL = 3e-2
 CONSISTENCY_RTOL = 5e-2
 # The SSD kernel against its plain version (the chunked scan at the
 # model's chunk of 256): y by the worst row over P, the final state by the
-# worst row over N. Both compute in fp32 from the same bf16 inputs, in
-# another order and with tiles of 64 instead of chunks of 256 (~1e-6
-# relative apart). y is then rounded to bf16 on both sides (2^-9 relative
-# per element), so a sound row of y errs by ~1e-3 at most, and the fp32
-# state by ~1e-5. A dropped term, a position past S or a diagonal off by
-# one moves whole rows by a sizeable fraction of their size.
+# worst row over N. Both start from the same bf16 inputs; the kernel runs
+# its products on bf16 tensor cores with every fp32 operand split into a
+# bf16 hi and lo part (~2^-16 relative per term, csrc/ssd.cu's error
+# budget), in tiles of 32 instead of chunks of 256. y is then rounded to
+# bf16 on both sides (2^-9 relative per element), so a sound row of y errs
+# by ~3e-3 at most, and the fp32 state by ~3e-5. A dropped term, a
+# position past S, a diagonal off by one or a lost lo part moves whole rows
+# by a sizeable fraction of their size or the state past 1e-3.
 SSD_Y_ROW_RTOL = 1e-2
 SSD_STATE_ROW_RTOL = 1e-3
 
 QWEN, MAMBA = "qwen2.5-3b", "mamba2-370m"
 BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
 PROMPT_LENS = (256, 1024)
-SSD_TILE = 64  # csrc/ssd.cu's kTile
 
 
 def say(phase: str, msg: str) -> None:
@@ -98,35 +99,44 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def attention_flops(b: int, hq: int, s: int, d: int) -> int:
+    """Causal attention's work: 4*d FLOPs per unmasked (q, k) pair."""
+    return 4 * d * (s * (s + 1) // 2) * b * hq
+
+
 def attention_bound(b: int, hq: int, hkv: int, s: int,
                     d: int) -> tuple[float, str]:
     """Least time (ms) for causal attention on these shapes, and what sets
-    it: the unmasked (q, k) pairs' 4*d FLOPs each over the bf16 peak, or
-    one read of q, k, v and one write of o over the memory rate."""
-    pairs = s * (s + 1) // 2
-    ops_ms = 1e3 * 4 * d * pairs * b * hq / PEAK_BF16_FLOPS
+    it: its FLOPs over the bf16 peak, or one read of q, k, v and one write
+    of o over the memory rate."""
+    ops_ms = 1e3 * attention_flops(b, hq, s, d) / PEAK_BF16_FLOPS
     bytes_ms = 1e3 * 2 * b * s * d * (2 * hq + 2 * hkv) / PEAK_BYTES_PER_S
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
 
+def ssd_flops(b: int, s: int, h: int, p: int, g: int, n: int) -> int:
+    """The SSD scan's least work at the kernel's tile L: per (batch, group,
+    tile) the lower triangle of C . B^T, 2 N FLOPs per (i >= j) pair; per
+    (batch, head, tile) the triangle of M @ x, 2 P per pair; per token and
+    head the inter-chunk term and the state update, 2 N P each. Decays and
+    dt weights are O(S H) and left out."""
+    from repro_torch.kernels.ssd import TILE
+    tiles = -(-s // TILE)
+    pairs = TILE * (TILE + 1) // 2
+    return (b * g * tiles * pairs * 2 * n + b * h * tiles * pairs * 2 * p
+            + b * h * s * 4 * n * p)
+
+
 def ssd_bound(b: int, s: int, h: int, p: int, g: int, n: int, *,
-              tile: int = SSD_TILE,
-              peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    """Least time (ms) for the SSD scan on these shapes at ``peak_flops``,
-    and what sets it. Operations: per (batch, group, tile) the lower
-    triangle of C . B^T, 2 N FLOPs per (i >= j) pair; per (batch, head,
-    tile) the triangle of M @ x, 2 P per pair; per token and head the
-    inter-chunk term and the state update, 2 N P each. Bytes: one read of
-    x, dt, B, C and one write of y (bf16 except dt) and of the fp32 final
-    state. Decays and dt weights are O(S H) and left out."""
-    tiles = -(-s // tile)
-    pairs = tile * (tile + 1) // 2
-    flops = (b * g * tiles * pairs * 2 * n + b * h * tiles * pairs * 2 * p
-             + b * h * s * 4 * n * p)
+              peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """Least time (ms) for the SSD scan on these shapes at ``peak_flops``
+    (the kernel's products run on bf16 tensor cores), and what sets it:
+    ``ssd_flops``, or one read of x, dt, B, C and one write of y (bf16
+    except dt) and of the fp32 final state."""
     nbytes = (2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * g * n
               + 4 * b * h * p * n)
-    ops_ms = 1e3 * flops / peak_flops
+    ops_ms = 1e3 * ssd_flops(b, s, h, p, g, n) / peak_flops
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -169,19 +179,22 @@ def phase_kernels(card: str) -> dict:
         return [torch.randn((b, s, h, d), generator=gen, device="cuda",
                             dtype=torch.bfloat16) for h in (hq, hkv, hkv)]
 
-    # (name, B, S, Hq, Hkv, D, window): the serving path's prefill shape
-    # first (8 prompts padded to 1024, qwen2.5-3b heads), then its variants
-    cases = [("main", BATCH, PROMPT_LENS[1], 16, 2, 128, 0),
-             ("ragged", BATCH, 1000, 16, 2, 128, 0),
-             ("window", BATCH, 1024, 16, 2, 128, 256),
-             ("d64", 4, 512, 8, 2, 64, 0)]
+    # (name, B, S, Hq, Hkv, D, window, causal): the serving path's prefill
+    # shape first (8 prompts padded to 1024, qwen2.5-3b heads), then its
+    # variants; non-causal at S = 1000, where only the `kpos < Sk` mask
+    # hides the zero keys past Sk in the last 128-key tile
+    cases = [("main", BATCH, PROMPT_LENS[1], 16, 2, 128, 0, True),
+             ("ragged", BATCH, 1000, 16, 2, 128, 0, True),
+             ("window", BATCH, 1024, 16, 2, 128, 256, True),
+             ("d64", 4, 512, 8, 2, 64, 0, True),
+             ("noncausal", 2, 1000, 16, 2, 128, 0, False)]
     worst, failed = 0.0, []
-    for name, b, s, hq, hkv, d, window in cases:
+    for name, b, s, hq, hkv, d, window, causal in cases:
         q, k, v = qkv(b, s, hq, hkv, d)
-        out = flash_attention(q, k, v, causal=True, window=window)
+        out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = attention_reference(*(t.transpose(1, 2) for t in (q, k, v)),
-                                  causal=True, window=window).transpose(1, 2)
+                                  causal=causal, window=window).transpose(1, 2)
         err = (out.float() - ref.float()).abs().max().item()
         rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
         row = row_rel_err(out, ref)
@@ -190,14 +203,15 @@ def phase_kernels(card: str) -> dict:
         if not ok:
             failed.append(name)
         say("kernels", f"flash_attention {name} B={b} S={s} Hq={hq} Hkv={hkv}"
-            f" D={d} window={window}: worst row rel L2 err {row:.3e} (tol "
+            f" D={d} window={window} causal={causal}: worst row rel L2 err "
+            f"{row:.3e} (tol "
             f"{KERNEL_ROW_RTOL}), all rel L2 {rel:.3e}, max abs err "
             f"{err:.3e}, mean |ref| {ref.float().abs().mean().item():.3e} "
             f"{'ok' if ok else 'FAIL'}")
     if failed:
         fail("kernels", f"flash_attention disagrees with plain: {failed}")
 
-    _, b, s, hq, hkv, d, _ = cases[0]
+    _, b, s, hq, hkv, d, _, _ = cases[0]
     q, k, v = qkv(b, s, hq, hkv, d)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=50)
@@ -206,9 +220,11 @@ def phase_kernels(card: str) -> dict:
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), iters=50)
     bound_ms, bound_by = attention_bound(b, hq, hkv, s, d)
-    say("kernels", f"flash_attention main: {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}) on {card}")
+    tflops = attention_flops(b, hq, s, d) / ms / 1e9
+    say("kernels", f"flash_attention main: {ms:.4f} ms ({tflops:.1f} TFLOP/s"
+        f"), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+        f"({library_ms / ms:.3f}x the kernel's speed), bound {bound_ms:.4f} "
+        f"ms ({bound_by}, {100 * bound_ms / ms:.1f}% reached) on {card}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
@@ -247,10 +263,12 @@ def phase_ssd_kernels(card: str) -> dict:
     heads = scfg.expand * get_config(MAMBA).d_model // scfg.head_dim
     # (name, B, S, H, P, G, N): the serving path's prefill shape first (8
     # prompts padded to 1024, mamba2-370m's heads and state), then its
-    # variants and tiny mamba2-370m's shape
+    # variants (S one position into a second tile) and tiny mamba2-370m's
+    # shape
     cases = [("main", BATCH, PROMPT_LENS[1], heads, scfg.head_dim, 1,
               scfg.state_dim),
              ("ragged", BATCH, 1000, heads, scfg.head_dim, 1, scfg.state_dim),
+             ("s65", 2, 65, heads, scfg.head_dim, 1, scfg.state_dim),
              ("grouped", 2, 512, 8, 64, 2, 64),
              ("tiny", 2, 100, 16, 32, 1, 16)]
     worst, failed = 0.0, []
@@ -281,11 +299,13 @@ def phase_ssd_kernels(card: str) -> dict:
     plain_ms = cuda_ms(lambda: ssd_chunked_reference(*args, chunk=chunk),
                        iters=5, warmup=1)
     bound_ms, bound_by = ssd_bound(b, s, h, p, g, n)
-    tc_ms, tc_by = ssd_bound(b, s, h, p, g, n, peak_flops=PEAK_BF16_FLOPS)
-    say("kernels", f"ssd main: {ms:.4f} ms, plain {plain_ms:.4f} ms, no "
-        f"library call, bound {bound_ms:.4f} ms ({bound_by}, fp32 CUDA "
-        f"cores, the kernel's arithmetic), tensor-core bound {tc_ms:.4f} ms "
-        f"({tc_by}, bf16) on {card}")
+    fp32_ms, fp32_by = ssd_bound(b, s, h, p, g, n, peak_flops=PEAK_FP32_FLOPS)
+    tflops = ssd_flops(b, s, h, p, g, n) / ms / 1e9
+    say("kernels", f"ssd main: {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
+        f"({bound_by}, bf16 tensor cores, the kernel's arithmetic; "
+        f"{100 * bound_ms / ms:.1f}% reached), fp32 CUDA-core bound "
+        f"{fp32_ms:.4f} ms ({fp32_by}) on {card}")
     return {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:27", "launches": None,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,

@@ -1,59 +1,260 @@
-// Forward flash attention for Hopper (sm_90a), bf16 in, fp32 accumulate.
+// Forward flash attention for Hopper (sm_90a): bf16 in, fp32 accumulate,
+// TMA loads and warpgroup MMA (wgmma), warp-specialised.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention.py: GQA attention with an online
 // softmax, causal and/or sliding-window masks on absolute positions that
 // both count from 0, padded KV columns masked by `kpos < Sk`, and the final
-// division clamping the row sum at 1e-30.
-//
-// Design. One thread block of four warps owns one (batch, q head, 64-row
-// q tile); each warp owns 16 of those rows. The Q fragments, the running
-// max m, the running sum l and the output accumulator stay in registers
-// for the whole KV loop, so a block reads its Q tile once, each reachable
-// K/V tile once (K and V, 8 MB at the prefill shape, fit the 50 MB L2 that
-// serves the other q tiles' re-reads) and writes its O tile once. The KV
-// loop is bounded by causality and the window instead of testing every
-// tile. Both products are `mma.sync.m16n8k16` bf16 -> fp32 tensor-core
-// instructions; P is rounded to bf16 for the second one, as
-// FlashAttention-2 does. Q, K and V reach the kernel in the model layout
-// [B, S, H, D] through strides, so the caller transposes nothing; the kv
-// head is q_head / (Hq / Hkv).
+// division clamping the row sum at 1e-30. P is rounded to bf16 before
+// P @ V. The kv head of q head h is h / (Hq / Hkv).
 //
 // What bounds it. At the prefill shape (B = 8, S = 1024, Hq = 16, Hkv = 2,
 // D = 128, causal) the work is 4 * D FLOPs per unmasked (q, k) pair,
 // 34.4 GFLOP against 75.5 MB of compulsory traffic: ~455 FLOPs per byte,
-// above the H100's ~295 bf16 FLOPs per byte, so the card's bound is the
-// tensor cores (~35 us at 989 TFLOP/s). This first version cannot reach
-// it: `mma.sync` runs at a fraction of the `wgmma` rate, and the tile
-// loads are synchronous, so every warp waits on device memory once per
-// tile. A block holds 17 KB of K and 18 KB of V in shared memory and
-// 128 threads of ~180 registers, so two blocks share an SM and hide part
-// of that wait. TMA loads into a ring of tiles, `wgmma` and a producer
-// warp are the later redesign.
+// above the H100's ~295 bf16 FLOPs per byte, so the bound is the tensor
+// cores (~35 us at 989 TFLOP/s), which only `wgmma` reaches.
 //
-// The C entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// Design. A block of two consumer warpgroups and one producer warpgroup
+// owns one (batch, q head, 128-row q tile); the grid is (ceil(Sq / 128),
+// B * Hq), the longest causal tiles first.
+//   - The producer warpgroup (warps 8-11) gives its registers away
+//     (`setmaxnreg` 40, the consumers take 232) and one thread of it issues
+//     every load: the Q tile once, then (K tile, V tile) pairs of
+//     kBlockK = 64 keys into a ring of kStages = 4 stages, each signalled
+//     by its own `mbarrier` (full per K and per V, empty per stage). The
+//     loads are TMA copies through one 4-D tensor map per operand over
+//     (D, H, S, B) with the caller's strides and the 128-byte swizzle, so
+//     a tile of D columns is D / 64 boxes of 64 columns (128 bytes). Rows
+//     past S arrive as zeros.
+//   - Warpgroups 0 and 1 are the consumers, 64 q rows each. Per tile: S =
+//     Q K^T as D / 16 `wgmma.m64n64k16` with both operands read from
+//     shared memory (K [key][d] is K-major); the online softmax in
+//     registers in the log2 domain, rows reduced across the quad of the
+//     accumulator layout; P rounded to bf16 straight from the S
+//     accumulators into A fragments; O += P V as 4 `wgmma.m64nDk16` with A
+//     from registers and V [key][d], which is MN-major, read with the
+//     transpose bit. Only tiles that touch the diagonal, the window edge or
+//     Sk compute a mask: TMA's zero rows past Sk would score 0, not -inf.
+//   - The consumer loop is pipelined across two wgmma groups: S of tile i
+//     is issued before P V of tile i - 1, and the softmax of tile i runs
+//     while that P V is on the tensor cores; the output is rescaled and the
+//     stage released once it completes.
+//   - Registers set the tile. The kernel is compiled for 168 registers a
+//     thread (`__maxnreg__`: 384 threads, 3 warps on each of the SM's four
+//     register-file partitions). 128-key tiles need ~190 (S 64 + O 64 +
+//     P 32 + the rest) and spill at every `setmaxnreg` split tried (24/240
+//     to 72/216: ptxas does not budget the consumers' code above the
+//     kernel's count); 64-key tiles need S 32 + O 64 + P 16 and fit. The
+//     `setmaxnreg` pair still pays at 64-key tiles, ~6-8% in one call
+//     against the same block without it (chip_smoke.py via
+//     scripts/chip_variants.sh).
+//   - Shared memory, 1024-byte aligned: Q (128 x D bf16) + kStages x (K +
+//     V) (2 x 64 x D bf16): 160 KB at D = 128 (164,968 bytes requested
+//     with the alignment slack and barriers), 80 KB at D = 64; one block
+//     of 384 threads per SM.
+// The producer keeps loads up to four tiles ahead, and each consumer's
+// softmax also overlaps the other's wgmma. Left for later: ping-pong
+// ordering of the two consumers and a persistent grid.
+//
+// The C entry point builds the tensor maps on the host
+// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+// nothing links libcuda), launches on the caller's stream, allocates
+// nothing and returns a cudaError_t.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = 128;  // q rows per block: two consumers of 64
+constexpr int kBlockK = 64;   // keys per tile
+constexpr int kStages = 4;
+constexpr int kThreads = 3 * 128;  // two consumer warpgroups, a producer warpgroup
+constexpr int kBoxCols = 64;  // bf16 columns per TMA box: the 128-byte swizzle span
+constexpr int kQBoxBytes = kBlockQ * 128;   // a box of 128 q rows
+constexpr int kKVBoxBytes = kBlockK * 128;  // a box of one key tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier ------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// Returns once the phase of parity `parity` has completed. A phase that
+// never completes (a lost arrival or a wrong byte count) traps after
+// ~2^26 polls, seconds, instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// ---- TMA -----------------------------------------------------------------
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+// ---- wgmma ---------------------------------------------------------------
+// Shared-memory matrix descriptor for the 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Waits until at most N committed wgmma groups of this warpgroup are
+// still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Pins registers in program order around the asynchronous wgmma: no
+// access to them moves across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A from registers, B from
+// shared memory stored MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_m64n128_tb(float* d, const uint32_t* a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A from registers, B from
+// shared memory stored MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_m64n64_tb(float* d, const uint32_t* a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// S (+)= Q K^T over one key tile, N = kBlockK.
+__device__ __forceinline__ void wgmma_qk(float* d, uint64_t a, uint64_t b,
+                                         int accumulate) {
+  if constexpr (kBlockK == 128) {
+    wgmma_ss_m64n128(d, a, b, accumulate);
+  } else {
+    wgmma_ss_m64n64(d, a, b, accumulate);
+  }
+}
+
+// O (+)= P V, N = D.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t b,
+                                         int accumulate) {
+  if constexpr (D == 128) {
+    wgmma_rs_m64n128_tb(d, a, b, accumulate);
+  } else {
+    wgmma_rs_m64n64_tb(d, a, b, accumulate);
+  }
 }
 
 // Two floats -> one register of two bf16, the first in the low half.
@@ -62,31 +263,137 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Descriptors of the operands: tiles of D / 64 swizzled boxes of
+// [row][64 columns], each box 1024-byte aligned.
+// K-major (Q rows, K keys) at k-step kk (d in [16 kk, 16 kk + 16)): 8-row
+// groups 1024 bytes apart; a k-step moves 32 bytes inside a box.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int box_bytes, int kk) {
+  return sw128_desc(tile + (kk / 4) * box_bytes + (kk % 4) * 32, 16, 1024);
+}
+// V keys [16 kk, 16 kk + 16) x all D columns: MN-major, 8-key groups 1024
+// bytes apart, the two 64-column boxes (D = 128) one box apart.
+__device__ __forceinline__ uint64_t desc_v(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, kKVBoxBytes, 1024);
 }
 
-// Fragment layout of m16n8k16 (lane = 4 * g + t):
-//   A (16x16): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
-//              a3 = (g+8, 2t+8..)
-//   B (16x8):  b0 = (k = 2t..2t+1, n = g), b1 = (k = 2t+8.., n = g)
-//   C (16x8):  c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// Fragment layout of a wgmma accumulator [64 x N] in warpgroup thread
+// 32 w + 4 g + t: element 4 j + e is row 16 w + g + 8 (e / 2), column
+// 8 j + 2 t + e % 2. A register A fragment for k-step kk (columns 16 kk..)
+// holds elements 8 kk + 0..7 of the same layout, packed in pairs.
+
+// S = Q K^T for this warpgroup's 64 rows and one key tile, committed as
+// one wgmma group.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
-                 int Sk, long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sh,
-                 long long v_sb, long long v_ss, long long v_sh,
+__device__ __forceinline__ void issue_qk(float (&sacc)[kBlockK / 2], uint32_t q_rows,
+                                         uint32_t k_tile) {
+  fence_regs(sacc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_qk(sacc, desc_kmajor(q_rows, kQBoxBytes, kk),
+             desc_kmajor(k_tile, kKVBoxBytes, kk), kk > 0);
+  wgmma_commit();
+}
+
+// O += P V for one tile, P in registers, committed as one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         uint32_t (&pa)[kBlockK / 16][4],
+                                         uint32_t sV, int stage) {
+  constexpr int kTileBytes = kBlockK * D * 2;
+  const uint32_t v_tile = sV + stage * kTileBytes;
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) fence_regs(pa[kk]);
+  fence_regs(oacc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk)
+    wgmma_pv<D>(oacc, pa[kk], desc_v(v_tile, kk), 1);
+  wgmma_commit();
+}
+
+// The online softmax of one tile of scores in sacc, in place: masks (when
+// `masked`), the running max m and sum l of this thread's two rows, p =
+// exp2(s * scale - max * scale), and corr = exp2((m_old - m_new) * scale)
+// for the output accumulator. The products are rounded apart from the
+// subtraction, so a row whose every key is masked gets exp2(0), as the
+// plain version's uniform softmax of equal scores does.
+__device__ __forceinline__ void online_softmax(float (&sacc)[kBlockK / 2], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               bool masked, int row0, int k_lo,
+                                               int t, int Sk, int causal,
+                                               int window, float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + (e >> 1) * 8;
+        const int c = k_lo + j * 8 + 2 * t + (e & 1);
+        bool ok = c < Sk;
+        if (causal) ok = ok && r >= c;
+        if (window > 0) ok = ok && c > r - window;
+        if (!ok) sacc[4 * j + e] = kNegInf;
+      }
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+  }
+  float ms[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+    ms[rr] = __fmul_rn(mx[rr], scale_log2);
+    corr[rr] = exp2f(__fmul_rn(m[rr], scale_log2) - ms[rr]);
+    m[rr] = mx[rr];
+    l[rr] *= corr[rr];
+  }
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(__fmul_rn(sacc[4 * j + e], scale_log2) - ms[e >> 1]);
+      sacc[4 * j + e] = p;
+      l[e >> 1] += p;
+    }
+  }
+}
+
+// P in bf16, straight from the S accumulators into A fragments.
+__device__ __forceinline__ void pack_p(const float (&sacc)[kBlockK / 2],
+                                       uint32_t (&pa)[kBlockK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+}
+
+template <int D>
+__global__ void __maxnreg__(168)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq, int Sk,
                  long long o_sb, long long o_ss, long long o_sh,
                  float scale_log2, int causal, int window) {
-  // Padded rows keep the fragment reads free of bank conflicts.
-  constexpr int kStrideK = D + 8;        // K tile, [key][d]
-  constexpr int kStrideV = kBlockK + 8;  // V tile transposed, [d][key]
-  __shared__ __align__(16) __nv_bfloat16 k_tile[kBlockK * kStrideK];
-  __shared__ __align__(16) __nv_bfloat16 vt_tile[D * kStrideV];
+  constexpr int kQBytes = kBlockQ * D * 2;
+  constexpr int kTileBytes = kBlockK * D * 2;  // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sK = sQ + kQBytes;               // + stage * kTileBytes
+  const uint32_t sV = sK + kStages * kTileBytes;  // + stage * kTileBytes
+  const uint32_t bars = sV + kStages * kTileBytes;
+  const uint32_t q_full = bars;
+  const uint32_t k_full = bars + 8;                 // + 8 * stage
+  const uint32_t v_full = bars + 8 * (1 + kStages);  // + 8 * stage
+  const uint32_t empty = bars + 8 * (1 + 2 * kStages);
 
   // Causal tiles near the end of the sequence do the most work: start them
   // first so the short ones fill the tail of the grid.
@@ -94,188 +401,328 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.y / Hq;
   const int h = blockIdx.y % Hq;
   const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int q_lo = q_tile * kBlockQ;
-  const int row0 = q_lo + warp * 16 + g;  // this thread's rows: row0, row0+8
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + (i & 1) * 8;
-      const int c = kk * 16 + (i >> 1) * 8 + 2 * t;
-      qf[kk][i] = r < Sq ? load_u32(qb + r * q_ss + c) : 0u;
-    }
-  }
-
   int kt_end = (Sk + kBlockK - 1) / kBlockK;
   if (causal) kt_end = min(kt_end, (q_lo + kBlockQ - 1) / kBlockK + 1);
   int kt_begin = 0;
   if (window > 0 && q_lo - window + 1 > 0)
     kt_begin = (q_lo - window + 1) / kBlockK;
+  const int n_tiles = max(kt_end - kt_begin, 0);
 
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad last
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k_lo = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous tile
-    // Neighbouring lanes take neighbouring keys, so both the K stores and
-    // the transposed V stores hit distinct shared-memory banks.
-    for (int i = threadIdx.x; i < kBlockK * (D / 8); i += kThreads) {
-      const int r = i % kBlockK;
-      const int c = (i / kBlockK) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0);
-      uint4 vv = make_uint4(0, 0, 0, 0);
-      if (k_lo + r < Sk) {  // rows past Sk are zeros, never garbage
-        kv = *reinterpret_cast<const uint4*>(kb + (k_lo + r) * k_ss + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (k_lo + r) * v_ss + c);
-      }
-      *reinterpret_cast<uint4*>(&k_tile[r * kStrideK + c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt_tile[(c + j) * kStrideV + r] = ve[j];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);  // every consumer thread
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kp = &k_tile[(n * 8 + g) * kStrideK + kk * 16 + 2 * t];
-        const uint32_t bf[2] = {load_u32(kp), load_u32(kp + 8)};
-        mma_16816(s[n], qf[kk], bf);
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread issues, the rest leave -----------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, kQBytes);
+      for (int c = 0; c < D / kBoxCols; ++c)
+        tma_load_4d(sQ + c * kQBoxBytes, &tm_q, q_full, c * kBoxCols, h, q_lo, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i % kStages;
+        const uint32_t lap = i / kStages;
+        mbar_wait(empty + 8 * stage, (lap & 1) ^ 1);
+        const int k_lo = (kt_begin + i) * kBlockK;
+        // a ragged last tile still counts whole boxes: TMA writes the zeros
+        mbar_expect_tx(k_full + 8 * stage, kTileBytes);
+        for (int c = 0; c < D / kBoxCols; ++c)
+          tma_load_4d(sK + stage * kTileBytes + c * kKVBoxBytes, &tm_k,
+                      k_full + 8 * stage, c * kBoxCols, hk, k_lo, b);
+        mbar_expect_tx(v_full + 8 * stage, kTileBytes);
+        for (int c = 0; c < D / kBoxCols; ++c)
+          tma_load_4d(sV + stage * kTileBytes + c * kKVBoxBytes, &tm_v,
+                      v_full + 8 * stage, c * kBoxCols, hk, k_lo, b);
       }
     }
+  } else {
+    // ---- consumers -------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int cw = threadIdx.x / 128;  // rows [64 cw, 64 cw + 64) of the q tile
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int g = (tid % 32) >> 2;
+    const int t = tid & 3;
+    const int r_lo = q_lo + 64 * cw;
+    const int row0 = r_lo + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const uint32_t q_rows = sQ + 64 * cw * 128;  // inside each box
 
-    // Mask, then scale into the log2 domain (exp2 is one instruction).
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad last
+    float corr[2];
+    float sacc[kBlockK / 2];
+    float oacc[D / 2];
+    uint32_t pa[kBlockK / 16][4];
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + (e >> 1) * 8;
-        const int c = k_lo + n * 8 + 2 * t + (e & 1);
-        bool ok = c < Sk;
-        if (causal) ok = ok && r >= c;
-        if (window > 0) ok = ok && c > r - window;
-        s[n][e] = ok ? s[n][e] * scale_log2 : kNegInf;
+    for (int i = 0; i < kBlockK / 2; ++i) sacc[i] = 0.f;
+
+    // Only tiles that touch the diagonal, a window edge or Sk need a mask.
+    auto needs_mask = [&](int k_lo) {
+      bool masked = k_lo + kBlockK > Sk;
+      masked |= causal && k_lo + kBlockK - 1 > r_lo;
+      masked |= window > 0 && k_lo <= r_lo + 63 - window;
+      return masked;
+    };
+
+    // Pipelined over tiles: S of tile i is computed while P V of tile
+    // i - 1 is still running, and the softmax of tile i overlaps that P V.
+    mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      const int k_lo = kt_begin * kBlockK;
+      mbar_wait(k_full, 0);
+      issue_qk<D>(sacc, q_rows, sK);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      online_softmax(sacc, m, l, corr, needs_mask(k_lo), row0, k_lo, t, Sk,
+                     causal, window, scale_log2);
+      pack_p(sacc, pa);
+    }
+    for (int i = 1; i < n_tiles; ++i) {
+      const int stage = i % kStages;
+      const int prev = (i - 1) % kStages;
+      const int k_lo = (kt_begin + i) * kBlockK;
+      mbar_wait(k_full + 8 * stage, (i / kStages) & 1);
+      issue_qk<D>(sacc, q_rows, sK + stage * kTileBytes);
+      mbar_wait(v_full + 8 * prev, ((i - 1) / kStages) & 1);
+      issue_pv<D>(oacc, pa, sV, prev);
+      wgmma_wait<1>();  // S of tile i is in; P V of tile i - 1 still runs
+      fence_regs(sacc);
+      online_softmax(sacc, m, l, corr, needs_mask(k_lo), row0, k_lo, t, Sk,
+                     causal, window, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      mbar_arrive(empty + 8 * prev);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        oacc[4 * j + 0] *= corr[0];
+        oacc[4 * j + 1] *= corr[0];
+        oacc[4 * j + 2] *= corr[1];
+        oacc[4 * j + 3] *= corr[1];
       }
+      pack_p(sacc, pa);
+    }
+    if (n_tiles > 0) {
+      const int last = (n_tiles - 1) % kStages;
+      mbar_wait(v_full + 8 * last, ((n_tiles - 1) / kStages) & 1);
+      issue_pv<D>(oacc, pa, sV, last);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      mbar_arrive(empty + 8 * last);
     }
 
-    // Online softmax; each row lives in the four threads of a quad.
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      float mx = m[rr];
-#pragma unroll
-      for (int n = 0; n < kBlockK / 8; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * rr], s[n][2 * rr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float corr = exp2f(m[rr] - mx);
-      m[rr] = mx;
-      l[rr] *= corr;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        acc[dn][2 * rr] *= corr;
-        acc[dn][2 * rr + 1] *= corr;
-      }
-#pragma unroll
-      for (int n = 0; n < kBlockK / 8; ++n) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float p = exp2f(s[n][2 * rr + j] - mx);
-          s[n][2 * rr + j] = p;
-          l[rr] += p;
-        }
-      }
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
     }
-
-    // O += P V: the C fragments of S are the A fragments of P.
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = row0 + rr * 8;
+      if (r >= Sq) continue;
+      const float inv = 1.f / fmaxf(l[rr], 1e-30f);
+      __nv_bfloat16* op = o + b * o_sb + r * o_ss + h * o_sh;
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* vp = &vt_tile[(dn * 8 + g) * kStrideV + kk * 16 + 2 * t];
-        const uint32_t bf[2] = {load_u32(vp), load_u32(vp + 8)};
-        mma_16816(acc[dn], pa, bf);
-      }
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(op + j * 8 + 2 * t) =
+            pack_bf16(oacc[4 * j + 2 * rr] * inv, oacc[4 * j + 2 * rr + 1] * inv);
     }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-  }
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int r = row0 + rr * 8;
-    if (r >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[rr], 1e-30f);
-    __nv_bfloat16* op = o + b * o_sb + r * o_ss + h * o_sh;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(op + dn * 8 + 2 * t) =
-          pack_bf16(acc[dn][2 * rr] * inv, acc[dn][2 * rr + 1] * inv);
   }
 }
 
+// The descriptors rehearsed on one product: S = A K^T for A [64, D] and K
+// [kBlockK, D], then O = bf16(S) V for V [kBlockK, D], both fp32 out,
+// row-major. One consumer warpgroup; the loads are the attention kernel's
+// TMA boxes.
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int Hq, int Hkv, int Sq, int Sk, const long long* qs,
-            const long long* ks, const long long* vs, const long long* os,
-            int causal, int window, cudaStream_t stream) {
+__global__ void __launch_bounds__(128)
+wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, float* s_out,
+                   float* o_out) {
+  constexpr int kQBytes = kBlockQ * D * 2;
+  constexpr int kTileBytes = kBlockK * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sA = (raw + 1023) & ~1023u;
+  const uint32_t sK = sA + kQBytes;
+  const uint32_t sV = sK + kTileBytes;
+  const uint32_t bar = sV + kTileBytes;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, kQBytes + 2 * kTileBytes);
+    for (int c = 0; c < D / kBoxCols; ++c) {
+      tma_load_4d(sA + c * kQBoxBytes, &tm_a, bar, c * kBoxCols, 0, 0, 0);
+      tma_load_4d(sK + c * kKVBoxBytes, &tm_k, bar, c * kBoxCols, 0, 0, 0);
+      tma_load_4d(sV + c * kKVBoxBytes, &tm_v, bar, c * kBoxCols, 0, 0, 0);
+    }
+  }
+  mbar_wait(bar, 0);
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) >> 2;
+  const int t = threadIdx.x & 3;
+  float sacc[kBlockK / 2];
+  float oacc[D / 2];
+  uint32_t pa[kBlockK / 16][4];
+#pragma unroll
+  for (int i = 0; i < kBlockK / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  issue_qk<D>(sacc, sA, sK);
+  wgmma_wait<0>();
+  fence_regs(sacc);
+  pack_p(sacc, pa);
+  issue_pv<D>(oacc, pa, sV, 0);
+  wgmma_wait<0>();
+  fence_regs(oacc);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = 16 * warp + g + (e >> 1) * 8;
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j)
+      s_out[r * kBlockK + 8 * j + 2 * t + (e & 1)] = sacc[4 * j + e];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      o_out[r * D + 8 * j + 2 * t + (e & 1)] = oacc[4 * j + e];
+  }
+}
+
+// ---- host ----------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over (D, H, S, B) of a bf16 [B, S, H, D] tensor with element
+// strides (batch, seq, head) and a unit stride on D; boxes of 64 columns x
+// 1 head x `rows` rows x 1 batch, 128-byte swizzle, zeros out of bounds.
+int make_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B,
+             const long long* strides, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(ptr), dims, bytes, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+constexpr int flash_smem_bytes() {
+  return 1024 + (kBlockQ + 2 * kStages * kBlockK) * D * 2 + 8 * (1 + 3 * kStages);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+           int Hkv, int Sq, int Sk, const long long* qs, const long long* ks,
+           const long long* vs, const long long* os, int causal, int window,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, D, Hq, Sq, B, qs, kBlockQ);
+  if (err == 0) err = make_map(&tk, k, D, Hkv, Sk, B, ks, kBlockK);
+  if (err == 0) err = make_map(&tv, v, D, Hkv, Sk, B, vs, kBlockK);
+  if (err != 0) return err;
+  constexpr int bytes = flash_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * Hq);
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Hq, Hkv, Sq, Sk, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
-      vs[1], vs[2], os[0], os[1], os[2], scale_log2, causal, window);
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Sk, os[0], os[1],
+      os[2], scale_log2, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_probe(const void* a, const void* k, const void* v, float* s_out,
+                 float* o_out, cudaStream_t stream) {
+  const long long a_strides[3] = {64LL * D, D, D};
+  const long long kv_strides[3] = {1LL * kBlockK * D, D, D};
+  CUtensorMap ta, tk, tv;
+  int err = make_map(&ta, a, D, 1, 64, 1, a_strides, kBlockQ);
+  if (err == 0) err = make_map(&tk, k, D, 1, kBlockK, 1, kv_strides, kBlockK);
+  if (err == 0) err = make_map(&tv, v, D, 1, kBlockK, 1, kv_strides, kBlockK);
+  if (err != 0) return err;
+  constexpr int bytes = 1024 + (kBlockQ + 2 * kBlockK) * D * 2 + 8;
+  cudaError_t e = cudaFuncSetAttribute(
+      wgmma_probe_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wgmma_probe_kernel<D><<<1, 128, bytes, stream>>>(ta, tk, tv, s_out, o_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: [B, Sq, Hq, D], k/v: [B, Sk, Hkv, D], o: [B, Sq, Hq, D], all bf16 with
-// a unit stride on D. Each *_strides array holds the (batch, seq, head)
-// strides in elements. Returns a cudaError_t.
+// a unit stride on D, other strides multiples of 8 elements and 16-byte
+// aligned bases. Each *_strides array holds the (batch, seq, head) strides
+// in elements. Returns a cudaError_t.
 extern "C" int repro_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Sk, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
     const long long* o_strides, int causal, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
-               v_strides, o_strides, causal, window, s);
-  } else if (D == 128) {
-    launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
-                v_strides, o_strides, causal, window, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (D == 64)
+    return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
+                      v_strides, o_strides, causal, window, s);
+  if (D == 128)
+    return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
+                       v_strides, o_strides, causal, window, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The descriptor rehearsal: a [64, D], k/v [kBlockK, D] contiguous bf16;
+// s_out [64, kBlockK] and o_out [64, D] contiguous fp32. Returns a
+// cudaError_t.
+extern "C" int repro_flash_wgmma_probe_bf16(const void* a, const void* k,
+                                            const void* v, void* s_out,
+                                            void* o_out, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* so = static_cast<float*>(s_out);
+  float* oo = static_cast<float*>(o_out);
+  if (D == 64) return launch_probe<64>(a, k, v, so, oo, s);
+  if (D == 128) return launch_probe<128>(a, k, v, so, oo, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

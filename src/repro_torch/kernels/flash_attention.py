@@ -4,13 +4,15 @@ Replaces the Pallas TPU kernel ``_flash_kernel`` / ``flash_attention`` of
 ``src/repro/kernels/flash_attention.py``. The kernel is
 ``csrc/flash_attention.cu``; its header says what bounds it on the H100
 and what its design does about that. In short: at the prefill shape it is
-bound by the tensor cores, and this first version, on ``mma.sync`` with
-synchronous tile loads, is bound by load latency instead. Its plain
-version is ``repro_torch.kernels.ref.attention_reference``.
+bound by the tensor cores, so a producer warpgroup keeps TMA loads of K/V
+tiles in flight while two consumer warpgroups run both products on
+``wgmma``.
+Its plain version is ``repro_torch.kernels.ref.attention_reference``.
 
 Unlike the Pallas wrapper this one takes the model layout
-``[B, S, H, D]`` and hands the kernel strides, so nothing is transposed
-or padded. It launches on CUDA tensors only and never falls back.
+``[B, S, H, D]`` and hands the kernel strides, from which it builds its
+TMA tensor maps, so nothing is transposed or padded. It launches on CUDA
+tensors only and never falls back.
 """
 
 from __future__ import annotations
@@ -21,24 +23,29 @@ import torch
 
 from repro_torch.kernels import build
 
+KEY_TILE = 64  # keys per tile: csrc/flash_attention.cu's kBlockK
 SUPPORTED_HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
 
 _Strides = ctypes.c_longlong * 3
-_bound = None
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_s = ctypes.POINTER(ctypes.c_longlong)
+# the C entry points of csrc/flash_attention.cu and their arguments
+_SIGNATURES = {
+    "repro_flash_attention_fwd_bf16":
+        [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _s, _s, _s, _s, _i, _i, _p],
+    "repro_flash_wgmma_probe_bf16": [_p, _p, _p, _p, _p, _i, _p],
+}
+_bound = {}
 
 
-def _entry():
-    global _bound
-    if _bound is None:
-        fn = build.build().lib.repro_flash_attention_fwd_bf16
-        p, i = ctypes.c_void_p, ctypes.c_int
-        ptr = ctypes.POINTER(ctypes.c_longlong)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ptr, ptr, ptr, ptr,
-                       i, i, p]
+def _entry(name: str = "repro_flash_attention_fwd_bf16"):
+    if name not in _bound:
+        fn = getattr(build.build().lib, name)
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
-        _bound = fn
-    return _bound
+        _bound[name] = fn
+    return _bound[name]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -54,7 +61,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, S, H, D], "
                              f"got {tuple(t.shape)}")
-        # the kernel loads 16-byte vectors along D
+        # TMA: 16-byte aligned base and strides
         if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"flash_attention: {name} needs a unit stride on "
@@ -99,3 +106,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def wgmma_probe(a: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The kernel's TMA boxes and ``wgmma`` descriptors rehearsed on one
+    product: a [64, D], k/v [KEY_TILE, D] contiguous bf16 on CUDA.
+    Returns (a @ k.T, bf16(a @ k.T) @ v), both fp32. Not on any model
+    path."""
+    d, kt = a.shape[1], KEY_TILE
+    if (a.shape != (64, d) or k.shape != (kt, d) or v.shape != (kt, d)
+            or d not in SUPPORTED_HEAD_DIMS):
+        raise ValueError(f"wgmma_probe: a [64, D], k/v [{kt}, D], D in "
+                         f"{SUPPORTED_HEAD_DIMS}")
+    for t in (a, k, v):
+        if (t.device.type != "cuda" or t.dtype != torch.bfloat16
+                or not t.is_contiguous()):
+            raise ValueError("wgmma_probe: contiguous bf16 CUDA tensors only")
+    s = torch.empty((64, kt), dtype=torch.float32, device=a.device)
+    o = torch.empty((64, d), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _entry("repro_flash_wgmma_probe_bf16")(
+            a.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+            o.data_ptr(), d, stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma_probe: launch failed, cudaError {err}")
+    return s, o

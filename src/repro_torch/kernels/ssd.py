@@ -2,10 +2,11 @@
 
 Replaces the Pallas TPU kernel ``_ssd_kernel`` / ``ssd_chunked_kernel`` of
 ``src/repro/kernels/ssd.py``. The kernel is ``csrc/ssd.cu``; its header
-says what bounds it on the H100 and what its design does about that. In
-short: it is bound by operations, and this first version, on fp32 FMAs
-over shared-memory tiles of 64 positions, by shared-memory loads. Its
-plain version is ``repro_torch.kernels.ref.ssd_chunked_reference``.
+says what bounds it on the H100, what its design does about that and its
+error budget. In short: all four products run on tensor cores in bf16,
+each fp32 operand split into a bf16 hi and lo part, over tiles of
+``TILE`` positions loaded ahead with ``cp.async``. Its plain version is
+``repro_torch.kernels.ref.ssd_chunked_reference``.
 
 Unlike the Pallas wrapper this one takes the model layout ``[B, S, H, P]``
 / ``[B, S, G, N]`` and hands the kernel strides, so nothing is transposed
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.kernels import build
 
+TILE = 32  # positions per tile along S: csrc/ssd.cu's kTile
 SUPPORTED_HEAD_DIMS = (32, 64)
 SUPPORTED_STATE_DIMS = (16, 64, 128)
 _MAX_GRID_YZ = 65535
@@ -54,10 +56,13 @@ def _check(x, dt, A, B, C, D) -> None:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"ssd_chunked_kernel: {name} is {t.dtype}; the "
                             "kernel takes bfloat16")
-        if t.dim() != 4 or t.stride(-1) != 1:
+        # the kernel copies 16-byte vectors along the last axis
+        if (t.dim() != 4 or t.stride(-1) != 1
+                or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16):
             raise ValueError(f"ssd_chunked_kernel: {name} must be 4-d with a "
-                             f"unit last stride, got {tuple(t.shape)} "
-                             f"strides {t.stride()}")
+                             "unit last stride, other strides a multiple of "
+                             "8 and a 16-byte aligned base, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
     for name, t in (("dt", dt), ("A", A), ("D", D)):
         if t.dtype != torch.float32:
             raise TypeError(f"ssd_chunked_kernel: {name} is {t.dtype}; the "

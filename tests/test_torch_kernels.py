@@ -10,9 +10,11 @@ output to bf16 (2^-8 relative at most) and the kernel also rounds P to
 bf16 before P @ V, so a sound row errs by a few 1e-3; an absolute limit
 cannot serve, since causal rows range in size from ~1 (row 0) to
 ~1/sqrt(S). The SSD scan: y (bf16, rows over P) to 1e-2 and the fp32 final
-state (rows over N) to 1e-3. Both sides compute in fp32 from the same bf16
-inputs, in another order and with tiles of 64 instead of chunks of 256
-(~1e-6 apart), then round y to bf16 (2^-9 relative per element).
+state (rows over N) to 1e-3. Both sides start from the same bf16 inputs;
+the kernel sums bf16 tensor-core products in fp32 with every fp32 operand
+split into a bf16 hi and lo part (~2^-16 relative per term; the error
+budget in csrc/ssd.cu), in tiles of 32 instead of chunks of 256, then
+both round y to bf16 (2^-9 relative per element).
 """
 
 import shutil
@@ -22,7 +24,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (KEY_TILE, flash_attention,
+                                                 wgmma_probe)
 from repro_torch.kernels.ops import attention_op, ssd_op
 from repro_torch.kernels.ref import (attention_reference, row_rel_err,
                                      ssd_chunked_reference)
@@ -138,6 +141,67 @@ def test_kernel_matches_plain_on_card(cuda, b, hq, hkv, sq, sk, d, window):
     assert row_rel_err(out, ref) <= BF16_ROW_RTOL
 
 
+# (B, Hq, Hkv, Sq, Sk, D, window, causal): the edges of the TMA + wgmma
+# kernel's 128-row q tiles, key tiles and 64-column boxes
+HOPPER_EDGES = [
+    (1, 4, 2, 1000, 1000, 128, 0, True),    # Sq not a multiple of 128
+    (1, 4, 2, 300, 700, 128, 0, True),      # Sk > Sq
+    (1, 4, 2, 520, 520, 128, 100, True),    # windows crossing key tiles
+    (2, 8, 2, 384, 384, 64, 0, True),       # D = 64: one TMA box
+    (1, 4, 2, 256, 333, 128, 0, False),     # non-causal, ragged last tile
+    (1, 4, 1, 100, 100, 64, 0, False),      # one q tile, one ragged key tile
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,causal", HOPPER_EDGES)
+def test_kernel_tile_edges_on_card(cuda, b, hq, hkv, sq, sk, d, window,
+                                   causal):
+    """Non-causal with Sk not a multiple of the key tile is the case in
+    which only the `kpos < Sk` mask hides the zero-filled keys."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda,
+                           dtype=torch.bfloat16)
+               for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ref = attention_reference(*(t.transpose(1, 2) for t in (q, k, v)),
+                              causal=causal, window=window).transpose(1, 2)
+    assert row_rel_err(out, ref) <= BF16_ROW_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_probe_matches_matmul(cuda, d):
+    """The kernel's TMA boxes and wgmma descriptors on one product: S = A
+    K^T from shared memory (K-major), O = bf16(S) V with V read MN-major."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    a, k, v = (torch.randn((r, d), generator=gen, device=cuda,
+                           dtype=torch.bfloat16)
+               for r in (64, KEY_TILE, KEY_TILE))
+    s, o = wgmma_probe(a, k, v)
+    torch.cuda.synchronize()
+    s_ref = a.float() @ k.float().T
+    o_ref = s.bfloat16().float() @ v.float()
+    # fp32 sums of exact bf16 products, in another order
+    torch.testing.assert_close(s, s_ref, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(o, o_ref, atol=1e-2, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_kernel_reads_strided_views_d128(cuda):
+    """q/k/v sliced out of one fused projection at D = 128, with a window:
+    the TMA maps take the caller's strides."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((2, 300, 16 + 2 + 2, 128), generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:18], qkv[:, :, 18:]
+    out = flash_attention(q, k, v, window=100)
+    ref = flash_attention(*(t.contiguous() for t in (q, k, v)), window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 @pytest.mark.gpu
 def test_kernel_reads_strided_views(cuda):
     """q/k/v sliced out of one fused projection (non-contiguous heads) give
@@ -172,6 +236,12 @@ SSD_SHAPES = [
     (8, 1024, 32, 64, 1, 128),
     (8, 1000, 32, 64, 1, 128),
     (2, 512, 8, 64, 2, 64),
+    # the tensor-core kernel's edges: one position, one position into a
+    # second tile, two groups at N = 128, N = 16 with P = 32
+    (2, 1, 4, 64, 1, 128),
+    (2, 65, 4, 64, 1, 128),
+    (2, 200, 8, 64, 2, 128),
+    (2, 130, 4, 32, 1, 16),
 ]
 
 

@@ -6,6 +6,12 @@ interpret mode, as the JAX package's own tests run it.
 Inputs are made from a seed with numpy, in the distributions of
 ``tests/test_kernels.py``. Tolerance: fp32 to 2e-4 (an SSD output of order
 1 summed in another order; measured ~1e-6).
+
+The CUDA SSD kernel (``csrc/ssd.cu``) cannot run here; its error budget
+can. ``_emulate_ssd_kernel`` repeats its rounding in torch: tiles of TILE,
+bf16 tensor-core products summed in fp32, each fp32 operand (M, the state,
+x w) split into bf16 hi + lo, and its cumulative-sum order. It is held
+against the Pallas kernel by the card's gates (``chip_smoke.py``).
 """
 
 import jax.numpy as jnp
@@ -17,10 +23,15 @@ from repro.kernels import ops as jops
 from repro.kernels.ssd import ssd_chunked_kernel as jssd_kernel
 from repro.models import ssm as jssm
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ssd_chunked_reference, ssd_reference
+from repro_torch.kernels.ref import (row_rel_err, ssd_chunked_reference,
+                                     ssd_reference)
+from repro_torch.kernels.ssd import TILE
 from repro_torch.models import ssm
 
 FP32_TOL = 2e-4
+# chip_smoke.py's gates for the SSD kernel against its plain version
+SSD_Y_ROW_RTOL = 1e-2
+SSD_STATE_ROW_RTOL = 1e-3
 
 # (B, S, H, P, G, N, chunk): tests/test_kernels.py's grid
 GRID = [
@@ -178,3 +189,105 @@ def test_conv_prefill_then_decode_matches_reference(dtype):
         assert ty.dtype == tdt and ttail.dtype == tdt
         _close(jy, ty, tol)
         _close(jtail, ttail, 0)
+
+
+def _bf16_parts(v: torch.Tensor, parts: int):
+    """v as the kernel feeds it to a tensor core: hi = bf16(v), then, with
+    two parts, lo = bf16(v - hi); products of the parts summed in fp32."""
+    hi = v.bfloat16().float()
+    return (hi, (v - hi).bfloat16().float())[:parts]
+
+
+def _tile_cumsum(d: torch.Tensor) -> torch.Tensor:
+    """The kernel's cumulative sum over the last axis (one tile, a
+    position per lane of a warp): an inclusive Hillis-Steele scan,
+    v_l = v_{l-k} + v_l for k = 1, 2, 4, 8, 16."""
+    v = d
+    for k in (1, 2, 4, 8, 16):
+        v = torch.cat([v[..., :k], v[..., k:] + v[..., :-k]], dim=-1)
+    return v
+
+
+def _emulate_ssd_kernel(x, dt, A, B, C, D, *, m_parts=2, state_parts=2,
+                        xw_parts=2):
+    """csrc/ssd.cu's arithmetic in fp32 torch on the CPU, in tiles of
+    TILE positions. x [b, s, h, p],
+    dt [b, s, h], A/D [h], B/C [b, s, g, n], x/B/C holding bf16 values.
+    ``*_parts`` split M, the state and x w as the kernel's kMParts,
+    kStateParts and kXwParts do (2: hi + lo; 1: one bf16 rounding).
+    Returns (y bf16 [b, s, h, p], state fp32 [b, h, p, n])."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    pad = -s % TILE
+
+    def heads(t):  # [b, s, ...] -> [b, h, s + pad, ...] with zero padding
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.movedim(1, 2)
+
+    rep = h // B.shape[2]
+    xs, Bs, Cs = heads(x), heads(B.repeat_interleave(rep, 2)), heads(
+        C.repeat_interleave(rep, 2))
+    dts = heads(dt.unsqueeze(-1)).squeeze(-1)
+    lower = torch.tril(torch.ones(TILE, TILE, dtype=torch.bool))
+    state = torch.zeros(b, h, p, n)
+    ys = []
+    for t0 in range(0, s + pad, TILE):
+        xt, Bt, Ct = (t[:, :, t0:t0 + TILE] for t in (xs, Bs, Cs))
+        dtt = dts[:, :, t0:t0 + TILE]
+        cs = _tile_cumsum(dtt * A[:, None])
+        last = cs[..., -1:]
+        w = torch.exp(last - cs) * dtt
+        decay = torch.exp(cs[..., :, None] - cs[..., None, :])
+        M = torch.where(lower, (Ct @ Bt.transpose(-1, -2)) * decay
+                        * dtt[..., None, :], 0.0)
+        intra = sum(m @ xt for m in _bf16_parts(M, m_parts))
+        inter = sum(Ct @ st.transpose(-1, -2)
+                    for st in _bf16_parts(state, state_parts))
+        ys.append((intra + inter * torch.exp(cs)[..., None])
+                  + xt * D[:, None, None])
+        xw = xt * w[..., None]
+        state = state * torch.exp(last)[..., None] + sum(
+            part.transpose(-1, -2) @ Bt for part in _bf16_parts(xw, xw_parts))
+    y = torch.cat(ys, dim=2)[:, :, :s].movedim(2, 1)
+    return y.bfloat16(), state
+
+
+def test_tile_cumsum_is_a_cumulative_sum():
+    d = torch.from_numpy(-np.abs(np.random.default_rng(9).standard_normal(
+        (3, TILE))).astype(np.float32))
+    cs = _tile_cumsum(d)
+    torch.testing.assert_close(cs, d.double().cumsum(-1).float(),
+                               atol=1e-5, rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def budget_case():
+    """B = 2, S = 1024, H = 4, P = 64, N = 128: x, B, C rounded to bf16,
+    and the Pallas kernel's answer on them in interpret mode (8 programs
+    of 4 chunks of 256)."""
+    x, dt, A, B, C, D = _inputs(2, 1024, 4, 64, 1, 128, seed=11)
+    x, B, C = (torch.from_numpy(a).bfloat16().float().numpy()
+               for a in (x, B, C))
+    jargs, targs = _both((x, dt, A, B, C, D))
+    jy, jst = jssd_kernel(*jargs, chunk=256, interpret=True)
+    ref = (torch.from_numpy(np.array(jy, np.float32)),
+           torch.from_numpy(np.array(jst, np.float32)))
+    return targs, ref
+
+
+def test_ssd_kernel_error_budget_holds(budget_case):
+    """The kernel's rounding, hi + lo splits included, passes the card's
+    gates against the Pallas kernel with a wide margin."""
+    targs, (jy, jst) = budget_case
+    y, st = _emulate_ssd_kernel(*targs)
+    assert y.shape == jy.shape and st.shape == jst.shape
+    assert row_rel_err(y, jy) <= SSD_Y_ROW_RTOL
+    assert row_rel_err(st, jst) <= SSD_STATE_ROW_RTOL / 10
+
+
+def test_ssd_single_bf16_rounding_breaks_the_state_gate(budget_case):
+    """One bf16 rounding of x w and the state (no lo part) moves the final
+    state past its gate: the split is what the budget rests on."""
+    targs, (jy, jst) = budget_case
+    _, st = _emulate_ssd_kernel(*targs, state_parts=1, xw_parts=1)
+    assert row_rel_err(st, jst) > SSD_STATE_ROW_RTOL
