@@ -19,14 +19,25 @@ Phases, one line or more each; any failure exits non-zero:
      prefill ran through its kernel; prefill(S) is held against
      prefill(S-1) + decode_step; torch.profiler splits one prefill and
      four decode steps into device busy and idle time.
+  6. reference train: one AdamW step of tiny qwen2.5-3b (bf16 over fp32
+     masters) on the card against the plain CPU path: loss, gradient norm
+     and every gradient leaf.
+  7. train: qwen2.5-3b at full width (fp32 masters, bf16 compute, remat)
+     takes 8 AdamW steps on the synthetic stream at B = 2, S = 2048; the
+     loss must fall, every step must launch the forward flash kernel 72
+     times (36 layers, forward and recompute) and the backward 36 times,
+     and peak memory stay under 80 GB; step time, tokens/s, model FLOPs
+     utilisation and a torch.profiler split of one step.
 The line before the last lists the kernels as JSON; the last line is the
 result as JSON. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -71,7 +82,38 @@ CONSISTENCY_RTOL = 5e-2
 SSD_Y_ROW_RTOL = 1e-2
 SSD_STATE_ROW_RTOL = 1e-3
 
+# The flash backward against its plain version (autograd of the fp32
+# reference from the same bf16 inputs): dQ, dK, dV by the worst row's
+# relative L2 error, each row's norm raised to at least GRAD_ROW_FLOOR of
+# the median row norm (row 0 of dQ is exactly 0 under a causal mask, and
+# any rounding of dP - delta is infinitely many times it). The kernel
+# rounds P and dS to bf16 before their products (2^-9 relative per term,
+# summed with cancellation in dS) and the outputs to bf16 (2^-9), and sums
+# delta = rowsum(P o dP) in fp32, so the forward's 2e-2 holds with room: a
+# sound kernel errs ~4e-3. SDPA's backward, printed beside it as the
+# calibration, takes delta from its bf16 output and errs up to ~0.2 on the
+# rows of dQ that cancel (a causal head's row 1, with two keys).
+GRAD_ROW_RTOL = 2e-2
+GRAD_ROW_FLOOR = 1e-2
+# The forward's LSE against the plain logsumexp, absolute: an error e in a
+# row's LSE scales that row's P by exp(-e), so 1e-3 admits a 0.1% error in
+# P; both sides sum exact products of the same bf16 inputs in fp32.
+LSE_ABS_TOL = 1e-3
+
+# One train step of tiny qwen2.5-3b, card against the CPU's plain path,
+# both bf16 over the same fp32 masters: each gradient leaf by its worst
+# row's relative L2 error (floored as for the kernel's gradients), the loss
+# and the gradient norm relatively. The two paths round to bf16 at other
+# places in each layer's forward and backward (2^-9 per rounding; the
+# logits alone differ by ~1e-2, REFERENCE_ROW_RTOL's measurement), and the
+# card's attention gradients carry the kernel's own roundings; a wrong
+# mask, head or missing term moves whole rows by a sizeable fraction.
+TRAIN_GRAD_ROW_RTOL = 5e-2
+TRAIN_LOSS_RTOL = 1e-2
+
 QWEN, MAMBA = "qwen2.5-3b", "mamba2-370m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 8, 3e-4
+CARD_BYTES = 80e9
 BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
 PROMPT_LENS = (256, 1024)
 
@@ -102,6 +144,29 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def attention_flops(b: int, hq: int, s: int, d: int) -> int:
     """Causal attention's work: 4*d FLOPs per unmasked (q, k) pair."""
     return 4 * d * (s * (s + 1) // 2) * b * hq
+
+
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(q, k) pairs one head attends: k < Sk, k <= q if causal, k > q -
+    window if windowed."""
+    import numpy as np
+    r = np.arange(sq)
+    hi = np.minimum(r, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(r - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_bwd_bound(b: int, hq: int, hkv: int, s: int, d: int,
+                        pairs: int) -> tuple[float, str]:
+    """Least time (ms) for the attention backward: 10*d FLOPs per unmasked
+    pair (S recomputed, dV, dP, dK, dQ) over the bf16 peak, or one read of
+    q, k, v, dO and the fp32 LSE and one write of dq, dk, dv over the
+    memory rate; and which of the two sets it."""
+    ops_ms = 1e3 * 10 * d * pairs * b * hq / PEAK_BF16_FLOPS
+    nbytes = 2 * b * s * d * (3 * hq + 4 * hkv) + 4 * b * hq * s
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
 
 
 def attention_bound(b: int, hq: int, hkv: int, s: int,
@@ -215,6 +280,8 @@ def phase_kernels(card: str) -> dict:
     q, k, v = qkv(b, s, hq, hkv, d)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=50)
+    lse_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                             return_lse=True), iters=50)
     plain_ms = cuda_ms(lambda: attention_reference(qt, kt, vt, causal=True),
                        iters=5, warmup=1)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -224,10 +291,120 @@ def phase_kernels(card: str) -> dict:
     say("kernels", f"flash_attention main: {ms:.4f} ms ({tflops:.1f} TFLOP/s"
         f"), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
         f"({library_ms / ms:.3f}x the kernel's speed), bound {bound_ms:.4f} "
-        f"ms ({bound_by}, {100 * bound_ms / ms:.1f}% reached) on {card}")
+        f"ms ({bound_by}, {100 * bound_ms / ms:.1f}% reached); with the "
+        f"LSE written (training) {lse_ms:.4f} ms, on {card}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_flash_bwd_kernels(card: str) -> dict:
+    """The backward kernel and the forward's LSE against their plain
+    versions at the training path's shape and its edges; the backward's
+    time beside the plain version's, SDPA's backward and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ref import (attention_backward_reference,
+                                         attention_lse_reference, row_rel_err)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(b, s, h, d):
+        return torch.randn((b, s, h, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    def heads_first(*ts):
+        return [t.transpose(1, 2) for t in ts]
+
+    def sdpa(q, k, v, causal, window):
+        """SDPA in its layout on leaves that require grad, as the
+        library's yardstick: (inputs, output)."""
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        mask = None
+        if window:
+            r = torch.arange(q.shape[1], device="cuda")[:, None]
+            c = torch.arange(k.shape[1], device="cuda")[None, :]
+            mask = (c > r - window) & ((r >= c) if causal else True)
+        out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, is_causal=causal and not window,
+            enable_gqa=True)
+        return (qs, ks, vs), out
+
+    # (name, B, S, Hq, Hkv, D, window, causal): the training shape first
+    # (qwen2.5-3b's heads at B = 2, S = 2048), then its edges
+    cases = [("train", TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128, 0, True),
+             ("ragged", 2, 1000, 16, 2, 128, 0, True),
+             ("window", 2, 2048, 16, 2, 128, 256, True),
+             ("d64", 2, 512, 8, 2, 64, 0, True),
+             ("noncausal", 2, 1000, 16, 2, 128, 0, False),
+             ("group1", 2, 512, 4, 4, 128, 0, True)]
+    worst, failed = 0.0, []
+    for name, b, s, hq, hkv, d, window, causal in cases:
+        q, k, v, do = (randn(b, s, h, d) for h in (hq, hkv, hkv, hq))
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+        same = torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                                window=window))
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        _, lse_ref = attention_lse_reference(*heads_first(q, k, v),
+                                             causal=causal, window=window)
+        lse_err = (lse - lse_ref).abs().max().item()
+        refs = [t.transpose(1, 2) for t in attention_backward_reference(
+            *heads_first(q, k, v, do), causal=causal, window=window)]
+        errs = [row_rel_err(x, r, floor=GRAD_ROW_FLOOR)
+                for x, r in zip((dq, dk, dv), refs)]
+        leaves, o_lib = sdpa(q, k, v, causal, window)
+        lib = torch.autograd.grad(o_lib, leaves, do.transpose(1, 2))
+        lib_errs = [row_rel_err(x.transpose(1, 2), r, floor=GRAD_ROW_FLOOR)
+                    for x, r in zip(lib, refs)]
+        worst = max([worst] + [(x.float() - r).abs().max().item()
+                               for x, r in zip((dq, dk, dv), refs)])
+        ok = (same and math.isfinite(lse_err) and lse_err <= LSE_ABS_TOL
+              and all(math.isfinite(e) and e <= GRAD_ROW_RTOL for e in errs))
+        if not ok:
+            failed.append(name)
+        say("kernels", f"flash_bwd {name} B={b} S={s} Hq={hq} Hkv={hkv} D={d}"
+            f" window={window} causal={causal}: dq/dk/dv worst row rel L2 "
+            f"err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
+            f"{GRAD_ROW_RTOL}, floor {GRAD_ROW_FLOOR} x median), SDPA's "
+            f"{lib_errs[0]:.3e}/{lib_errs[1]:.3e}/{lib_errs[2]:.3e}; lse max "
+            f"abs err {lse_err:.3e} (tol {LSE_ABS_TOL}); forward output with "
+            f"the LSE bit-equal to without: {same} {'ok' if ok else 'FAIL'}")
+    if failed:
+        fail("kernels", f"flash_attention_bwd disagrees with plain: {failed}")
+
+    _, b, s, hq, hkv, d, window, causal = cases[0]
+    q, k, v, do = (randn(b, s, h, d) for h in (hq, hkv, hkv, hq))
+    _, lse = flash_attention(q, k, v, return_lse=True)
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, lse, do), iters=20)
+    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True),
+                     iters=20)
+    plain_ms = cuda_ms(lambda: attention_backward_reference(
+        *heads_first(q, k, v, do)), iters=3, warmup=1)
+    leaves, o_lib = sdpa(q, k, v, causal, window)
+    do_t = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        o_lib, leaves, do_t, retain_graph=True), iters=20)
+    pairs = unmasked_pairs(s, s, causal, window)
+    bound_ms, bound_by = attention_bwd_bound(b, hq, hkv, s, d, pairs)
+    tflops = 10 * d * pairs * b * hq / ms / 1e9
+    say("kernels", f"flash_attention_bwd train: {ms:.4f} ms ({tflops:.1f} "
+        f"TFLOP/s at 10*D per pair), plain {plain_ms:.4f} ms, SDPA backward "
+        f"{library_ms:.4f} ms ({library_ms / ms:.3f}x the kernel's speed), "
+        f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% "
+        f"reached); forward with the LSE at this shape {fwd_ms:.4f} ms, on "
+        f"{card}")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:51",
             "launches": None, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -314,9 +491,11 @@ def phase_ssd_kernels(card: str) -> dict:
 
 def launch_counters() -> dict:
     """Every kernel wrapper, by the name the kernels line gives it."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.ssd import ssd_chunked_kernel
-    return {"flash_attention": flash_attention, "ssd": ssd_chunked_kernel}
+    return {"flash_attention": flash_attention, "ssd": ssd_chunked_kernel,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def phase_serve(card: str, arch: str, kernel: str) -> int:
@@ -459,14 +638,16 @@ def phase_serve(card: str, arch: str, kernel: str) -> int:
     return launches
 
 
-def profile_window(name: str, fn, card: str) -> None:
-    """Device busy share and the top kernels of one call, from
-    torch.profiler: kernel time summed over the window's wall time."""
+def profile_window(name: str, fn, card: str, *, grad: bool = False,
+                   share_of: str | None = None, top: int = 6) -> None:
+    """Device busy share and the ``top`` kernels of one call, from
+    torch.profiler: kernel time summed over the window's wall time; with
+    ``share_of``, also the share of the kernels whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    with torch.set_grad_enabled(grad), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -480,9 +661,15 @@ def profile_window(name: str, fn, card: str) -> None:
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), idle "
         f"{100 * (1 - busy_us / wall_us):.1f}%, {sum(r[1] for r in rows)} "
         f"kernels, on {card} (profiler on)")
-    for us, count, key in sorted(rows, reverse=True)[:6]:
+    for us, count, key in sorted(rows, reverse=True)[:top]:
         say("profile", f"  {name}: {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f}%"
             f" x{count} {key[:90]}")
+    if share_of and busy_us:
+        mine = [r for r in rows if share_of in r[2]]
+        us = sum(r[0] for r in mine)
+        say("profile", f"  {name}: kernels named *{share_of}*: {us / 1e3:.3f} "
+            f"ms, {100 * us / busy_us:.1f}% of device busy, "
+            f"x{sum(r[1] for r in mine)}")
 
 
 def phase_small_reference(card: str, arch: str) -> None:
@@ -520,6 +707,143 @@ def phase_small_reference(card: str, arch: str) -> None:
         fail("reference", "the card disagrees with the CPU path")
 
 
+def phase_small_train_reference(card: str) -> None:
+    """One train step of tiny qwen2.5-3b, bf16 over fp32 masters, on the
+    card against the plain CPU path (which the CPU tests hold against the
+    JAX package's train step): the loss, the gradient norm and each
+    gradient leaf. The parameters after the step are not compared: Adam's
+    first step is ~lr * sign(g), which bf16 noise in a near-zero gradient
+    flips."""
+    import torch
+    from repro_torch.configs import get_tiny
+    from repro_torch.data.loader import Loader
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.kernels.ref import row_rel_err
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init, tree_leaves,
+                                         tree_map)
+    from repro_torch.train.step import loss_and_grads, make_train_step
+
+    cfg = get_tiny(QWEN)
+    models = {"cpu": Model(cfg, device="cpu"), "cuda": Model(cfg, device="cuda")}
+    p_cpu = models["cpu"].init(torch.Generator().manual_seed(0),
+                               dtype=torch.float32)
+    stream = SyntheticStream(cfg.vocab_size, 0)
+    out = {}
+    for dev, model in models.items():
+        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        batch = Loader(stream, 4, 128, dev)(0)
+        grads = tree_map(torch.zeros_like, params)
+        loss_and_grads(model, params, batch, grads)
+        _, _, metrics = make_train_step(model, AdamWConfig())(
+            params, adamw_init(params), batch)
+        out[dev] = (grads, {k: float(v) for k, v in metrics.items()})
+    (g_cpu, m_cpu), (g_gpu, m_gpu) = out["cpu"], out["cuda"]
+    worst, where = 0.0, ""
+    names = [f"{k}/{n}" if isinstance(v, dict) else k
+             for k, v in sorted(g_cpu.items())
+             for n in (sorted(v) if isinstance(v, dict) else [None])]
+    for name, ref, got in zip(names, tree_leaves(g_cpu), tree_leaves(g_gpu)):
+        err = row_rel_err(got.cpu(), ref, floor=GRAD_ROW_FLOOR)
+        if not err <= worst:
+            worst, where = err, name
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+           for k in ("loss", "grad_norm")}
+    ok = (math.isfinite(worst) and worst <= TRAIN_GRAD_ROW_RTOL
+          and all(r <= TRAIN_LOSS_RTOL for r in rel.values()))
+    say("reference", f"tiny {QWEN} train step, bf16 over fp32 masters, card "
+        f"vs CPU plain path: loss {m_gpu['loss']:.5f} vs {m_cpu['loss']:.5f}"
+        f" (rel {rel['loss']:.2e}), grad_norm {m_gpu['grad_norm']:.5f} vs "
+        f"{m_cpu['grad_norm']:.5f} (rel {rel['grad_norm']:.2e}; tol "
+        f"{TRAIN_LOSS_RTOL}); worst gradient row rel L2 err {worst:.3e} in "
+        f"{where} (tol {TRAIN_GRAD_ROW_RTOL}) {'ok' if ok else 'FAIL'} on "
+        f"{card}")
+    if not ok:
+        fail("reference", "the card's train step disagrees with the CPU path")
+
+
+def phase_train(card: str) -> int:
+    """qwen2.5-3b at full width takes TRAIN_STEPS AdamW steps; returns the
+    backward kernel's launches over the run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import Loader
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(QWEN)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+    params, opt = state.params, state.opt
+    torch.cuda.synchronize()
+    n_params = model.count_params()
+    say("train", f"{QWEN}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params, fp32 masters + AdamW mu/nu "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, compute {cfg.dtype}, "
+        f"remat {model.remat}; init {time.perf_counter() - t0:.1f} s")
+    loader = Loader(SyntheticStream(cfg.vocab_size, 0), TRAIN_BATCH, TRAIN_SEQ,
+                    "cuda")
+    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    counters = launch_counters()
+    want = {"flash_attention": 2 * cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers, "ssd": 0}
+    losses, gnorms, times, total = [], [], [], dict.fromkeys(counters, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        batch = loader(step)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {name: fn.launches for name, fn in counters.items()}
+        if counts != want:
+            fail("train", f"step {step}: kernel launches {counts}, expected "
+                 f"{want} ({cfg.num_layers} layers: forward + remat "
+                 "recompute, backward)")
+        for name, n in counts.items():
+            total[name] += n
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        say("train", f"step {step}: loss {losses[-1]:.4f}, grad_norm "
+            f"{gnorms[-1]:.3f}, {1e3 * times[-1]:.1f} ms, launches {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail("train", f"non-finite loss or gradient norm: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail("train", f"loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not peak < CARD_BYTES:
+        fail("train", f"peak memory {peak / 1e9:.2f} GB exceeds the card's 80 GB")
+    step_s = statistics.median(times[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_matmul = n_params - cfg.vocab_size * cfg.d_model  # all but the embedding
+    attn = 3.5 * cfg.num_layers * attention_flops(
+        TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, cfg.head_dim)
+    flops = 6 * n_matmul * tokens + attn
+    say("train", f"{TRAIN_STEPS} steps B={TRAIN_BATCH} S={TRAIN_SEQ}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; median step (steps 3-"
+        f"{TRAIN_STEPS}) {1e3 * step_s:.1f} ms (all: "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times)}), {tokens / step_s:.0f}"
+        f" tokens/s, model FLOPs {flops / 1e12:.1f} T per step (6 N T, N = "
+        f"{n_matmul / 1e9:.3f} B outside the embedding, + attention "
+        f"{attn / 1e12:.2f} T; remat's recompute not counted) = "
+        f"{100 * flops / step_s / PEAK_BF16_FLOPS:.1f}% MFU of 989 TFLOP/s; "
+        f"peak memory {peak / 1e9:.2f} GB; launches over the run {total}, on "
+        f"{card}")
+    profile_window(f"{QWEN} train step", lambda: step_fn(params, opt,
+                                                         loader(TRAIN_STEPS)),
+                   card, grad=True, share_of="flash_bwd", top=14)
+    return total["flash_attention_bwd"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -529,11 +853,14 @@ def main() -> int:
     card = phase_device()
     phase_build()
     flash, ssd = phase_kernels(card), phase_ssd_kernels(card)
+    flash_bwd = phase_flash_bwd_kernels(card)
     phase_small_reference(card, QWEN)
     phase_small_reference(card, MAMBA)
     flash["launches"] = phase_serve(card, QWEN, "flash_attention")
     ssd["launches"] = phase_serve(card, MAMBA, "ssd")
-    print(json.dumps({"kernels": [flash, ssd]}), flush=True)
+    phase_small_train_reference(card)
+    flash_bwd["launches"] = phase_train(card)
+    print(json.dumps({"kernels": [flash, ssd, flash_bwd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,10 +9,12 @@
 # Each argument is NAME=FILE:EXPR, FILE a source in src/repro_torch/csrc and
 # EXPR one sed expression. Each copy goes to build/variants/NAME (git-ignored)
 # with src/ and chip_smoke.py; all copies build at once, then each runs
-# chip_smoke.py's device and build phases and the kernel phase of FILE, one
-# after another. Prints per variant the changed lines, ptxas's lines for
-# that kernel at the serving shape, the phase's [kernels] lines and its exit
-# code (a planted fault must give 1).
+# chip_smoke.py's device and build phases and the kernel phases of FILE
+# (ssd.cu: the SSD phase; flash_attention.cu: the forward's and the
+# backward's, which checks the forward's LSE; flash_attention_bwd.cu: the
+# backward's), one after another. Prints per variant the changed lines,
+# ptxas's lines for that kernel at D = 128 or the serving shape, the
+# phases' [kernels] lines and their exit code (a planted fault must give 1).
 set -u
 cd "$(dirname "$0")/.."
 unset PYTHONPATH
@@ -32,17 +34,19 @@ done
 wait
 for name in "${names[@]}"; do
   d=build/variants/$name
-  if [ "$(cat "$d/FILE")" = ssd.cu ]; then
-    phase=phase_ssd_kernels; kernel=ssd_fwd_kernelILi64ELi128
-  else
-    phase=phase_kernels; kernel=flash_fwd_kernelILi128
-  fi
+  case "$(cat "$d/FILE")" in
+    ssd.cu) phases="c.phase_ssd_kernels(card)"; kernel=ssd_fwd_kernelILi64ELi128 ;;
+    flash_attention.cu)
+      phases="c.phase_kernels(card); c.phase_flash_bwd_kernels(card)"
+      kernel=flash_fwd_kernelILi128 ;;
+    *) phases="c.phase_flash_bwd_kernels(card)"; kernel="flash_bwd_d[a-z]*_kernelILi128" ;;
+  esac
   (cd "$d" && timeout 600 python3 -c "import chip_smoke as c
-card = c.phase_device(); c.phase_build(); c.$phase(card)" > run.log 2>&1)
+card = c.phase_device(); c.phase_build(); $phases" > run.log 2>&1)
   rc=$?
   echo "== $name"
   grep -A2 "$kernel" "$d/build.log" | grep -E "spill|registers"
-  grep -E "^\[kernels\]" "$d/run.log" | cut -c1-330
+  grep -E "^\[kernels\]" "$d/run.log" | cut -c1-420
   grep -E "Error|error" "$d/run.log" | tail -3
   echo "== $name exit $rc"
 done

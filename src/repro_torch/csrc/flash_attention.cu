@@ -56,6 +56,13 @@
 // softmax also overlaps the other's wgmma. Left for later: ping-pong
 // ordering of the two consumers and a persistent grid.
 //
+// Training. Given a non-null `lse`, the epilogue also writes each row's
+// natural-log sum of exponentials of the scaled scores, logsumexp_j(s_ij *
+// scale) = ln 2 * (m * scale_log2 + log2 l) from the log2-domain running
+// max m (raw scores) and sum l, as fp32 [B, Hq, Sq]: what the backward
+// kernels (csrc/flash_attention_bwd.cu) recompute P from. Serving passes
+// null and writes nothing more.
+//
 // The C entry point builds the tensor maps on the host
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 // nothing links libcuda), launches on the caller's stream, allocates
@@ -77,6 +84,7 @@ constexpr int kQBoxBytes = kBlockQ * 128;   // a box of 128 q rows
 constexpr int kKVBoxBytes = kBlockK * 128;  // a box of one key tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -379,7 +387,8 @@ __global__ void __maxnreg__(168)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
-                 __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq, int Sk,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq,
+                 int Hkv, int Sq, int Sk,
                  long long o_sb, long long o_ss, long long o_sh,
                  float scale_log2, int causal, int window) {
   constexpr int kQBytes = kBlockQ * D * 2;
@@ -530,6 +539,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int r = row0 + rr * 8;
       if (r >= Sq) continue;
       const float inv = 1.f / fmaxf(l[rr], 1e-30f);
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<long long>(b) * Hq + h) * Sq + r] =
+            kLn2 * (m[rr] * scale_log2 + log2f(fmaxf(l[rr], 1e-30f)));
       __nv_bfloat16* op = o + b * o_sb + r * o_ss + h * o_sh;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -653,7 +665,7 @@ constexpr int flash_smem_bytes() {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
            int Hkv, int Sq, int Sk, const long long* qs, const long long* ks,
            const long long* vs, const long long* os, int causal, int window,
            cudaStream_t stream) {
@@ -669,7 +681,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * Hq);
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
   flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Sk, os[0], os[1],
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv, Sq, Sk, os[0], os[1],
       os[2], scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -697,18 +709,20 @@ int launch_probe(const void* a, const void* k, const void* v, float* s_out,
 // q: [B, Sq, Hq, D], k/v: [B, Sk, Hkv, D], o: [B, Sq, Hq, D], all bf16 with
 // a unit stride on D, other strides multiples of 8 elements and 16-byte
 // aligned bases. Each *_strides array holds the (batch, seq, head) strides
-// in elements. Returns a cudaError_t.
+// in elements. lse: null, or contiguous fp32 [B, Hq, Sq] for the rows'
+// log-sum-exp. Returns a cudaError_t.
 extern "C" int repro_flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int Hq,
     int Hkv, int Sq, int Sk, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
     const long long* o_strides, int causal, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (D == 64)
-    return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
+    return launch<64>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
                       v_strides, o_strides, causal, window, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
+    return launch<128>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
                        v_strides, o_strides, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

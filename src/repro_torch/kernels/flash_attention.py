@@ -1,13 +1,22 @@
-"""Hand-written CUDA flash-attention forward for Hopper, and its launcher.
+"""Hand-written CUDA flash attention for Hopper, forward and backward, and
+their launchers.
 
-Replaces the Pallas TPU kernel ``_flash_kernel`` / ``flash_attention`` of
-``src/repro/kernels/flash_attention.py``. The kernel is
-``csrc/flash_attention.cu``; its header says what bounds it on the H100
+The forward replaces the Pallas TPU kernel ``_flash_kernel`` /
+``flash_attention`` of ``src/repro/kernels/flash_attention.py``. The kernel
+is ``csrc/flash_attention.cu``; its header says what bounds it on the H100
 and what its design does about that. In short: at the prefill shape it is
 bound by the tensor cores, so a producer warpgroup keeps TMA loads of K/V
 tiles in flight while two consumer warpgroups run both products on
-``wgmma``.
-Its plain version is ``repro_torch.kernels.ref.attention_reference``.
+``wgmma``. With ``return_lse`` (training) it also writes each row's
+log-sum-exp, from which the backward recomputes P.
+Its plain version is ``repro_torch.kernels.ref.attention_reference``
+(``attention_lse_reference`` with the LSE).
+
+The backward, ``flash_attention_bwd``, replaces ``jax.grad`` of the JAX
+model's ``chunked_attention`` (no Pallas backward exists): two kernels in
+``csrc/flash_attention_bwd.cu`` (dQ with delta = rowsum(P o dP), then
+dK/dV) on ``mma.sync``. Its plain version is
+``repro_torch.kernels.ref.attention_backward_reference``.
 
 Unlike the Pallas wrapper this one takes the model layout
 ``[B, S, H, D]`` and hands the kernel strides, from which it builds its
@@ -33,7 +42,9 @@ _s = ctypes.POINTER(ctypes.c_longlong)
 # the C entry points of csrc/flash_attention.cu and their arguments
 _SIGNATURES = {
     "repro_flash_attention_fwd_bf16":
-        [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _s, _s, _s, _s, _i, _i, _p],
+        [_p] * 5 + [_i] * 6 + [_s] * 4 + [_i, _i, _p],
+    "repro_flash_attention_bwd_bf16":
+        [_p] * 9 + [_i] * 6 + [_s] * 7 + [_i, _i, _p],
     "repro_flash_wgmma_probe_bf16": [_p, _p, _p, _p, _p, _i, _p],
 }
 _bound = {}
@@ -48,25 +59,32 @@ def _entry(name: str = "repro_flash_attention_fwd_bf16"):
     return _bound[name]
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           **more: torch.Tensor) -> None:
+    """q, k, v and any ``more`` tensors of the model layout (dO: q's shape)
+    on one CUDA device, bf16, with the strides the kernels take."""
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, "
                              "the kernel runs on CUDA tensors only")
         if t.device != q.device:
-            raise ValueError("flash_attention: q, k, v on different devices")
+            raise ValueError("flash_attention: inputs on different devices")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash_attention: {name} is {t.dtype}; the "
                             "kernel takes bfloat16")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, S, H, D], "
                              f"got {tuple(t.shape)}")
-        # TMA: 16-byte aligned base and strides
+        # TMA and 16-byte cp.async: 16-byte aligned base and strides
         if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"flash_attention: {name} needs a unit stride on "
                              "D, other strides a multiple of 8 and a 16-byte "
                              "aligned base")
+    for name, t in more.items():
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} {tuple(t.shape)} is "
+                             f"not q's shape {tuple(q.shape)}")
     b, _, hq, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -83,29 +101,80 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D], bf16 on CUDA.
-    Returns [B, Sq, Hq, D] in bf16."""
+    Returns o [B, Sq, Hq, D] in bf16, and with ``return_lse`` (o, lse):
+    lse [B, Hq, Sq] fp32, the logsumexp over each row's visible keys of the
+    scaled scores (natural log), as ``flash_attention_bwd`` takes it."""
     _check(q, k, v)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = [_Strides(*t.stride()[:3]) for t in (q, k, v, out)]
     # the runtime launches on its current device: make it the tensors' one
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), b, hq, hkv, sq, sk, d, *strides,
-                       int(causal), int(window), stream)
+                       out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                       b, hq, hkv, sq, sk, d, *strides, int(causal),
+                       int(window), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: launch failed, cudaError {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """The gradients of ``flash_attention(q, k, v)`` for the output
+    gradient ``do``, given the forward's ``lse`` (``return_lse``). q, do:
+    [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D], bf16 on CUDA; lse [B, Hq, Sq]
+    contiguous fp32. Returns (dq, dk, dv) in bf16, contiguous, in q's, k's
+    and v's shapes; dk and dv sum over each kv head's group of q heads.
+    The output itself is not needed: the kernels take delta = rowsum(P o
+    dP) from a pass of their own rather than rowsum(dO o O) from the
+    forward's output, whose bf16 rounding of P moves rows of dQ by up to
+    ~5% (csrc/flash_attention_bwd.cu)."""
+    _check(q, k, v, do=do)
+    if window < 0:
+        raise ValueError(f"flash_attention_bwd: window {window} < 0")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, hq, sq) or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous fp32 "
+                         f"{(b, hq, sq)} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    # written by the dQ kernel for every row that sees a key, read by the
+    # dK/dV kernel; zero for a row that sees none
+    delta = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    strides = [_Strides(*t.stride()[:3]) for t in (q, k, v, do, dq, dk, dv)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _entry("repro_flash_attention_bwd_bf16")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d, *strides,
+            int(causal), int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: launch failed, cudaError "
+                           f"{err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def wgmma_probe(a: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

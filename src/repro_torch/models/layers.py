@@ -51,7 +51,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def embed(tokens: torch.Tensor, table: torch.Tensor,
           compute_dtype: torch.dtype) -> torch.Tensor:
-    return table.to(compute_dtype)[tokens]
+    """The rows of ``tokens``, cast after the gather: the reference's
+    cast-then-gather values, without a cast copy of a whole fp32 table."""
+    return table[tokens].to(compute_dtype)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -8,17 +8,22 @@ can name its entries the same way in both packages. The layer loop is a
 Python loop over the views ``layers[name][i]``.
 
 The reference keeps fp32 masters and casts each to the compute dtype where
-it is used. Here a parameter the reference only uses in the compute dtype
-is cast once, when it is made or loaded: the same bits at half the memory.
-The SSM leaves the reference uses in fp32 (``A_log``, ``ssm_D``,
-``dt_bias``, the conv weights and biases: ``Leaf.fp32``) stay fp32 and are
-cast where the reference casts them.
+it is used. For serving, a parameter the reference only uses in the
+compute dtype is cast once, when it is made or loaded: the same bits at
+half the memory. For training, ``init(..., dtype=torch.float32)`` keeps
+fp32 masters and every use casts, as the reference does. The SSM leaves
+the reference uses in fp32 (``A_log``, ``ssm_D``, ``dt_bias``, the conv
+weights and biases: ``Leaf.fp32``) stay fp32 and are cast where the
+reference casts them.
 
-Two entry points, matching the reference's serving path:
+Three entry points, matching the reference's:
   ``prefill``      fills the caches (a ring KV cache for the dense family,
                    the SSM and conv states for Mamba2), returns last-token
                    fp32 logits;
-  ``decode_step``  one new token against those caches, updated in place.
+  ``decode_step``  one new token against those caches, updated in place;
+  ``train_loss``   mean cross-entropy of full-sequence fp32 logits, dense
+                   family only, each layer recomputed in the backward pass
+                   (``remat``) as under the reference's ``Rules.remat``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import attention_op, ssd_op
@@ -124,22 +130,32 @@ def _dense_leaves(cfg: ModelConfig) -> dict:
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, *, device: torch.device | str = "cuda"):
-        if cfg.arch_type not in PORTED_ARCH_TYPES:
+    def __init__(self, cfg: ModelConfig, *, device: torch.device | str = "cuda",
+                 remat: bool = True):
+        """``remat``: recompute each layer in ``train_loss``'s backward
+        pass instead of keeping its activations (the reference's
+        ``Rules.remat``, on by default); the gradients are the same."""
+        if cfg.arch_type not in PORTED_ARCH_TYPES or cfg.moe:
             raise NotImplementedError(
-                f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
-                f"the port serves {PORTED_ARCH_TYPES} only (ROADMAP.md, "
-                "queue A)")
+                f"{cfg.name}: arch_type {cfg.arch_type!r}"
+                f"{' with MoE' if cfg.moe else ''} is not ported yet; the "
+                f"port serves {PORTED_ARCH_TYPES} without MoE only "
+                "(ROADMAP.md, queue A)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.dtype)
+        self.remat = remat
 
     # ----- params -----
 
-    def init(self, generator: torch.Generator) -> dict:
-        """Random parameters in the compute dtype (``Leaf.fp32`` ones in
-        fp32), drawn on the model's device from ``generator`` (which must
-        live there too): the reference's distributions, not its numbers."""
+    def init(self, generator: torch.Generator, *,
+             dtype: torch.dtype | None = None) -> dict:
+        """Random parameters in ``dtype`` (default: the compute dtype, for
+        serving; ``torch.float32`` for training's masters), ``Leaf.fp32``
+        ones in fp32, drawn on the model's device from ``generator`` (which
+        must live there too): the reference's distributions, not its
+        numbers."""
+        dtype = dtype or self.compute_dtype
         def uniform(shape, lo, hi):
             return lo + (hi - lo) * torch.rand(shape, generator=generator,
                                                device=self.device)
@@ -160,7 +176,7 @@ class Model:
             else:
                 t = torch.randn(leaf.shape, generator=generator,
                                 device=self.device) * leaf.init[1]
-            return t if leaf.fp32 else t.to(self.compute_dtype)
+            return t if leaf.fp32 else t.to(dtype)
 
         schema = param_schema(self.cfg)
         params = {k: make(v) for k, v in schema.items() if k != "layers"}
@@ -178,16 +194,33 @@ class Model:
     def _qkv(self, p: dict, a: torch.Tensor):
         cfg = self.cfg
         b, s, _ = a.shape
-        q = a @ p["wq"]
-        k = a @ p["wk"]
-        v = a @ p["wv"]
+        dt = a.dtype
+        q = a @ p["wq"].to(dt)
+        k = a @ p["wk"].to(dt)
+        v = a @ p["wv"].to(dt)
         if cfg.qkv_bias:
-            q = q + p["bq"]
-            k = k + p["bk"]
-            v = v + p["bv"]
+            q = q + p["bq"].to(dt)
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
         return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
                 k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
                 v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+
+    def _attention(self, p: dict, h: torch.Tensor, positions: torch.Tensor):
+        """The attention sublayer over a whole sequence (prefill, train):
+        returns (h + attention, k, v), k/v after RoPE for the cache."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        a = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        q, k, v = self._qkv(p, a)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        out = attention_op(q, k, v, causal=True, window=cfg.sliding_window)
+        return h + out.reshape(b, s, -1) @ p["wo"].to(h.dtype), k, v
+
+    def _train_layer(self, p: dict, h: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        return self._mlp(p, self._attention(p, h, positions)[0])
 
     def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
         m = L.rms_norm(h, p["mlp_norm"], self.cfg.norm_eps)
@@ -205,9 +238,11 @@ class Model:
         The entry points take it as ``unembed=`` so that a caller who
         unembeds often (the serving engine) upcasts the table once per set
         of weights, not on every call (151936 x 2048 at full width)."""
-        if self.cfg.tie_embeddings:
-            return params["embed"].T.float()
-        return params["lm_head"].float()
+        table = (params["embed"].T if self.cfg.tie_embeddings
+                 else params["lm_head"])
+        # fp32 masters round to the compute dtype first, as the reference's
+        # unembed casts the table to the activations' dtype
+        return table.to(self.compute_dtype).float()
 
     def mamba_sublayer(self, p: dict, h: torch.Tensor, cache: dict, *,
                        decode: bool) -> torch.Tensor:
@@ -289,17 +324,10 @@ class Model:
         valid = src < s
         slots, src = valid.nonzero()[:, 0], src[valid]
         caches["slot_pos"][:, slots] = src.to(torch.int32)
-        layers = params["layers"]
-        for i in range(cfg.num_layers):
-            p = {name: t[i] for name, t in layers.items()}
-            a = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
-            q, k, v = self._qkv(p, a)
-            q = L.apply_rope(q, positions, cfg.rope_theta)
-            k = L.apply_rope(k, positions, cfg.rope_theta)
-            out = attention_op(q, k, v, causal=True, window=cfg.sliding_window)
+        for i, p in enumerate(self._layer_params(params)):
+            h, k, v = self._attention(p, h, positions)
             caches["k"][i][:, slots] = k[:, src]
             caches["v"][i][:, slots] = v[:, src]
-            h = h + out.reshape(b, s, -1) @ p["wo"]
             h = self._mlp(p, h)
         return self._logits(params, h[:, -1:], unembed)[:, 0], caches
 
@@ -317,9 +345,7 @@ class Model:
             return self._logits(params, h, unembed)[:, 0], caches
         b = h.shape[0]
         positions = torch.tensor([pos], device=self.device)
-        layers = params["layers"]
-        for i in range(cfg.num_layers):
-            p = {name: t[i] for name, t in layers.items()}
+        for i, p in enumerate(self._layer_params(params)):
             a = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
             q, k, v = self._qkv(p, a)
             q = L.apply_rope(q, positions, cfg.rope_theta)
@@ -330,9 +356,66 @@ class Model:
             out = attn.decode_attention(
                 q, layer_cache["k"], layer_cache["v"],
                 layer_cache["slot_pos"], pos, window=cfg.sliding_window)
-            h = h + out.reshape(b, 1, -1) @ p["wo"]
+            h = h + out.reshape(b, 1, -1) @ p["wo"].to(h.dtype)
             h = self._mlp(p, h)
         return self._logits(params, h, unembed)[:, 0], caches
+
+    # ----- training -----
+
+    def _layer_params(self, params: dict) -> list[dict]:
+        """Each layer's parameters: ``params["layers"]`` as stacked [L, ...]
+        leaves, sliced, or already a list of per-layer dicts (the training
+        step's leaf views, ``repro_torch.train.step``)."""
+        layers = params["layers"]
+        if isinstance(layers, (list, tuple)):
+            return list(layers)
+        return [{name: t[i] for name, t in layers.items()}
+                for i in range(self.cfg.num_layers)]
+
+    def apply_layers(self, params: dict, h: torch.Tensor, *, mode: str,
+                     positions: torch.Tensor):
+        """The dense layer stack over a whole sequence without caches, as
+        the reference's ``apply_layers(mode="train")``, with each layer
+        checkpointed when ``remat``. Returns (h, aux_mean): aux is 0 for
+        the dense family. ``prefill`` and ``decode_step`` run their own
+        loops, which write the caches."""
+        if mode != "train":
+            raise ValueError(f"apply_layers: mode {mode!r}; only 'train' runs "
+                             "here (prefill and decode_step have their own "
+                             "loops)")
+        for p in self._layer_params(params):
+            if self.remat:
+                h = checkpoint(self._train_layer, p, h, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = self._train_layer(p, h, positions)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def train_loss(self, params: dict, batch: dict):
+        """batch: tokens and labels [B, S]. Returns (loss, {"ce", "aux"}):
+        the mean over positions of logsumexp(logits) - logits[label] on
+        fp32 logits of the whole sequence, as the reference's
+        ``train_loss``. The masters are cast to the compute dtype where
+        they are used, inside each (checkpointed) layer, so remat keeps no
+        copies of them. Dense family without MoE only, on every device."""
+        cfg = self.cfg
+        if cfg.arch_type != "dense" or cfg.moe:
+            raise NotImplementedError(
+                f"{cfg.name}: training is ported for the dense family "
+                f"without MoE only, not arch_type {cfg.arch_type!r}"
+                f"{' with MoE' if cfg.moe else ''} (ROADMAP.md A.5, A.6, "
+                "A.11)")
+        tokens = batch["tokens"].long()
+        labels = batch["labels"].long()
+        h = L.embed(tokens, params["embed"], self.compute_dtype)
+        positions = torch.arange(tokens.shape[1], device=h.device)
+        h, aux = self.apply_layers(params, h, mode="train",
+                                   positions=positions)
+        logits = self._logits(params, h, None)
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, labels[..., None])[..., 0]
+        ce = (lse - label_logit).mean()
+        return ce, {"ce": ce, "aux": aux}
 
     # ----- caches -----
 

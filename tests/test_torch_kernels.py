@@ -5,7 +5,11 @@ file imports no JAX, so it runs as it is on a machine with a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels.py
 
 Tolerances, by the largest relative L2 error of one output row
-(``row_rel_err``): flash attention in bf16 to 2e-2. Both sides round the
+(``row_rel_err``): flash attention in bf16 to 2e-2. Its backward's dQ, dK,
+dV too, each row's norm raised to at least 1% of the median row norm
+(row 0 of dQ is exactly zero under a causal mask); the kernel rounds P and
+dS to bf16 before their products and the outputs to bf16, 2^-9 per term.
+The forward's LSE to 1e-3 absolute (a 0.1% error in P). Both sides round the
 output to bf16 (2^-8 relative at most) and the kernel also rounds P to
 bf16 before P @ V, so a sound row errs by a few 1e-3; an absolute limit
 cannot serve, since causal rows range in size from ~1 (row 0) to
@@ -23,15 +27,24 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_tiny
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (KEY_TILE, flash_attention,
+                                                 flash_attention_bwd,
                                                  wgmma_probe)
 from repro_torch.kernels.ops import attention_op, ssd_op
-from repro_torch.kernels.ref import (attention_reference, row_rel_err,
+from repro_torch.kernels.ref import (attention_backward_reference,
+                                     attention_lse_reference,
+                                     attention_reference, row_rel_err,
                                      ssd_chunked_reference)
 from repro_torch.kernels.ssd import ssd_chunked_kernel
+from repro_torch.models.model import Model
+from repro_torch.optim.adamw import tree_map
+from repro_torch.train.step import loss_and_grads
 
 BF16_ROW_RTOL = 2e-2
+GRAD_ROW_FLOOR = 1e-2
+LSE_ABS_TOL = 1e-3
 SSD_Y_ROW_RTOL = 1e-2
 SSD_STATE_ROW_RTOL = 1e-3
 
@@ -60,6 +73,20 @@ def test_flash_attention_refuses_cpu_tensors():
     before = flash_attention.launches
     assert attention_op(x, x, x).shape == x.shape
     assert flash_attention.launches == before
+
+
+def test_flash_attention_bwd_refuses_cpu_tensors():
+    """No backward kernel runs on the CPU; there autograd differentiates
+    the plain version through attention_op."""
+    x = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(x, x, x, lse, x)
+    q = torch.randn((1, 64, 2, 64), requires_grad=True)
+    before = flash_attention_bwd.launches, flash_attention.launches
+    attention_op(q, q, q).sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    assert (flash_attention_bwd.launches, flash_attention.launches) == before
 
 
 def _ssd_inputs(b, s, h, p, g, n, device="cpu", seed=0):
@@ -100,8 +127,8 @@ def test_build_without_nvcc_raises():
 def test_source_hash_names_the_library():
     h = build.source_hash()
     assert len(h) == 16 and h == build.source_hash()
-    assert (build.CSRC / "flash_attention.cu").is_file()
-    assert (build.CSRC / "ssd.cu").is_file()
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu", "ssd.cu"):
+        assert (build.CSRC / name).is_file()
 
 
 def test_row_rel_err_finds_one_wrong_row():
@@ -291,3 +318,130 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
     args[0] = args[0].float()
     with pytest.raises(TypeError, match="bfloat16"):
         ssd_chunked_kernel(*args)
+
+
+# (B, Hq, Hkv, Sq, Sk, D, window, causal): the backward kernels' 64-row and
+# 64-key tiles, ragged edges, windows crossing tiles, D = 64, a group of 1
+BWD_EDGES = [
+    (2, 4, 2, 256, 256, 64, 0, True),
+    (1, 4, 2, 1000, 1000, 128, 0, True),    # S not a multiple of 64
+    (1, 4, 2, 520, 520, 128, 100, True),    # windows crossing key tiles
+    (2, 8, 2, 384, 384, 64, 0, True),       # D = 64
+    (1, 4, 2, 256, 333, 128, 0, False),     # non-causal, ragged keys
+    (1, 4, 2, 300, 700, 128, 0, True),      # Sk > Sq
+    (1, 4, 4, 300, 300, 128, 0, True),      # Hq = Hkv: a group of 1
+    (1, 4, 1, 100, 100, 64, 0, False),      # one ragged tile each
+]
+
+
+def _qkv_do(cuda, b, hq, hkv, sq, sk, d, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=gen, device=cuda,
+                        dtype=torch.bfloat16)
+            for s, h in ((sq, hq), (sk, hkv), (sk, hkv), (sq, hq))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,causal", BWD_EDGES)
+def test_flash_bwd_matches_plain_on_card(cuda, b, hq, hkv, sq, sk, d, window,
+                                         causal):
+    q, k, v, do = _qkv_do(cuda, b, hq, hkv, sq, sk, d, sq + sk + d)
+    _, lse = flash_attention(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    before = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    refs = attention_backward_reference(
+        *(t.transpose(1, 2) for t in (q, k, v, do)), causal=causal,
+        window=window)
+    for g, r, t in zip(grads, refs, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert row_rel_err(g, r.transpose(1, 2),
+                           floor=GRAD_ROW_FLOOR) <= BF16_ROW_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,causal", BWD_EDGES[:4])
+def test_forward_lse_on_card(cuda, b, hq, hkv, sq, sk, d, window, causal):
+    """The LSE against the plain logsumexp; the output with the LSE
+    written is bit-equal to the serving call's."""
+    q, k, v, _ = _qkv_do(cuda, b, hq, hkv, sq, sk, d, 7)
+    out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=True)
+    plain = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _, lse_ref = attention_lse_reference(
+        *(t.transpose(1, 2) for t in (q, k, v)), causal=causal, window=window)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_TOL
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.gpu
+def test_attention_op_differentiates_through_the_kernels_on_card(cuda):
+    """Under grad, attention_op runs the forward kernel with its LSE and
+    autograd calls the backward kernel; gradients match the plain
+    backward."""
+    q, k, v, do = _qkv_do(cuda, 2, 8, 2, 300, 300, 128, 3)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches, flash_attention_bwd.launches
+    out = attention_op(*leaves, window=64)
+    torch.autograd.backward(out, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    refs = attention_backward_reference(
+        *(t.transpose(1, 2) for t in (q, k, v, do)), window=64)
+    for leaf, r in zip(leaves, refs):
+        assert row_rel_err(leaf.grad, r.transpose(1, 2),
+                           floor=GRAD_ROW_FLOOR) <= BF16_ROW_RTOL
+
+
+@pytest.mark.gpu
+def test_tiny_model_trains_through_the_kernels_on_card(cuda):
+    """Tiny qwen2.5-3b, bf16 compute over fp32 masters, with and without
+    remat: one forward kernel per layer (two with remat: the backward pass
+    recomputes each layer) and one backward kernel per layer; the loss and
+    every gradient agree with the CPU's plain path (bf16 on both sides,
+    rounded in another order: 5e-2 by each leaf's relative L2 error)."""
+    cfg = get_tiny("qwen2.5-3b")
+    cpu = Model(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    g_cpu = tree_map(torch.zeros_like, p_cpu)
+    loss_cpu, _ = loss_and_grads(cpu, p_cpu, batch, g_cpu)
+    for remat in (True, False):
+        gpu = Model(cfg, device=cuda, remat=remat)
+        g_gpu = tree_map(torch.zeros_like, p_gpu)
+        before = flash_attention.launches, flash_attention_bwd.launches
+        loss, _ = loss_and_grads(gpu, p_gpu, tree_map(lambda t: t.to(cuda),
+                                                      batch), g_gpu)
+        torch.cuda.synchronize()
+        fwd = (2 if remat else 1) * cfg.num_layers
+        assert (flash_attention.launches - before[0],
+                flash_attention_bwd.launches - before[1]) == (
+                    fwd, cfg.num_layers)
+        assert abs(loss.item() - loss_cpu.item()) <= 5e-2 * loss_cpu.item()
+        for name in ("embed", "lm_head", "final_norm"):
+            ref = g_cpu[name]
+            assert ((g_gpu[name].cpu() - ref).norm() / ref.norm()).item() <= 5e-2
+        for name, ref in g_cpu["layers"].items():
+            err = (g_gpu["layers"][name].cpu() - ref).norm() / ref.norm()
+            assert err.item() <= 5e-2, name
+
+
+@pytest.mark.gpu
+def test_ssd_op_refuses_inputs_that_need_a_gradient_on_card(cuda):
+    """The SSD kernel has no backward: its output would carry none."""
+    args = list(_ssd_inputs(1, 64, 2, 32, 1, 16, device=cuda))
+    args[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd_op(*args, chunk=32)
+    with torch.no_grad():
+        y, _ = ssd_op(*args, chunk=32)
+    assert y.shape == args[0].shape
