@@ -10,7 +10,10 @@ Phases, one line or more each; any failure exits non-zero:
   3. kernels: each kernel (flash attention, the SSD scan) against its plain
      PyTorch version at the serving paths' shapes and their edges, then its
      time and achieved TFLOP/s beside the plain version's time, the
-     library call's (SDPA; none for SSD) and its bound on the card.
+     library call's (SDPA; none for SSD) and its bound on the card; for the
+     flash backward also the difference between two calls on the same
+     inputs (its sums across blocks are atomic) and its kernels' device
+     times from torch.profiler.
   4. reference: tiny qwen2.5-3b and tiny mamba2-370m in bf16 on the card
      against the plain CPU path.
   5. serve, once per model: qwen2.5-3b (36 layers) and mamba2-370m (48
@@ -402,6 +405,19 @@ def phase_flash_bwd_kernels(card: str) -> dict:
         f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% "
         f"reached); forward with the LSE at this shape {fwd_ms:.4f} ms, on "
         f"{card}")
+    # The kernels sum dQ, dK and dV across blocks by fp32 atomic adds, in the
+    # order the blocks finish: two calls on the same inputs, compared.
+    first, second = (flash_attention_bwd(q, k, v, lse, do) for _ in range(2))
+    torch.cuda.synchronize()
+    runs = [row_rel_err(x, y, floor=GRAD_ROW_FLOOR)
+            for x, y in zip(first, second)]
+    equal = [torch.equal(x, y) for x, y in zip(first, second)]
+    say("kernels", f"flash_attention_bwd train run to run: dq/dk/dv worst row "
+        f"rel L2 difference {runs[0]:.3e}/{runs[1]:.3e}/{runs[2]:.3e} (floor "
+        f"{GRAD_ROW_FLOOR} x median), bit-equal {equal[0]}/{equal[1]}/"
+        f"{equal[2]}")
+    profile_window("flash_bwd train", lambda: flash_attention_bwd(
+        q, k, v, lse, do), card, share_of="flash_bwd")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/attention.py:51",
@@ -642,7 +658,8 @@ def profile_window(name: str, fn, card: str, *, grad: bool = False,
                    share_of: str | None = None, top: int = 6) -> None:
     """Device busy share and the ``top`` kernels of one call, from
     torch.profiler: kernel time summed over the window's wall time; with
-    ``share_of``, also the share of the kernels whose name holds it."""
+    ``share_of``, also the share of the kernels whose name holds it, and
+    each of them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -670,6 +687,9 @@ def profile_window(name: str, fn, card: str, *, grad: bool = False,
         say("profile", f"  {name}: kernels named *{share_of}*: {us / 1e3:.3f} "
             f"ms, {100 * us / busy_us:.1f}% of device busy, "
             f"x{sum(r[1] for r in mine)}")
+        for us, count, key in sorted(mine, reverse=True):
+            say("profile", f"  {name}: *{share_of}* {us / 1e3:8.3f} ms x{count} "
+                f"{key[:90]}")
 
 
 def phase_small_reference(card: str, arch: str) -> None:

@@ -39,7 +39,7 @@ for name in "${names[@]}"; do
     flash_attention.cu)
       phases="c.phase_kernels(card); c.phase_flash_bwd_kernels(card)"
       kernel=flash_fwd_kernelILi128 ;;
-    *) phases="c.phase_flash_bwd_kernels(card)"; kernel="flash_bwd_d[a-z]*_kernelILi128" ;;
+    *) phases="c.phase_flash_bwd_kernels(card)"; kernel="flash_bwd_[a-z]*_kernelILi128" ;;
   esac
   (cd "$d" && timeout 600 python3 -c "import chip_smoke as c
 card = c.phase_device(); c.phase_build(); $phases" > run.log 2>&1)

@@ -1,6 +1,6 @@
 // Backward flash attention for Hopper (sm_90a): bf16 operands and
-// gradients, fp32 accumulate, `mma.sync` tensor cores, `cp.async`
-// double-buffered tiles.
+// gradients, fp32 accumulate, TMA loads into `mbarrier` rings and
+// warpgroup MMA (`wgmma`), warp-specialised.
 //
 // Replaces `jax.grad` of the pure-jnp `chunked_attention`
 // (src/repro/models/attention.py:51), which is what the JAX training path
@@ -9,194 +9,116 @@
 // it returns dQ, dK and dV under the forward's conventions: GQA with the
 // kv head of q head h at h / (Hq / Hkv), so dK and dV sum over the group's
 // q heads; causal and sliding-window masks on absolute positions that both
-// count from 0; ragged S; D in {64, 128}; the model layout [B, S, H, D]
-// with the caller's (batch, seq, head) strides.
-//
-// Two kernels, in FlashAttention-2's order, with no atomics, so results
-// are deterministic:
-//   1. dQ and delta: one block per (b, q head, 64-row q tile), 4 warps of
-//      16 rows, looping twice over the key tiles the rows can see. The
-//      first pass recomputes S = Q K^T, P and dP = dO V^T and sums
-//      delta_i = sum_j P_ij dP_ij in fp32, written as [B, Hq, Sq] for the
-//      second kernel; the second pass recomputes them again for dS = P o
-//      (dP - delta) and dQ += scale * dS K. FlashAttention-2 takes delta
-//      as rowsum(dO o O) instead, from the forward's output, which costs no
-//      pass but carries the forward's rounding of P to bf16 before P V:
-//      on the rows whose dQ cancels to a small vector (row 1 of a causal
-//      head, with two keys) that rounding moved dQ by 4.8% of its norm
-//      with the fp32 output and by 19% with the bf16 one, as SDPA's
-//      backward errs (chip_smoke.py, H100). The first pass costs 4 * D
-//      FLOPs per pair more.
-//   2. dK/dV: one block per (b, kv head, 64-key tile), 8 warps. It loops
-//      over the group's Hq / Hkv q heads and, for each, over the 64-row q
-//      tiles that can see its keys (for a causal mask, those at or after
-//      the key tile; a window also bounds them from above). Per tile it
-//      recomputes S^T = K Q^T, P^T = exp2(S^T * scale_log2 - LSE * log2 e),
-//      then dV += P^T dO, dP^T = V dO^T, dS^T = P^T o (dP^T - delta) and
-//      dK += scale * dS^T Q. Warp w owns keys 16 (w % 4) .. + 15 and q
-//      columns 32 (w / 4) .. + 31 of the tile, so each key's dK/dV is
-//      summed in two warps and the halves are added through shared memory
-//      at the end.
-// P and dS are rounded to bf16 as A operands of the next product (P and dS
-// stay fp32 for dS = P (dP - delta)); dK, dV, dQ are rounded to bf16 once.
-// Masks: only tiles that touch the diagonal, a window edge, Sq or Sk
-// compute one (`tile_needs_mask`), and there rows past Sq and keys past Sk
-// get P = 0 by a select, never by arithmetic on the LSE or scores of the
-// zero-filled rows (0 * inf would give NaN).
+// count from 0; ragged Sq and Sk; D in {64, 128}; the model layout
+// [B, S, H, D] with the caller's (batch, seq, head) strides.
 //
 // What bounds it. The work is 10 * D FLOPs per unmasked (q, k) pair (S
-// recomputed, dV, dP, dK, dQ), 2.5x the forward's 4 * D; at the training
-// shape (B = 2, S = 2048, Hq = 16, Hkv = 2, D = 128, causal) that is 86
-// GFLOP against ~59 MB of compulsory traffic (q, k, v, dO, dq, dk, dv in
-// bf16, the LSE), ~1450 FLOPs per byte: the tensor cores bound it (~87 us
-// at 989 TFLOP/s). This version does 18 * D per pair (S and dP are computed
-// in both passes of the dQ kernel and in the dK/dV kernel) on `mma.sync`,
-// which reaches only a part of the `wgmma` rate; the Hopper redesign
-// (TMA, `wgmma`, one pass with dQ reduced across blocks) is ROADMAP A.3.
+// recomputed, dV, dP, dK, dQ); at the training shape (B = 2, S = 2048, Hq =
+// 16, Hkv = 2, D = 128, causal) that is 86 GFLOP against ~59 MB of
+// compulsory traffic, ~1450 FLOPs per byte: the tensor cores bound it,
+// 0.0869 ms at 989 TFLOP/s, which only `wgmma` reaches.
 //
-// Tiles and resources (ptxas's report is printed by chip_smoke.py's
-// [build] lines): 64 x 64 tiles of q rows and keys; shared-memory rows
-// padded by 16 bytes so `ldmatrix` is free of bank conflicts. dK/dV: 256
-// threads, K and V tiles plus a double buffer of Q and dO tiles and their
-// LSE and delta, 105,472 bytes at D = 128 (56,320 at D = 64), one block
-// per SM; each thread holds 64 + 64 fp32 dK/dV accumulators at D = 128.
-// dQ: 128 threads, the Q and dO tiles plus a double buffer of K and V
-// tiles, 104,448 bytes at D = 128 (55,296 at D = 64), two blocks per SM.
+// Work done: 14 * D per pair, in three kernels.
+//   1. delta (4 * D): one block per (b, q head, 64-row q tile), the longest
+//      causal tiles first; one consumer warpgroup and one producer warp,
+//      two blocks per SM. The producer's TMA brings the Q and dO tiles once
+//      and streams 64-key K and V tiles through a ring; the consumers
+//      compute S = Q K^T and dP = dO V^T on `wgmma` (both operands from
+//      shared memory) and sum delta_i = sum_j P_ij dP_ij in fp32. Delta
+//      stays exact: taking it as rowsum(dO o O) instead carries the
+//      forward's rounding of P to bf16 before P V, which moved dQ by 19%
+//      (bf16 O) or 4.8% (fp32 O) on rows whose dQ cancels
+//      (tests/test_torch_flash_bwd_numerics.py shows it).
+//      It writes delta and LSE * log2 e per row, padded to whole q tiles,
+//      and zeroes the block's rows of the fp32 dQ accumulator.
+//   2. main (10 * D): one block per (64-key tile, b, q head), two
+//      warpgroups. K and V stay resident; the Q and dO tiles the keys can
+//      see, with their LSE and delta rows (bulk copies), stream by TMA
+//      through a ring of kStages stages, each completing on its own
+//      `mbarrier`. One thread issues every load, a stage's refill right
+//      after the block's per-tile barrier, two tiles ahead of its use. Per
+//      64-row q tile, all products on `wgmma`:
+//        warpgroup 0: S^T = K Q^T (both operands from shared memory,
+//          K-major); P^T = exp2(S^T * scale log2 e - LSE log2 e), a select
+//          to 0 where masked, handed to warpgroup 1 in fp32 through shared
+//          memory (a named barrier); dV += P^T dO with P^T from registers
+//          (bf16) and dO read MN-major (the transpose bit), as the
+//          forward's P V;
+//        warpgroup 1: dP^T = V dO^T; dS^T = P^T o (dP^T - delta), written
+//          to shared memory in bf16 with the 128-byte swizzle, as TMA would;
+//          dK += dS^T Q as dV;
+//        both, after a barrier: dQ's partial dS K, 64 of the D columns each
+//          (D = 64: warpgroup 0 alone), dS read as a transposed A and K as a
+//          transposed B; the fp32 partial is staged in shared memory and
+//          added to dQ's sum by a TMA bulk reduce-add
+//          (`cp.reduce.async.bulk ... add.f32`).
+//      At the end each warpgroup stages its dV or dK (64 keys x D) in the
+//      idle Q or dO ring and adds it to fp32 sums the same way, summing the
+//      group's q heads (as `red.global.add.v2.f32` from registers, the
+//      epilogue took ~0.05 ms of the main kernel's ~0.38 at the training
+//      shape, scripts/time_flash_bwd.py on a copy without it). All three
+//      sums are chunks of [64 rows][64 columns] fp32, swizzled so that the
+//      staging stores are free of bank conflicts.
+//   3. convert: dQ and dK scaled by 1 / sqrt(D), dQ, dK, dV to bf16.
+// P and dS are rounded to bf16 as A operands of their products (P and dS
+// stay fp32 for dS = P (dP - delta)); dK, dV, dQ are rounded to bf16 once.
+// Masks: only tiles that touch the diagonal, a window edge, Sq or Sk
+// compute one (`tile_needs_mask`); TMA zero-fills rows past S, and there P
+// is set to 0 by a select, never by arithmetic on the zero rows' LSE.
 //
-// The C entry point launches the two kernels on the caller's stream,
-// allocates nothing (delta is scratch the caller provides) and returns a
-// cudaError_t.
+// The grid has no tail. At the training shape B * Hkv = 4, so a grid of
+// (b, kv head, key tile) would be 128 blocks for 132 SMs, one wave whose
+// first blocks walk 8 heads x 32 q tiles against a mean of 132. Split per
+// q head it is 1024 blocks of at most 32 q tiles, about eight waves at one
+// block per SM, ordered key tile first: the causal walks (32 q tiles for
+// key tile 0, 1 for the last) start longest first and the short ones fill
+// the tail. dK and dV are then sums over blocks.
+//
+// Determinism: dQ sums one partial per key tile and dK / dV one per q
+// head, in the order the blocks reach them, so the low bits of the bf16
+// outputs can differ from call to call (chip_smoke.py prints by how much);
+// every term is the same.
+//
+// Registers set the block. ptxas caps a thread at 16,384 registers / (32 x
+// the warps on one of the SM's four partitions), rounded down to 8: 255 for
+// 8 warps, 168 for 9 to 12. A first main kernel gave each warpgroup 64 keys
+// of a 128-key block and every product of them: dK and dV (D / 2 + D / 2
+// fp32), S^T, dP^T and dQ's partial (32 each) and the bf16 fragments, ~230
+// at D = 128. With a producer warp (288 threads) it was capped at 168 and
+// spilled 928 bytes; as 256 threads this CUDA 12.9 ptxas crashed
+// (segmentation fault) at every cap above 168 tried (184 to 255). Split by
+// role, a warpgroup holds one of dK, dV (64), one of S^T, dP^T (32), its
+// fragments (16) and dQ's partial (32): 162 under `__maxnreg__(168)`, no
+// spill (130 at D = 64). The delta kernel takes 125, two blocks per SM.
+//
+// The C entry point builds the tensor maps on the host, launches the three
+// kernels on the caller's stream, allocates nothing (scratch comes from
+// the caller) and returns a cudaError_t.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kTile = 64;  // q rows and keys per tile
+constexpr int kQTile = 64;    // q rows per tile
+constexpr int kKTile = 64;    // keys per tile: the delta kernel's, a main block's
+constexpr int kDeltaStages = 2;
+constexpr int kStages = 3;
+constexpr int kQBoxBytes = kQTile * 128;   // a box of 64 rows
+constexpr int kKBoxBytes = kKTile * 128;   // a box of 64 keys
+constexpr int kDSBytes = kKTile * kQTile * 2;   // dS^T [64 keys][64 q rows] bf16
+constexpr int kPBytes = kKTile * kQTile * 4;    // P^T fp32, in accumulator fragments
+constexpr int kRowBytes = 2 * kQTile * 4;       // a q tile's LSE * log2 e and delta
+constexpr int kChunkBytes = 64 * 64 * 4;        // an fp32 [64][64] chunk: a dQ partial
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Strides {
-  long long b, s, h;  // elements
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// one 16-byte row. Without .trans lane l receives row l / 4, columns
-// 2 (l % 4) + {0, 1} of each matrix; with .trans the same of its transpose.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, fp32 accumulators.
-// Lane 4 g + t holds A rows g and g + 8 at columns 2 t.. and 2 t + 8..
-// (a[0..3] = (g, lo), (g + 8, lo), (g, hi), (g + 8, hi)), B column g at rows
-// 2 t.. (b0) and 2 t + 8.. (b1), and D rows g (d[0..1]) and g + 8 (d[2..3])
-// at columns 2 t, 2 t + 1.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> one register of two bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The accumulators of two adjacent 8-column tiles as the A fragment of
-// the 16 columns they cover.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// Shared-memory tiles are [kTile][D + 8] bf16: the 16-byte pad puts the
-// eight rows of an ldmatrix on eight different bank groups.
-template <int D>
-__device__ __forceinline__ uint32_t tile_addr(uint32_t tile, int row, int col) {
-  return tile + (row * (D + 8) + col) * 2;
-}
-
-// A fragment (rows row0.., columns col0..) of a [row][col] tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t tile, int row0, int col0,
-                                       int lane) {
-  ldsm_x4(a, tile_addr<D>(tile, row0 + (lane & 15), col0 + (lane >> 4) * 8));
-}
-// B fragments of two 8-column tiles n0.., n0 + 8.. over k0.. + 15 from a
-// tile stored [n][k] (B = stored^T): b[0..1] for n0, b[2..3] for n0 + 8.
-template <int D>
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], uint32_t tile, int n0, int k0,
-                                          int lane) {
-  ldsm_x4(b, tile_addr<D>(tile, n0 + (lane & 7) + (lane >> 4) * 8, k0 + ((lane >> 3) & 1) * 8));
-}
-// The same from a tile stored [k][n] (B = stored).
-template <int D>
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], uint32_t tile, int k0, int n0,
-                                          int lane) {
-  ldsm_x4_t(b, tile_addr<D>(tile, k0 + (lane & 7) + ((lane >> 3) & 1) * 8, n0 + (lane >> 4) * 8));
-}
-
-// Rows [row0, row0 + kTile) of one head of a [B, S, H, D] tensor (`base`
-// at its (b, 0, h)) into a shared tile; rows at or past `rows` are zeros.
-template <int D, int kThreads>
-__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* base,
-                                          long long row_stride, int row0, int rows,
-                                          int tid) {
-  constexpr int kChunks = kTile * D / 8;  // 16-byte chunks
-#pragma unroll
-  for (int c = tid; c < kChunks; c += kThreads) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    const bool valid = row0 + r < rows;
-    const __nv_bfloat16* src = base + (valid ? row0 + r : 0) * row_stride + col;
-    cp_async16(tile_addr<D>(tile, r, col), src, valid);
-  }
-}
-
-// Whether a (q tile, key tile) pair has a pair to mask: a key after a row
-// (causal), a key at or before a row minus the window, a row past Sq or a
-// key past Sk.
+// Whether a (64-row q tile, 64-key tile) pair has a pair to mask: a key
+// after a row (causal), a key at or before a row minus the window, a row
+// past Sq or a key past Sk.
 __device__ __forceinline__ bool tile_needs_mask(int q_lo, int k_lo, int Sq, int Sk,
                                                 int causal, int window) {
-  bool masked = q_lo + kTile > Sq || k_lo + kTile > Sk;
-  masked |= causal && k_lo + kTile - 1 > q_lo;
-  masked |= window > 0 && k_lo <= q_lo + kTile - 1 - window;
+  bool masked = q_lo + kQTile > Sq || k_lo + kKTile > Sk;
+  masked |= causal && k_lo + kKTile - 1 > q_lo;
+  masked |= window > 0 && k_lo <= q_lo + kQTile - 1 - window;
   return masked;
 }
 
@@ -208,424 +130,560 @@ __device__ __forceinline__ bool visible(int r, int c, int Sq, int Sk, int causal
   return ok;
 }
 
-// ---- 1. dQ and delta ------------------------------------------------------
+// acc[64 x D] (+)= A[64 x 16] B[16 x D], A from registers, B MN-major.
 template <int D>
-constexpr int dq_smem_bytes() {
-  return 6 * kTile * (D + 8) * 2;
+__device__ __forceinline__ void wgmma_rs_nd(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (D == 128) {
+    wgmma_rs_m64n128_tb(d, a, b, 1);
+  } else {
+    wgmma_rs_m64n64_tb(d, a, b, 1);
+  }
+}
+
+// ---- 1. delta -------------------------------------------------------------
+template <int D>
+constexpr int delta_smem_bytes() {
+  return 1024 + (2 + 2 * kDeltaStages) * kQTile * D * 2 + 8 * (1 + 2 * kDeltaStages);
+}
+
+// S = Q K^T and dP = dO V^T for one warpgroup's 64 q rows and one 64-key
+// tile, all four operands K-major in shared memory, committed as one wgmma
+// group (the first k-step overwrites s, dp).
+template <int D>
+__device__ __forceinline__ void delta_mma(float (&s)[kKTile / 2], float (&dp)[kKTile / 2],
+                                          uint32_t q_s, uint32_t do_s, uint32_t k_s,
+                                          uint32_t v_s) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_m64n64(s, desc_kmajor(q_s, kQBoxBytes, kk), desc_kmajor(k_s, kQBoxBytes, kk),
+                    kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_m64n64(dp, desc_kmajor(do_s, kQBoxBytes, kk), desc_kmajor(v_s, kQBoxBytes, kk),
+                    kk > 0);
+  wgmma_commit();
+}
+
+// delta += P o dP over one tile: P = exp2(S * scale_log2 - LSE * log2 e),
+// 0 where masked. Element 4 j + e is row row0 + 8 (e / 2), key k_lo + 8 j +
+// 2 t + e % 2.
+__device__ __forceinline__ void delta_accumulate(const float (&s)[kKTile / 2],
+                                                 const float (&dpacc)[kKTile / 2],
+                                                 float (&drow)[2], const float (&lrow)[2],
+                                                 bool masked, int row0, int k_lo, int t, int Sq,
+                                                 int Sk, int causal, int window,
+                                                 float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < kKTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + 8 * (e >> 1);
+      const int c = k_lo + 8 * j + 2 * t + (e & 1);
+      float p = exp2f(s[4 * j + e] * scale_log2 - lrow[e >> 1]);
+      p = (!masked || visible(r, c, Sq, Sk, causal, window)) ? p : 0.f;
+      drow[e >> 1] += p * dpacc[4 * j + e];
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, Strides qs, Strides ks, Strides vs,
-                    Strides dos, Strides dqs, int Hq, int Hkv, int Sq, int Sk, float scale,
-                    int causal, int window) {
-  constexpr int kThreads = 128;
-  constexpr int kTileBytes = kTile * (D + 8) * 2;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const uint32_t sQ = smem_u32(smem);
+__global__ void __launch_bounds__(160, 2)
+flash_bwd_delta_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const float* __restrict__ lse, float* __restrict__ rows,
+                       float* __restrict__ dq_acc, int Hq, int Hkv, int Sq, int Sk,
+                       int Sq_pad, float scale_log2, int causal, int window) {
+  constexpr int kTileBytes = kQTile * D * 2;  // Q, dO, or one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
   const uint32_t sDO = sQ + kTileBytes;
-  const uint32_t sK = sDO + kTileBytes;      // + buf * kTileBytes
-  const uint32_t sV = sK + 2 * kTileBytes;   // + buf * kTileBytes
+  const uint32_t sK = sDO + kTileBytes;                  // + stage * kTileBytes
+  const uint32_t sV = sK + kDeltaStages * kTileBytes;    // + stage * kTileBytes
+  const uint32_t bars = sV + kDeltaStages * kTileBytes;
+  const uint32_t q_full = bars;
+  const uint32_t kv_full = bars + 8;                     // + 8 * stage
+  const uint32_t empty = bars + 8 * (1 + kDeltaStages);  // + 8 * stage
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;  // q rows 16 warp .. + 15 of the tile
-  const int g = lane >> 2;
-  const int t = lane & 3;
   // causal tiles near the end of the sequence do the most work: start them first
-  const int q_lo = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int b = blockIdx.y / Hq;
-  const int h = blockIdx.y % Hq;
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * kQTile;
+  const int bh = blockIdx.y;  // b * Hq + h
+  const int b = bh / Hq;
+  const int h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const float scale_log2 = scale * kLog2e;
-
-  int kt_end = (Sk + kTile - 1) / kTile;
-  if (causal) kt_end = min(kt_end, (q_lo + kTile - 1) / kTile + 1);
+  int kt_end = (Sk + kKTile - 1) / kKTile;
+  if (causal) kt_end = min(kt_end, (q_lo + kQTile - 1) / kKTile + 1);
   int kt_begin = 0;
-  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / kTile;
-  const int n_it = max(kt_end - kt_begin, 0);
+  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / kKTile;
+  const int n_tiles = max(kt_end - kt_begin, 0);
 
-  // this thread's rows: r0 = q_lo + 16 warp + g and r0 + 8; delta is
-  // this thread's share of sum_j P dP until the first pass ends
-  const long long row_at = (static_cast<long long>(b) * Hq + h) * Sq + q_lo + 16 * warp + g;
-  float lrow[2], drow[2] = {0.f, 0.f};
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-    lrow[hf] = q_lo + 16 * warp + g + 8 * hf < Sq ? lse[row_at + 8 * hf] * kLog2e : 0.f;
-
-  auto issue = [&](int i, int buf) {
-    const int k0 = (kt_begin + i) * kTile;
-    load_tile<D, kThreads>(sK + buf * kTileBytes, k + b * ks.b + hk * ks.h, ks.s, k0, Sk, tid);
-    load_tile<D, kThreads>(sV + buf * kTileBytes, v + b * vs.b + hk * vs.h, vs.s, k0, Sk, tid);
-  };
-  load_tile<D, kThreads>(sQ, q + b * qs.b + h * qs.h, qs.s, q_lo, Sq, tid);
-  load_tile<D, kThreads>(sDO, dout + b * dos.b + h * dos.h, dos.s, q_lo, Sq, tid);
-  if (n_it > 0) issue(0, 0);
-  cp_async_commit();
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-
-  // iterations [0, n_it): the first pass (delta), [n_it, 2 n_it): the second (dQ)
-  for (int it = 0; it < 2 * n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < 2 * n_it) issue((it + 1) % n_it, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int k_lo = (kt_begin + it % n_it) * kTile;
-    const uint32_t k_s = sK + buf * kTileBytes;
-    const uint32_t v_s = sV + buf * kTileBytes;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys each
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ad[4];
-      load_a<D>(aq, sQ, 16 * warp, 16 * kk, lane);
-      load_a<D>(ad, sDO, 16 * warp, 16 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4], bv[4];
-        load_b_nk<D>(bk, k_s, 16 * np, 16 * kk, lane);
-        mma_bf16(s[2 * np], aq, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
-        load_b_nk<D>(bv, v_s, 16 * np, 16 * kk, lane);
-        mma_bf16(dp[2 * np], ad, bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], ad, bv[2], bv[3]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDeltaStages; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);  // every consumer thread
     }
-    // P = exp2(S * scale_log2 - LSE * log2 e), 0 where masked; then delta
-    // += P dP (first pass) or dS = P o (dP - delta) (second)
-    const bool masked = tile_needs_mask(q_lo, k_lo, Sq, Sk, causal, window);
-    const bool first = it < n_it;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = q_lo + 16 * warp + g + 8 * (e >> 1);
-        const int c = k_lo + 8 * j + 2 * t + (e & 1);
-        float p = exp2f(s[j][e] * scale_log2 - lrow[e >> 1]);
-        p = (!masked || visible(r, c, Sq, Sk, causal, window)) ? p : 0.f;
-        if (first)
-          drow[e >> 1] += p * dp[j][e];
-        else
-          s[j][e] = p * (dp[j][e] - drow[e >> 1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer warp: one thread issues every load ----------------------
+    if (threadIdx.x == 128 && n_tiles > 0) {
+      mbar_expect_tx(q_full, 2 * kTileBytes);
+      for (int c = 0; c < D / kBoxCols; ++c) {
+        tma_load_4d(sQ + c * kQBoxBytes, &tm_q, q_full, c * kBoxCols, h, q_lo, b);
+        tma_load_4d(sDO + c * kQBoxBytes, &tm_do, q_full, c * kBoxCols, h, q_lo, b);
       }
-    if (first) {
-      if (it == n_it - 1) {
-        // the quad's four shares of each row; the dK/dV kernel reads it
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          drow[hf] += __shfl_xor_sync(0xffffffffu, drow[hf], 1);
-          drow[hf] += __shfl_xor_sync(0xffffffffu, drow[hf], 2);
-          if (t == 0 && q_lo + 16 * warp + g + 8 * hf < Sq) delta[row_at + 8 * hf] = drow[hf];
+      for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i % kDeltaStages;
+        mbar_wait(empty + 8 * stage, ((i / kDeltaStages) & 1) ^ 1);
+        const int k_lo = (kt_begin + i) * kKTile;
+        // a ragged last tile still counts whole boxes: TMA writes the zeros
+        mbar_expect_tx(kv_full + 8 * stage, 2 * kTileBytes);
+        for (int c = 0; c < D / kBoxCols; ++c) {
+          tma_load_4d(sK + stage * kTileBytes + c * kQBoxBytes, &tm_k, kv_full + 8 * stage,
+                      c * kBoxCols, hk, k_lo, b);
+          tma_load_4d(sV + stage * kTileBytes + c * kQBoxBytes, &tm_v, kv_full + 8 * stage,
+                      c * kBoxCols, hk, k_lo, b);
         }
       }
-      __syncthreads();
-      continue;
     }
-    // dQ += dS K (scaled at the end)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bk[4];
-        load_b_kn<D>(bk, k_s, 16 * kk, 16 * dn, lane);
-        mma_bf16(dq_acc[2 * dn], sa, bk[0], bk[1]);
-        mma_bf16(dq_acc[2 * dn + 1], sa, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();
+    return;
   }
 
+  // ---- consumer warpgroup: 64 q rows ----------------------------------------
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;
+  const int t = tid & 3;
+  const int row0 = q_lo + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+
+  // the main kernel adds every key tile's dQ partial into these rows
+  float4* zero = reinterpret_cast<float4*>(dq_acc + (static_cast<long long>(bh) * Sq_pad + q_lo) * D);
+  for (int i = tid; i < kQTile * D / 4; i += 128) zero[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float lrow[2], drow[2] = {0.f, 0.f};
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int r = q_lo + 16 * warp + g + 8 * hf;
-    if (r >= Sq) continue;
-    __nv_bfloat16* dqp = dq + b * dqs.b + r * dqs.s + h * dqs.h;
+    const int r = row0 + 8 * hf;
+    lrow[hf] = r < Sq ? lse[static_cast<long long>(bh) * Sq + r] * kLog2e : 0.f;
+  }
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i % kDeltaStages;
+    const int k_lo = (kt_begin + i) * kKTile;
+    float sacc[kKTile / 2], dpacc[kKTile / 2];
+    mbar_wait(kv_full + 8 * stage, (i / kDeltaStages) & 1);
+    delta_mma<D>(sacc, dpacc, sQ, sDO, sK + stage * kTileBytes, sV + stage * kTileBytes);
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(dpacc);
+    mbar_arrive(empty + 8 * stage);
+    delta_accumulate(sacc, dpacc, drow, lrow, tile_needs_mask(q_lo, k_lo, Sq, Sk, causal, window),
+                     row0, k_lo, t, Sq, Sk, causal, window, scale_log2);
+  }
+  // the quad's four shares of each row; rows past Sq get zeros
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dqp + 8 * j + 2 * t) =
-          pack_bf16(dq_acc[j][2 * hf] * scale, dq_acc[j][2 * hf + 1] * scale);
+  for (int hf = 0; hf < 2; ++hf) {
+    drow[hf] += __shfl_xor_sync(0xffffffffu, drow[hf], 1);
+    drow[hf] += __shfl_xor_sync(0xffffffffu, drow[hf], 2);
+    const int r = row0 + 8 * hf;
+    if (t == 0) {
+      const long long at = static_cast<long long>(bh) * Sq_pad + r;
+      rows[at] = r < Sq ? lrow[hf] : 0.f;
+      rows[static_cast<long long>(gridDim.y) * Sq_pad + at] = r < Sq ? drow[hf] : 0.f;
+    }
   }
 }
 
-// ---- 2. dK, dV (after the dQ kernel has written delta) --------------------
+// ---- 2. main: dV, dK and dQ's partials ------------------------------------
 template <int D>
-constexpr int dkdv_smem_bytes() {
-  return 6 * kTile * (D + 8) * 2 + 4 * kTile * 4;
+constexpr int main_smem_bytes() {
+  return 1024 + 2 * kKTile * D * 2 + 2 * kStages * kQTile * D * 2 + kPBytes + kDSBytes +
+         2 * kChunkBytes + kStages * kRowBytes + 8 * (1 + kStages);
 }
 
+// Tile i of a main block (q head h, rows [q_lo, q_lo + 64) of batch b):
+// its Q and dO boxes by TMA and its rows of LSE * log2 e and delta by bulk
+// copies, into stage i % kStages, completing on that stage's barrier.
 template <int D>
-__global__ void __launch_bounds__(256, 1)
-flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, Strides qs, Strides ks, Strides vs,
-                      Strides dos, Strides dks, Strides dvs, int Hq, int Hkv, int Sq, int Sk,
-                      float scale, int causal, int window) {
-  constexpr int kThreads = 256;
-  constexpr int kTileBytes = kTile * (D + 8) * 2;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const uint32_t sK = smem_u32(smem);
-  const uint32_t sV = sK + kTileBytes;
-  const uint32_t sQ = sV + kTileBytes;        // + buf * kTileBytes
-  const uint32_t sDO = sQ + 2 * kTileBytes;   // + buf * kTileBytes
-  float* sL = reinterpret_cast<float*>(smem + 6 * kTileBytes);  // [2][kTile]: LSE * log2 e
-  float* sD = sL + 2 * kTile;                                   // [2][kTile]: delta
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int kr = warp % 4;  // keys 16 kr .. + 15 of the tile
-  const int qc = warp / 4;  // q columns 32 qc .. + 31 of each q tile
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k_lo = blockIdx.x * kTile;
-  const int b = blockIdx.y / Hkv;
-  const int hk = blockIdx.y % Hkv;
-  const int group = Hq / Hkv;  // q heads that share this kv head
-  const float scale_log2 = scale * kLog2e;
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int qt_begin = causal ? k_lo / kTile : 0;
-  int qt_end = n_qt;
-  if (window > 0) qt_end = min(qt_end, (k_lo + kTile - 2 + window) / kTile + 1);
-  const int n_q = max(qt_end - qt_begin, 0);
-  const int n_it = group * n_q;
-
-  // iteration i: q head hk * group + i / n_q, q tile qt_begin + i % n_q
-  auto issue = [&](int i, int buf) {
-    const int h = hk * group + i / n_q;
-    const int q_lo = (qt_begin + i % n_q) * kTile;
-    load_tile<D, kThreads>(sQ + buf * kTileBytes, q + b * qs.b + h * qs.h, qs.s, q_lo, Sq, tid);
-    load_tile<D, kThreads>(sDO + buf * kTileBytes, dout + b * dos.b + h * dos.h, dos.s, q_lo, Sq,
-                           tid);
-  };
-  // this thread's share of a q tile's LSE and delta, read ahead into registers
-  auto read_rows = [&](int i, float& l, float& d) {
-    l = 0.f;
-    d = 0.f;
-    if (tid < kTile && i < n_it) {
-      const int h = hk * group + i / n_q;
-      const int r = (qt_begin + i % n_q) * kTile + tid;
-      if (r < Sq) {
-        const long long at = (static_cast<long long>(b) * Hq + h) * Sq + r;
-        l = lse[at] * kLog2e;
-        d = delta[at];
-      }
-    }
-  };
-
-  load_tile<D, kThreads>(sK, k + b * ks.b + hk * ks.h, ks.s, k_lo, Sk, tid);
-  load_tile<D, kThreads>(sV, v + b * vs.b + hk * vs.h, vs.s, k_lo, Sk, tid);
-  if (n_it > 0) issue(0, 0);
-  cp_async_commit();
-  float nl, nd;
-  read_rows(0, nl, nd);
-  if (tid < kTile) {
-    sL[tid] = nl;
-    sD[tid] = nd;
+__device__ __forceinline__ void load_q_tile(const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+                                            const float* rows, uint32_t sQ, uint32_t sDO,
+                                            uint32_t sRows, uint32_t full, int i, int h,
+                                            int q_lo, int b, int Hq, int Sq_pad,
+                                            long long plane) {
+  constexpr int kQTileBytes = kQTile * D * 2;
+  const int stage = i % kStages;
+  const uint32_t bar = full + 8 * stage;
+  mbar_expect_tx(bar, 2 * kQTileBytes + kRowBytes);
+  for (int c = 0; c < D / kBoxCols; ++c) {
+    tma_load_4d(sQ + stage * kQTileBytes + c * kQBoxBytes, tm_q, bar, c * kBoxCols, h, q_lo, b);
+    tma_load_4d(sDO + stage * kQTileBytes + c * kQBoxBytes, tm_do, bar, c * kBoxCols, h, q_lo,
+                b);
   }
+  const float* r = rows + (static_cast<long long>(b) * Hq + h) * Sq_pad + q_lo;
+  bulk_load(sRows + stage * kRowBytes, r, kRowBytes / 2, bar);
+  bulk_load(sRows + stage * kRowBytes + kRowBytes / 2, r + plane, kRowBytes / 2, bar);
+}
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+// A warpgroup's fp32 accumulator [64 rows x N] into shared memory as N / 64
+// chunks of [64 rows][64 columns], column c of row r at c ^ 8 (r mod 8) so
+// that the rows' float2 stores fall on distinct banks: the layout of the
+// fp32 sums in global memory (the convert kernel reads it back).
+template <int N>
+__device__ __forceinline__ void stage_acc(const float (&acc)[N / 2], uint32_t smem, int tid) {
+  const int warp = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) issue(it + 1, buf ^ 1);
-    cp_async_commit();
-    read_rows(it + 1, nl, nd);
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const int q_lo = (qt_begin + it % n_q) * kTile;
-    const uint32_t qt_s = sQ + buf * kTileBytes;
-    const uint32_t do_s = sDO + buf * kTileBytes;
-    const float* lrow = sL + buf * kTile;
-    const float* drow = sD + buf * kTile;
-
-    // S^T = K Q^T: 16 keys x 32 q columns
-    float st[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a<D>(a, sK, 16 * kr, 16 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bq[4];
-        load_b_nk<D>(bq, qt_s, 32 * qc + 16 * np, 16 * kk, lane);
-        mma_bf16(st[2 * np], a, bq[0], bq[1]);
-        mma_bf16(st[2 * np + 1], a, bq[2], bq[3]);
-      }
-    }
-    // P^T = exp2(S^T * scale_log2 - LSE * log2 e), 0 where masked
-    const bool masked = tile_needs_mask(q_lo, k_lo, Sq, Sk, causal, window);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 32 * qc + 8 * j + 2 * t + (e & 1);
-        const float p = exp2f(st[j][e] * scale_log2 - lrow[qi]);
-        const int c = k_lo + 16 * kr + g + 8 * (e >> 1);
-        st[j][e] = (!masked || visible(q_lo + qi, c, Sq, Sk, causal, window)) ? p : 0.f;
-      }
-    // dV += P^T dO
-#pragma unroll
-    for (int kq = 0; kq < 2; ++kq) {
-      uint32_t pa[4];
-      acc_to_a(pa, st[2 * kq], st[2 * kq + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bd[4];
-        load_b_kn<D>(bd, do_s, 32 * qc + 16 * kq, 16 * dn, lane);
-        mma_bf16(dv_acc[2 * dn], pa, bd[0], bd[1]);
-        mma_bf16(dv_acc[2 * dn + 1], pa, bd[2], bd[3]);
-      }
-    }
-    // dP^T = V dO^T
-    float dpt[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a<D>(a, sV, 16 * kr, 16 * kk, lane);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bd[4];
-        load_b_nk<D>(bd, do_s, 32 * qc + 16 * np, 16 * kk, lane);
-        mma_bf16(dpt[2 * np], a, bd[0], bd[1]);
-        mma_bf16(dpt[2 * np + 1], a, bd[2], bd[3]);
-      }
-    }
-    // dS^T = P^T o (dP^T - delta), in st
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 32 * qc + 8 * j + 2 * t + (e & 1);
-        st[j][e] = st[j][e] * (dpt[j][e] - drow[qi]);
-      }
-    // dK += dS^T Q (scaled at the end)
-#pragma unroll
-    for (int kq = 0; kq < 2; ++kq) {
-      uint32_t sa[4];
-      acc_to_a(sa, st[2 * kq], st[2 * kq + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bq[4];
-        load_b_kn<D>(bq, qt_s, 32 * qc + 16 * kq, 16 * dn, lane);
-        mma_bf16(dk_acc[2 * dn], sa, bq[0], bq[1]);
-        mma_bf16(dk_acc[2 * dn + 1], sa, bq[2], bq[3]);
-      }
-    }
-    // the next tile's LSE and delta, into the buffer no warp reads now
-    if (tid < kTile) {
-      sL[(buf ^ 1) * kTile + tid] = nl;
-      sD[(buf ^ 1) * kTile + tid] = nd;
-    }
-    __syncthreads();
-  }
-
-  // The two q-column halves of each key's sums: warps 4-7 hand theirs to
-  // warps 0-3 through the (now idle) Q and dO buffers, fp32 [key][D + 4].
-  cp_async_wait<0>();
-  __syncthreads();
-  constexpr int kRed = D + 4;
-  float* red_k = reinterpret_cast<float*>(smem + 2 * kTileBytes);
-  float* red_v = red_k + kTile * kRed;
-  if (qc == 1) {
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int at = (16 * kr + g + 8 * hf) * kRed + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(red_k + at) =
-            make_float2(dk_acc[j][2 * hf], dk_acc[j][2 * hf + 1]);
-        *reinterpret_cast<float2*>(red_v + at) =
-            make_float2(dv_acc[j][2 * hf], dv_acc[j][2 * hf + 1]);
-      }
-  }
-  __syncthreads();
-  if (qc == 0) {
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int c = k_lo + 16 * kr + g + 8 * hf;
-      if (c >= Sk) continue;
-      __nv_bfloat16* dkp = dk + b * dks.b + c * dks.s + hk * dks.h;
-      __nv_bfloat16* dvp = dv + b * dvs.b + c * dvs.s + hk * dvs.h;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int at = (16 * kr + g + 8 * hf) * kRed + 8 * j + 2 * t;
-        const float2 rk = *reinterpret_cast<const float2*>(red_k + at);
-        const float2 rv = *reinterpret_cast<const float2*>(red_v + at);
-        *reinterpret_cast<uint32_t*>(dkp + 8 * j + 2 * t) =
-            pack_bf16((dk_acc[j][2 * hf] + rk.x) * scale, (dk_acc[j][2 * hf + 1] + rk.y) * scale);
-        *reinterpret_cast<uint32_t*>(dvp + 8 * j + 2 * t) =
-            pack_bf16(dv_acc[j][2 * hf] + rv.x, dv_acc[j][2 * hf + 1] + rv.y);
-      }
+      const int row = 16 * warp + g + 8 * hf;
+      const uint32_t at = smem + (j / 8) * kChunkBytes +
+                          (row * 64 + ((8 * (j % 8) + 2 * t) ^ ((row & 7) << 3))) * 4;
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(at), "f"(acc[4 * j + 2 * hf]),
+                   "f"(acc[4 * j + 2 * hf + 1])
+                   : "memory");
     }
+}
+
+// Staged values added to fp32 sums at `dst` by a TMA bulk reduce-add that
+// thread 0 of the warpgroup issues, once the warpgroup's stores are in.
+// Before the staging buffer is written again, that thread waits until the
+// reduce has read it (`bulk_wait_read`).
+__device__ __forceinline__ void reduce_staged(uint32_t smem, float* dst, int bytes, int tid,
+                                              int bar_id) {
+  fence_proxy_async();
+  named_barrier(bar_id, 128);
+  if (tid == 0) bulk_reduce_add(dst, smem, bytes);
+}
+
+// One warpgroup's dQ partial for a q tile: columns [n0, n0 + 64) of dS K
+// over the block's 64 keys (dS^T [key][q row] in shared memory, read as a
+// transposed A; K [key][d] from `k_box`, a transposed B), staged in `dq_s`
+// and added to dQ's fp32 sum at `dst`.
+__device__ __forceinline__ void dq_partial(uint32_t ds_s, uint32_t k_box, uint32_t dq_s,
+                                           float* dst, int tid, int bar_id) {
+  float dq[32];  // the first k-step overwrites it
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKTile / 16; ++kk)
+    wgmma_ss_m64n64_tt(dq, desc_mnmajor(ds_s, kDSBytes, kk),
+                       desc_mnmajor(k_box, kKBoxBytes, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+  stage_acc<64>(dq, dq_s, tid);
+  reduce_staged(dq_s, dst, kChunkBytes, tid, bar_id);
+}
+
+template <int D>
+__global__ void __maxnreg__(168)
+flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const float* __restrict__ rows, float* __restrict__ dq_acc,
+                      float* __restrict__ dkv_acc, int B, int Hq, int Hkv, int Sq, int Sk,
+                      int Sq_pad, int Sk_pad, float scale_log2, int causal, int window) {
+  constexpr int kQTileBytes = kQTile * D * 2;  // a Q or dO tile
+  constexpr int kKVBytes = kKTile * D * 2;     // the K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;
+  const uint32_t sV = sK + kKVBytes;
+  const uint32_t sQ = sV + kKVBytes;                  // + stage * kQTileBytes
+  const uint32_t sDO = sQ + kStages * kQTileBytes;    // + stage * kQTileBytes
+  const uint32_t sDS = sDO + kStages * kQTileBytes;
+  const uint32_t sDQ = sDS + kDSBytes;                // + wg * kChunkBytes
+  const uint32_t sP = sDQ + 2 * kChunkBytes;
+  const uint32_t sRows = sP + kPBytes;                // + stage * kRowBytes
+  const uint32_t bars = sRows + kStages * kRowBytes;
+  const uint32_t kv_full = bars;
+  const uint32_t full = bars + 8;                     // + 8 * stage
+  float4* p_s = reinterpret_cast<float4*>(smem_raw + (sP - raw));
+  const float* rows_s = reinterpret_cast<const float*>(smem_raw + (sRows - raw));
+
+  // key tile first, so the blocks of key tile 0, whose causal walks are the
+  // longest, start first; then (b, q head)
+  const int kb = blockIdx.x / (B * Hq);
+  const int b = blockIdx.x % (B * Hq) / Hq;
+  const int h = blockIdx.x % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int k_lo = kb * kKTile;
+  const int qt_begin = causal ? k_lo / kQTile : 0;
+  int qt_end = Sq_pad / kQTile;
+  if (window > 0) qt_end = min(qt_end, (k_lo + kKTile - 2 + window) / kQTile + 1);
+  const int n_q = max(qt_end - qt_begin, 0);  // iteration i: q tile qt_begin + i
+  if (n_q == 0) return;  // no row sees these keys: their dK, dV stay 0
+
+  // Thread 0 issues every load: K and V once, then tile i's Q, dO and rows
+  // into stage i % kStages, completing on full[stage]. A stage is refilled
+  // once both warpgroups have passed the barrier after its last read.
+  const long long plane = static_cast<long long>(B) * Hq * Sq_pad;  // rows' delta half
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(kv_full, 2 * kKVBytes);
+    for (int c = 0; c < D / kBoxCols; ++c) {
+      tma_load_4d(sK + c * kKBoxBytes, &tm_k, kv_full, c * kBoxCols, hk, k_lo, b);
+      tma_load_4d(sV + c * kKBoxBytes, &tm_v, kv_full, c * kBoxCols, hk, k_lo, b);
+    }
+    for (int i = 0; i < min(kStages, n_q); ++i)
+      load_q_tile<D>(&tm_q, &tm_do, rows, sQ, sDO, sRows, full, i, h, (qt_begin + i) * kQTile,
+                     b, Hq, Sq_pad, plane);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;
+  const int t = tid & 3;
+  // element 4 j + e of a [64 keys x 64 q rows] accumulator: key k_lo + 16 warp
+  // + g + 8 (e / 2), q row q_lo + 8 j + 2 t + e % 2
+  const bool does_dq = D == 128 || wg == 0;  // dQ's columns [64 wg, + 64)
+  // this block's share of dK's fp32 sum (dV's one plane further), summing
+  // the group's q heads across blocks
+  float* dkp = dkv_acc + (static_cast<long long>(b * Hkv + hk) * Sk_pad + k_lo) * D;
+  mbar_wait(kv_full, 0);
+
+  if (wg == 0) {
+    // ---- warpgroup 0: S^T, P^T, dV ---------------------------------------------
+    float dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dv[i] = 0.f;
+    for (int i = 0; i < n_q; ++i) {
+      const int stage = i % kStages;
+      const int q_lo = (qt_begin + i) * kQTile;
+      const uint32_t q_s = sQ + stage * kQTileBytes;
+      const uint32_t do_s = sDO + stage * kQTileBytes;
+      const float* lse2 = rows_s + stage * (kRowBytes / 4);  // LSE * log2 e
+      mbar_wait(full + 8 * stage, (i / kStages) & 1);
+      // S^T = K Q^T (the first k-step overwrites sacc)
+      float sacc[kQTile / 2];
+      uint32_t pa[kQTile / 16][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64(sacc, desc_kmajor(sK, kKBoxBytes, kk), desc_kmajor(q_s, kQBoxBytes, kk),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      // P^T = exp2(S^T * scale_log2 - LSE * log2 e), 0 where masked, in fp32
+      // for warpgroup 1's dS^T (the same thread of it holds the same elements)
+      const bool masked = tile_needs_mask(q_lo, k_lo, Sq, Sk, causal, window);
+#pragma unroll
+      for (int j = 0; j < kQTile / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = q_lo + 8 * j + 2 * t + (e & 1);
+          const int c = k_lo + 16 * warp + g + 8 * (e >> 1);
+          const float p = exp2f(sacc[4 * j + e] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+          sacc[4 * j + e] = (!masked || visible(r, c, Sq, Sk, causal, window)) ? p : 0.f;
+        }
+        p_s[j * 128 + tid] = make_float4(sacc[4 * j], sacc[4 * j + 1], sacc[4 * j + 2],
+                                         sacc[4 * j + 3]);
+      }
+      named_barrier_arrive(1, 256);  // P^T is in
+      // dV += P^T dO
+      pack_a<kQTile>(sacc, pa);
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk) fence_regs(pa[kk]);
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk)
+        wgmma_rs_nd<D>(dv, pa[kk], desc_mnmajor(do_s, kQBoxBytes, kk));
+      wgmma_commit();
+      if (tid == 0) bulk_wait_read();  // tile i - 1's dQ staging has been read
+      named_barrier(2, 256);           // dS^T is in; P^T has been read
+      wgmma_wait<0>();
+      fence_regs(dv);
+      // every read of stage (i - 1) % kStages is done: refill it
+      if (threadIdx.x == 0 && i >= 1 && i - 1 + kStages < n_q) {
+        const int n = i - 1 + kStages;
+        load_q_tile<D>(&tm_q, &tm_do, rows, sQ, sDO, sRows, full, n, h, (qt_begin + n) * kQTile,
+                       b, Hq, Sq_pad, plane);
+      }
+      dq_partial(sDS, sK, sDQ,
+                 dq_acc + (static_cast<long long>(b * Hq + h) * Sq_pad + q_lo) * D, tid, 3);
+    }
+    // dV, staged in the Q ring once warpgroup 1's last dK has read it
+    named_barrier(5, 256);
+    stage_acc<D>(dv, sQ, tid);
+    reduce_staged(sQ, dkp + static_cast<long long>(B) * Hkv * Sk_pad * D, kKTile * D * 4, tid, 3);
+  } else {
+    // ---- warpgroup 1: dP^T, dS^T, dK -------------------------------------------
+    float dk[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+    for (int i = 0; i < n_q; ++i) {
+      const int stage = i % kStages;
+      const int q_lo = (qt_begin + i) * kQTile;
+      const uint32_t q_s = sQ + stage * kQTileBytes;
+      const uint32_t do_s = sDO + stage * kQTileBytes;
+      const float* delta = rows_s + stage * (kRowBytes / 4) + kQTile;
+      mbar_wait(full + 8 * stage, (i / kStages) & 1);
+      // dP^T = V dO^T (the first k-step overwrites dpacc)
+      float dpacc[kQTile / 2];
+      uint32_t dsa[kQTile / 16][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64(dpacc, desc_kmajor(sV, kKBoxBytes, kk),
+                        desc_kmajor(do_s, kQBoxBytes, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dpacc);
+      named_barrier(1, 256);  // P^T is in
+      // dS^T = P^T o (dP^T - delta)
+#pragma unroll
+      for (int j = 0; j < kQTile / 8; ++j) {
+        const float4 p = p_s[j * 128 + tid];
+        const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+        dpacc[4 * j + 0] = p.x * (dpacc[4 * j + 0] - dl.x);
+        dpacc[4 * j + 1] = p.y * (dpacc[4 * j + 1] - dl.y);
+        dpacc[4 * j + 2] = p.z * (dpacc[4 * j + 2] - dl.x);
+        dpacc[4 * j + 3] = p.w * (dpacc[4 * j + 3] - dl.y);
+      }
+      pack_a<kQTile>(dpacc, dsa);
+      // dS^T [key][q row] into shared memory with the 128-byte swizzle (the
+      // 16-byte chunk of a 128-byte row XORed with the row's index mod 8):
+      // dsa[kk][e] holds key 16 warp + g + 8 (e % 2), q rows 16 kk + 8 (e / 2)
+      // + 2 t and the next
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 16 * warp + g + 8 * (e & 1);
+          const int col = 16 * kk + 8 * (e >> 1) + 2 * t;
+          const uint32_t at = sDS + key * 128 + (((col >> 3) ^ (key & 7)) << 4) + (col & 7) * 2;
+          asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(dsa[kk][e]) : "memory");
+        }
+      fence_proxy_async();
+      // dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk) fence_regs(dsa[kk]);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQTile / 16; ++kk)
+        wgmma_rs_nd<D>(dk, dsa[kk], desc_mnmajor(q_s, kQBoxBytes, kk));
+      wgmma_commit();
+      if (tid == 0) bulk_wait_read();  // tile i - 1's dQ staging has been read
+      named_barrier(2, 256);           // dS^T is in; P^T has been read
+      wgmma_wait<0>();
+      fence_regs(dk);
+      if (does_dq)
+        dq_partial(sDS, sK + kKBoxBytes, sDQ + kChunkBytes,
+                   dq_acc + (static_cast<long long>(b * Hq + h) * Sq_pad + q_lo) * D +
+                       kQTile * 64,
+                   tid, 4);
+    }
+    // dK, staged in the dO ring
+    named_barrier(5, 256);
+    stage_acc<D>(dk, sDO, tid);
+    reduce_staged(sDO, dkp, kKTile * D * 4, tid, 4);
+  }
+  if (tid == 0) bulk_wait_read();  // shared memory stays until the reduces have read it
+}
+
+// ---- 3. convert -----------------------------------------------------------
+// One output: its fp32 sums [B, H, S_pad / 64, D / 64] chunks of [64 rows]
+// [64 columns], column c of row r at c ^ 8 (r mod 8), as the main kernel
+// stages them, times `scale`, into bf16 out [B, S, H, D] (strides in
+// elements).
+struct ConvertJob {
+  const float* acc;
+  __nv_bfloat16* out;
+  long long sb, ss, sh;
+  int H, S, S_pad;
+  float scale;
+};
+
+__global__ void __launch_bounds__(256)
+flash_bwd_convert_kernel(ConvertJob dq, ConvertJob dk, ConvertJob dv, int B, int D) {
+  const ConvertJob job = blockIdx.y == 0 ? dq : (blockIdx.y == 1 ? dk : dv);
+  const int per_row = D / 8;  // 8 columns a thread
+  const long long n = static_cast<long long>(B) * job.S * job.H * per_row;
+  for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; c < n;
+       c += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int d8 = static_cast<int>(c % per_row);
+    long long rest = c / per_row;
+    const int h = static_cast<int>(rest % job.H);
+    rest /= job.H;
+    const int s = static_cast<int>(rest % job.S);
+    const int b = static_cast<int>(rest / job.S);
+    const int r = s % 64;
+    const long long chunk_row0 = (static_cast<long long>(b) * job.H + h) * job.S_pad + s - r;
+    const float4* src = reinterpret_cast<const float4*>(
+        job.acc + chunk_row0 * D + (8 * d8 / 64) * 64 * 64 + r * 64 +
+        ((8 * d8) % 64 ^ ((r & 7) << 3)));
+    const float4 x = src[0], y = src[1];
+    const float sc = job.scale;
+    uint4 o;
+    o.x = pack_bf16(x.x * sc, x.y * sc);
+    o.y = pack_bf16(x.z * sc, x.w * sc);
+    o.z = pack_bf16(y.x * sc, y.y * sc);
+    o.w = pack_bf16(y.z * sc, y.w * sc);
+    *reinterpret_cast<uint4*>(job.out + b * job.sb + s * job.ss + h * job.sh + 8 * d8) = o;
   }
 }
 
-Strides strides_of(const long long* s) { return Strides{s[0], s[1], s[2]}; }
-
+// ---- host ----------------------------------------------------------------
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           float* delta, void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
-           const long long* qs, const long long* ks, const long long* vs,
-           const long long* dos, const long long* dqs, const long long* dks,
-           const long long* dvs, int causal, int window, cudaStream_t stream) {
+           float* rows, float* dq_acc, float* dkv_acc, void* dq, void* dk, void* dv, int B,
+           int Hq, int Hkv, int Sq, int Sk, const long long* qs, const long long* ks,
+           const long long* vs, const long long* dos, const long long* dqs,
+           const long long* dks, const long long* dvs, int causal, int window,
+           cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
+  const int Sq_pad = (Sq + kQTile - 1) / kQTile * kQTile;
+  const int Sk_pad = (Sk + kKTile - 1) / kKTile * kKTile;
   const float scale = 1.f / sqrtf(static_cast<float>(D));
-  constexpr int q_bytes = dq_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
+  const float scale_log2 = scale * kLog2e;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = make_map(&tq, q, D, Hq, Sq, B, qs, kQTile);
+  if (err == 0) err = make_map(&tdo, dout, D, Hq, Sq, B, dos, kQTile);
+  if (err == 0) err = make_map(&tk, k, D, Hkv, Sk, B, ks, kKTile);
+  if (err == 0) err = make_map(&tv, v, D, Hkv, Sk, B, vs, kKTile);
+    if (err != 0) return err;
+
+  constexpr int delta_bytes = delta_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_delta_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, delta_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 q_grid((Sq + kTile - 1) / kTile, B * Hq);
-  flash_bwd_dq_kernel<D><<<q_grid, 128, q_bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), strides_of(qs),
-      strides_of(ks), strides_of(vs), strides_of(dos), strides_of(dqs), Hq, Hkv, Sq, Sk,
-      scale, causal, window);
+  flash_bwd_delta_kernel<D><<<dim3(Sq_pad / kQTile, B * Hq), 160, delta_bytes, stream>>>(
+      tq, tdo, tk, tv, lse, rows, dq_acc, Hq, Hkv, Sq, Sk, Sq_pad, scale_log2, causal,
+      window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  constexpr int kv_bytes = dkdv_smem_bytes<D>();
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+  constexpr int main_bytes = main_smem_bytes<D>();
+  e = cudaFuncSetAttribute(flash_bwd_main_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, main_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 kv_grid((Sk + kTile - 1) / kTile, B * Hkv);
-  flash_bwd_dkdv_kernel<D><<<kv_grid, 256, kv_bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), strides_of(qs), strides_of(ks), strides_of(vs),
-      strides_of(dos), strides_of(dks), strides_of(dvs), Hq, Hkv, Sq, Sk, scale, causal,
-      window);
+  const int main_blocks = Sk_pad / kKTile * B * Hq;  // 1024 at the training shape
+  flash_bwd_main_kernel<D><<<main_blocks, 256, main_bytes, stream>>>(
+      tq, tdo, tk, tv, rows, dq_acc, dkv_acc, B, Hq, Hkv, Sq, Sk, Sq_pad, Sk_pad, scale_log2,
+      causal, window);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const long long kv_plane = static_cast<long long>(B) * Hkv * Sk_pad * D;
+  const ConvertJob jq{dq_acc, static_cast<bf16*>(dq), dqs[0], dqs[1], dqs[2], Hq, Sq, Sq_pad, scale};
+  const ConvertJob jk{dkv_acc, static_cast<bf16*>(dk), dks[0], dks[1], dks[2], Hkv, Sk, Sk_pad,
+                      scale};
+  const ConvertJob jv{dkv_acc + kv_plane, static_cast<bf16*>(dv), dvs[0], dvs[1], dvs[2], Hkv, Sk,
+                      Sk_pad, 1.f};
+  flash_bwd_convert_kernel<<<dim3(4 * 132, 3), 256, 0, stream>>>(jq, jk, jv, B, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,24 +692,29 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // q, dout, dq: [B, Sq, Hq, D]; k, v, dk, dv: [B, Sk, Hkv, D]; all bf16
 // with a unit stride on D, other strides multiples of 8 elements and
 // 16-byte aligned bases; each *_strides array holds the (batch, seq, head)
-// strides in elements. lse: contiguous fp32 [B, Hq, Sq], the forward's;
-// delta: contiguous fp32 [B, Hq, Sq] scratch. Returns a cudaError_t.
+// strides in elements. lse: contiguous fp32 [B, Hq, Sq], the forward's.
+// Scratch, fp32 and contiguous, with Sq_pad = Sq rounded up to 64 and
+// Sk_pad = Sk rounded up to 128: rows [2, B * Hq, Sq_pad] and dq_acc
+// [B * Hq, Sq_pad, D], both written before they are read; dkv_acc
+// [2, B * Hkv, Sk_pad, D], zeros. Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    void* delta, void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
-    int D, const long long* q_strides, const long long* k_strides,
+    void* rows, void* dq_acc, void* dkv_acc, void* dq, void* dk, void* dv, int B, int Hq,
+    int Hkv, int Sq, int Sk, int D, const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* do_strides, const long long* dq_strides,
     const long long* dk_strides, const long long* dv_strides, int causal, int window,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(delta);
+  float* r = static_cast<float*>(rows);
+  float* aq = static_cast<float*>(dq_acc);
+  float* akv = static_cast<float*>(dkv_acc);
   if (D == 64)
-    return launch<64>(q, k, v, dout, l, d, dq, dk, dv, B, Hq, Hkv, Sq, Sk, q_strides,
+    return launch<64>(q, k, v, dout, l, r, aq, akv, dq, dk, dv, B, Hq, Hkv, Sq, Sk, q_strides,
                       k_strides, v_strides, do_strides, dq_strides, dk_strides, dv_strides,
                       causal, window, s);
   if (D == 128)
-    return launch<128>(q, k, v, dout, l, d, dq, dk, dv, B, Hq, Hkv, Sq, Sk, q_strides,
+    return launch<128>(q, k, v, dout, l, r, aq, akv, dq, dk, dv, B, Hq, Hkv, Sq, Sk, q_strides,
                        k_strides, v_strides, do_strides, dq_strides, dk_strides, dv_strides,
                        causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);

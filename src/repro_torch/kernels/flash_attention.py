@@ -13,9 +13,10 @@ Its plain version is ``repro_torch.kernels.ref.attention_reference``
 (``attention_lse_reference`` with the LSE).
 
 The backward, ``flash_attention_bwd``, replaces ``jax.grad`` of the JAX
-model's ``chunked_attention`` (no Pallas backward exists): two kernels in
-``csrc/flash_attention_bwd.cu`` (dQ with delta = rowsum(P o dP), then
-dK/dV) on ``mma.sync``. Its plain version is
+model's ``chunked_attention`` (no Pallas backward exists): three kernels in
+``csrc/flash_attention_bwd.cu`` on TMA and ``wgmma`` (delta = rowsum(P o
+dP) exactly; dV, dK and dQ's partials per 64-key tile, summed in fp32;
+the conversion to bf16). Its plain version is
 ``repro_torch.kernels.ref.attention_backward_reference``.
 
 Unlike the Pallas wrapper this one takes the model layout
@@ -33,6 +34,9 @@ import torch
 from repro_torch.kernels import build
 
 KEY_TILE = 64  # keys per tile: csrc/flash_attention.cu's kBlockK
+# csrc/flash_attention_bwd.cu's q tile and key tile, to which its fp32
+# scratch is padded
+BWD_Q_TILE, BWD_KEY_TILE = 64, 64
 SUPPORTED_HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
 
@@ -44,7 +48,7 @@ _SIGNATURES = {
     "repro_flash_attention_fwd_bf16":
         [_p] * 5 + [_i] * 6 + [_s] * 4 + [_i, _i, _p],
     "repro_flash_attention_bwd_bf16":
-        [_p] * 9 + [_i] * 6 + [_s] * 7 + [_i, _i, _p],
+        [_p] * 11 + [_i] * 6 + [_s] * 7 + [_i, _i, _p],
     "repro_flash_wgmma_probe_bf16": [_p, _p, _p, _p, _p, _i, _p],
 }
 _bound = {}
@@ -75,7 +79,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, S, H, D], "
                              f"got {tuple(t.shape)}")
-        # TMA and 16-byte cp.async: 16-byte aligned base and strides
+        # TMA: 16-byte aligned base and strides
         if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"flash_attention: {name} needs a unit stride on "
@@ -143,7 +147,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The output itself is not needed: the kernels take delta = rowsum(P o
     dP) from a pass of their own rather than rowsum(dO o O) from the
     forward's output, whose bf16 rounding of P moves rows of dQ by up to
-    ~5% (csrc/flash_attention_bwd.cu)."""
+    ~5% (csrc/flash_attention_bwd.cu). dQ, dK and dV are sums across
+    blocks by fp32 atomics, so their low bits may vary from call to call."""
     _check(q, k, v, do=do)
     if window < 0:
         raise ValueError(f"flash_attention_bwd: window {window} < 0")
@@ -156,17 +161,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
-    # written by the dQ kernel for every row that sees a key, read by the
-    # dK/dV kernel; zero for a row that sees none
-    delta = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    # fp32 scratch: each row's LSE * log2 e and delta, and dQ's sum, written
+    # by the delta kernel; dK's and dV's sums, added into from zero
+    sq_pad = -(-sq // BWD_Q_TILE) * BWD_Q_TILE
+    sk_pad = -(-sk // BWD_KEY_TILE) * BWD_KEY_TILE
+    f32 = dict(dtype=torch.float32, device=q.device)
+    rows = torch.empty((2, b * hq, sq_pad), **f32)
+    dq_acc = torch.empty((b * hq, sq_pad, d), **f32)
+    dkv_acc = torch.zeros((2, b * hkv, sk_pad, d), **f32)
     strides = [_Strides(*t.stride()[:3]) for t in (q, k, v, do, dq, dk, dv)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _entry("repro_flash_attention_bwd_bf16")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d, *strides,
-            int(causal), int(window), stream)
+            lse.data_ptr(), rows.data_ptr(), dq_acc.data_ptr(),
+            dkv_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, hq, hkv, sq, sk, d, *strides, int(causal), int(window),
+            stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd: launch failed, cudaError "
                            f"{err}")

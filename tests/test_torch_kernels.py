@@ -320,8 +320,9 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
         ssd_chunked_kernel(*args)
 
 
-# (B, Hq, Hkv, Sq, Sk, D, window, causal): the backward kernels' 64-row and
-# 64-key tiles, ragged edges, windows crossing tiles, D = 64, a group of 1
+# (B, Hq, Hkv, Sq, Sk, D, window, causal): the backward kernels' 64-row q
+# tiles and 64- and 128-key blocks, ragged edges, windows crossing tiles,
+# D = 64, a group of 1, the training shape, and a grid of several waves
 BWD_EDGES = [
     (2, 4, 2, 256, 256, 64, 0, True),
     (1, 4, 2, 1000, 1000, 128, 0, True),    # S not a multiple of 64
@@ -331,6 +332,8 @@ BWD_EDGES = [
     (1, 4, 2, 300, 700, 128, 0, True),      # Sk > Sq
     (1, 4, 4, 300, 300, 128, 0, True),      # Hq = Hkv: a group of 1
     (1, 4, 1, 100, 100, 64, 0, False),      # one ragged tile each
+    (2, 16, 2, 2048, 2048, 128, 0, True),   # the training shape
+    (17, 16, 2, 512, 512, 128, 0, True),    # B * Hq = 272: several waves
 ]
 
 
