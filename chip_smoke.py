@@ -13,7 +13,8 @@ Phases, one line or more each; any failure exits non-zero:
      library call's (SDPA; none for SSD) and its bound on the card; for the
      flash backward also the difference between two calls on the same
      inputs (its sums across blocks are atomic) and its kernels' device
-     times from torch.profiler.
+     times from torch.profiler; its deterministic path too, bit-equal
+     across two calls.
   4. reference: tiny qwen2.5-3b and tiny mamba2-370m in bf16 on the card
      against the plain CPU path.
   5. serve, once per model: qwen2.5-3b (36 layers) and mamba2-370m (48
@@ -31,6 +32,16 @@ Phases, one line or more each; any failure exits non-zero:
      times (36 layers, forward and recompute) and the backward 36 times,
      and peak memory stay under 80 GB; step time, tokens/s, model FLOPs
      utilisation and a torch.profiler split of one step.
+  8. resume, under torch.use_deterministic_algorithms(True): qwen2.5-3b at
+     full width trains 6 steps (run A), then anew 3 steps, saves a striped
+     checkpoint of params and AdamW state (40.84 GB) into build/, frees the
+     card and resumes a fresh model from it for 3 more (run B); every
+     loss, and every leaf of params and optimizer state by an exact
+     fingerprint of its bits, must be equal between A and B. Prints the
+     save and restore rates and the time to first step after resume; then
+     ServeEngine.from_checkpoint serves the checkpoint's params, whose
+     prefill logits must be bit-equal to an engine's built from the saved
+     tensors directly, and the time to first token from the cold restore.
 The line before the last lists the kernels as JSON; the last line is the
 result as JSON. Exits non-zero without a CUDA card.
 """
@@ -40,14 +51,20 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS is deterministic only with this workspace setting, read at its
+# first call: the resume phase runs under torch.use_deterministic_algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -119,6 +136,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 8, 3e-4
 CARD_BYTES = 80e9
 BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
 PROMPT_LENS = (256, 1024)
+# the resume phase: run A's steps, run B's steps before its save, and the
+# disk its checkpoint needs (params, mu, nu in fp32: 40.84 GB, with room)
+RESUME_STEPS, RESUME_SAVE_AT, RESUME_DISK_BYTES = 6, 3, 45e9
+# (name, B, S, Hq, Hkv, D, window, causal) of the flash backward's checks:
+# the training shape (qwen2.5-3b's heads at B = 2, S = 2048), then its edges
+BWD_CASES = [("train", TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128, 0, True),
+             ("ragged", 2, 1000, 16, 2, 128, 0, True),
+             ("window", 2, 2048, 16, 2, 128, 256, True),
+             ("d64", 2, 512, 8, 2, 64, 0, True),
+             ("noncausal", 2, 1000, 16, 2, 128, 0, False),
+             ("group1", 2, 512, 4, 4, 128, 0, True)]
 
 
 def say(phase: str, msg: str) -> None:
@@ -304,14 +332,16 @@ def phase_kernels(card: str) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def phase_flash_bwd_kernels(card: str) -> dict:
-    """The backward kernel and the forward's LSE against their plain
-    versions at the training path's shape and its edges; the backward's
-    time beside the plain version's, SDPA's backward and its bound."""
+def phase_flash_bwd_kernels(card: str) -> tuple[dict, dict]:
+    """The backward kernel (both paths) and the forward's LSE against their
+    plain versions at the training path's shape and its edges; the
+    backward's time beside the plain version's, SDPA's backward and its
+    bound. Returns the kernels-line entries of the fast and the
+    deterministic path."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
     from repro_torch.kernels.ref import (attention_backward_reference,
                                          attention_lse_reference, row_rel_err)
 
@@ -339,15 +369,8 @@ def phase_flash_bwd_kernels(card: str) -> dict:
             enable_gqa=True)
         return (qs, ks, vs), out
 
-    # (name, B, S, Hq, Hkv, D, window, causal): the training shape first
-    # (qwen2.5-3b's heads at B = 2, S = 2048), then its edges
-    cases = [("train", TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128, 0, True),
-             ("ragged", 2, 1000, 16, 2, 128, 0, True),
-             ("window", 2, 2048, 16, 2, 128, 256, True),
-             ("d64", 2, 512, 8, 2, 64, 0, True),
-             ("noncausal", 2, 1000, 16, 2, 128, 0, False),
-             ("group1", 2, 512, 4, 4, 128, 0, True)]
-    worst, failed = 0.0, []
+    cases = BWD_CASES
+    worst, det_worst, failed = 0.0, 0.0, []
     for name, b, s, hq, hkv, d, window, causal in cases:
         q, k, v, do = (randn(b, s, h, d) for h in (hq, hkv, hkv, hq))
         out, lse = flash_attention(q, k, v, causal=causal, window=window,
@@ -374,6 +397,19 @@ def phase_flash_bwd_kernels(card: str) -> dict:
               and all(math.isfinite(e) and e <= GRAD_ROW_RTOL for e in errs))
         if not ok:
             failed.append(name)
+        # the deterministic path: the same gate, and the same bits twice
+        det = [flash_attention_bwd_deterministic(
+            q, k, v, lse, do, causal=causal, window=window) for _ in range(2)]
+        torch.cuda.synchronize()
+        det_errs = [row_rel_err(x, r, floor=GRAD_ROW_FLOOR)
+                    for x, r in zip(det[0], refs)]
+        det_equal = all(torch.equal(x, y) for x, y in zip(*det))
+        det_worst = max([det_worst] + [(x.float() - r).abs().max().item()
+                                       for x, r in zip(det[0], refs)])
+        det_ok = det_equal and all(math.isfinite(e) and e <= GRAD_ROW_RTOL
+                                   for e in det_errs)
+        if not det_ok:
+            failed.append(f"{name} (deterministic)")
         say("kernels", f"flash_bwd {name} B={b} S={s} Hq={hq} Hkv={hkv} D={d}"
             f" window={window} causal={causal}: dq/dk/dv worst row rel L2 "
             f"err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
@@ -381,6 +417,10 @@ def phase_flash_bwd_kernels(card: str) -> dict:
             f"{lib_errs[0]:.3e}/{lib_errs[1]:.3e}/{lib_errs[2]:.3e}; lse max "
             f"abs err {lse_err:.3e} (tol {LSE_ABS_TOL}); forward output with "
             f"the LSE bit-equal to without: {same} {'ok' if ok else 'FAIL'}")
+        say("kernels", f"flash_bwd deterministic {name}: dq/dk/dv worst row "
+            f"rel L2 err {det_errs[0]:.3e}/{det_errs[1]:.3e}/{det_errs[2]:.3e}"
+            f" (tol {GRAD_ROW_RTOL}); two calls bit-equal: {det_equal} "
+            f"{'ok' if det_ok else 'FAIL'}")
     if failed:
         fail("kernels", f"flash_attention_bwd disagrees with plain: {failed}")
 
@@ -388,6 +428,8 @@ def phase_flash_bwd_kernels(card: str) -> dict:
     q, k, v, do = (randn(b, s, h, d) for h in (hq, hkv, hkv, hq))
     _, lse = flash_attention(q, k, v, return_lse=True)
     ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, lse, do), iters=20)
+    det_ms = cuda_ms(lambda: flash_attention_bwd_deterministic(
+        q, k, v, lse, do), iters=20)
     fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True),
                      iters=20)
     plain_ms = cuda_ms(lambda: attention_backward_reference(
@@ -405,6 +447,11 @@ def phase_flash_bwd_kernels(card: str) -> dict:
         f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% "
         f"reached); forward with the LSE at this shape {fwd_ms:.4f} ms, on "
         f"{card}")
+    say("kernels", f"flash_bwd deterministic train: {det_ms:.4f} ms "
+        f"({10 * d * pairs * b * hq / det_ms / 1e9:.1f} TFLOP/s), "
+        f"{det_ms / ms:.3f}x the fast path's {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({100 * bound_ms / det_ms:.1f}% reached), on "
+        f"{card}")
     # The kernels sum dQ, dK and dV across blocks by fp32 atomic adds, in the
     # order the blocks finish: two calls on the same inputs, compared.
     first, second = (flash_attention_bwd(q, k, v, lse, do) for _ in range(2))
@@ -418,12 +465,17 @@ def phase_flash_bwd_kernels(card: str) -> dict:
         f"{equal[2]}")
     profile_window("flash_bwd train", lambda: flash_attention_bwd(
         q, k, v, lse, do), card, share_of="flash_bwd")
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/models/attention.py:51",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    profile_window("flash_bwd deterministic train",
+                   lambda: flash_attention_bwd_deterministic(q, k, v, lse, do),
+                   card, share_of="flash_bwd")
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/models/attention.py:51",
+             "launches": None, "max_abs_err": worst, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
+    return entry, dict(entry, name="flash_attention_bwd_deterministic",
+                       max_abs_err=det_worst, ms=det_ms)
 
 
 def ssd_inputs(gen, b: int, s: int, h: int, p: int, g: int, n: int):
@@ -507,11 +559,13 @@ def phase_ssd_kernels(card: str) -> dict:
 
 def launch_counters() -> dict:
     """Every kernel wrapper, by the name the kernels line gives it."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
     from repro_torch.kernels.ssd import ssd_chunked_kernel
     return {"flash_attention": flash_attention, "ssd": ssd_chunked_kernel,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "flash_attention_bwd_deterministic":
+                flash_attention_bwd_deterministic}
 
 
 def phase_serve(card: str, arch: str, kernel: str) -> int:
@@ -812,7 +866,8 @@ def phase_train(card: str) -> int:
     step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
     counters = launch_counters()
     want = {"flash_attention": 2 * cfg.num_layers,
-            "flash_attention_bwd": cfg.num_layers, "ssd": 0}
+            "flash_attention_bwd": cfg.num_layers, "ssd": 0,
+            "flash_attention_bwd_deterministic": 0}
     losses, gnorms, times, total = [], [], [], dict.fromkeys(counters, 0)
     torch.cuda.reset_peak_memory_stats()
     for step in range(TRAIN_STEPS):
@@ -864,6 +919,187 @@ def phase_train(card: str) -> int:
     return total["flash_attention_bwd"]
 
 
+def fingerprints(*trees) -> list[tuple[str, int, int]]:
+    """An exact function of each leaf's bits, per leaf and computed on the
+    card: the raw bits as integers, their sum and their sum weighted by
+    position (mod 2^64). Any changed bit changes the first; moved values
+    change the second."""
+    import torch
+    from repro_torch.ckpt.checkpoint import flat_with_names
+    as_int = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    out = []
+    for ti, tree in enumerate(trees):
+        for name, t in flat_with_names(tree):
+            bits = t.detach().reshape(-1).view(as_int[t.element_size()])
+            total = weighted = 0
+            for lo in range(0, bits.numel(), 1 << 26):
+                x = bits[lo:lo + (1 << 26)].long()
+                w = torch.arange(lo, lo + x.numel(), device=x.device) % 65521 + 1
+                total += int(x.sum())
+                weighted += int((x * w).sum())
+            out.append((f"t{ti}{name}", total, weighted))
+    return out
+
+
+def free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_resume(card: str) -> int:
+    """qwen2.5-3b at full width under deterministic algorithms: RESUME_STEPS
+    uninterrupted steps (run A) against RESUME_SAVE_AT steps, a striped
+    save, and a fresh model resumed from it for the rest (run B), bit for
+    bit; then the checkpoint served through ServeEngine.from_checkpoint.
+    Returns the deterministic backward's launches over the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.dfs.hdfs import HdfsCluster
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.loop import train_loop
+
+    cfg = get_config(QWEN)
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build_dir).free
+    if free < RESUME_DISK_BYTES:
+        fail("resume", f"{free / 1e9:.1f} GB free under {build_dir}, the "
+             f"checkpoint needs {RESUME_DISK_BYTES / 1e9:.0f} GB")
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    free_card()
+    torch.use_deterministic_algorithms(True)
+    workdir = Path(tempfile.mkdtemp(prefix="resume-", dir=build_dir))
+    try:
+        def train(model, steps, log_fn=lambda _: None, **kw):
+            return train_loop(model, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                              steps=steps, log_every=1, log_fn=log_fn, **kw)
+
+        t0 = time.perf_counter()
+        stamps = [t0]   # each step's loss is read when it ends
+        params, opt, hist_a = train(Model(cfg, device="cuda"), RESUME_STEPS,
+                                    log_fn=lambda _: stamps.append(
+                                        time.perf_counter()))
+        want = fingerprints(params, opt)
+        steps_ms = [1e3 * (b - a) for a, b in zip(stamps[1:], stamps[2:])]
+        say("resume", f"run A: {RESUME_STEPS} steps from seed 0, losses "
+            f"{[h['loss'] for h in hist_a]}; steps 2-{RESUME_STEPS} under "
+            f"deterministic algorithms {', '.join(f'{t:.1f}' for t in steps_ms)}"
+            f" ms (median {statistics.median(steps_ms):.1f} ms; [train]'s "
+            f"fast path above), on {card}")
+        del params, opt
+        free_card()
+
+        ck = Checkpointer(HdfsCluster(workdir / "hdfs", throttle=None))
+        params, opt, hist_b = train(Model(cfg, device="cuda"),
+                                    RESUME_SAVE_AT, checkpointer=ck,
+                                    ckpt_every=RESUME_SAVE_AT)
+        saved = ck.timings
+        say("resume", f"run B: {RESUME_SAVE_AT} steps, then saved step "
+            f"{RESUME_SAVE_AT}: {saved['save_bytes']} bytes "
+            f"({saved['save_bytes'] / 1e9:.2f} GB) in {saved['save_s']:.2f} s"
+            f" = {saved['save_bytes'] / saved['save_s'] / 1e9:.2f} GB/s "
+            f"(card -> pinned host -> CRC -> {ck.width} stripe files; of "
+            f"which copies from the card {saved['save_copy_s']:.2f} s, "
+            f"writes {saved['save_write_s']:.2f} s, waits on the CRCs "
+            f"{saved['save_crc_wait_s']:.2f} s), on {card}")
+        # the serving reference: an engine from the saved tensors directly
+        del opt
+        model = Model(cfg, device="cuda")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, PROMPT_LENS[1])
+                   .astype(np.int32) for _ in range(BATCH)]
+        toks = {"tokens": torch.from_numpy(np.stack(prompts)).cuda()}
+        engine = ServeEngine(model, model.serving_params(params), batch=BATCH,
+                             cache_len=CACHE_LEN, device="cuda")
+        direct = engine._prefill(engine.params, toks,
+                                 unembed=engine.unembed)[0].cpu()
+        del engine, params, model
+        free_card()
+
+        model = Model(cfg, device="cuda")
+        first = []
+        t0 = time.perf_counter()
+        params, opt, hist_r = train_loop(
+            model, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            steps=RESUME_STEPS - RESUME_SAVE_AT, checkpointer=ck,
+            resume_from=RESUME_SAVE_AT, log_every=1,
+            log_fn=lambda _: first or first.append(time.perf_counter()))
+        ttfs = first[0] - t0
+        got = fingerprints(params, opt)
+        losses_a = [h["loss"] for h in hist_a]
+        losses_b = [h["loss"] for h in hist_b + hist_r]
+        r = ck.timings
+        say("resume", f"resumed step {RESUME_SAVE_AT} into a fresh model: "
+            f"wave 0 (params, CRITICAL) read {r['wave0_bytes'] / 1e9:.2f} GB "
+            f"in {r['wave0_read_s']:.2f} s "
+            f"({r['wave0_bytes'] / r['wave0_read_s'] / 1e9:.2f} GB/s) into "
+            f"a pinned ring (allocated and page-locked in "
+            f"{r['wave0_alloc_s']:.2f} s), its copies to the card "
+            f"overlapped, the last waited {r['wave0_copy_s']:.2f} s; tail "
+            f"(AdamW state, DEFERRED) {r['tail_bytes'] / 1e9:.2f} GB in "
+            f"{r['tail_s']:.2f} s ({r['tail_bytes'] / r['tail_s'] / 1e9:.2f} "
+            f"GB/s, read and copied alike); time to first step "
+            f"after resume {ttfs:.2f} s (train_loop entry to the end of "
+            f"step {RESUME_SAVE_AT}); page cache: the files were just "
+            f"written, on {card}")
+        say("resume", f"losses A {losses_a}")
+        say("resume", f"losses B {losses_b}")
+        differ = [a[0] for a, b in zip(want, got) if a != b]
+        ok = losses_a == losses_b and not differ and len(want) == len(got)
+        say("resume", f"{len(want)} leaves of params and AdamW state "
+            f"bit-equal between A and B: {not differ} (differing: "
+            f"{differ[:5]}); losses bit-equal: {losses_a == losses_b} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("resume", "the resumed run differs from the uninterrupted "
+                 "one")
+        del params, opt
+        free_card()
+
+        t0 = time.perf_counter()
+        engine = ServeEngine.from_checkpoint(model, ck, RESUME_SAVE_AT,
+                                             batch=BATCH, cache_len=CACHE_LEN)
+        t1 = time.perf_counter()
+        engine.generate([Request(prompt=p, max_new_tokens=0)
+                         for p in prompts])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        restored = engine._prefill(engine.params, toks,
+                                   unembed=engine.unembed)[0].cpu()
+        same = torch.equal(restored, direct)
+        r = ck.timings
+        say("resume", f"serve: from_checkpoint read {r['wave0_bytes'] / 1e9:.2f}"
+            f" GB of fp32 params in {r['wave0_read_s']:.2f} s (ring "
+            f"{r['wave0_alloc_s']:.2f} s, last copy waited "
+            f"{r['wave0_copy_s']:.2f} s), engine built in {t1 - t0:.2f} s; "
+            f"time to first token from the cold restore {t2 - t0:.2f} s "
+            f"(restore, cast, prefill of {BATCH} x {PROMPT_LENS[1]} and the "
+            f"first token); prefill logits bit-equal to an engine's built "
+            f"from the saved tensors: {same} {'ok' if same else 'FAIL'}, on "
+            f"{card}")
+        if not same:
+            fail("resume", "from_checkpoint's prefill differs from the saved "
+                 "tensors'")
+        del engine
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(workdir, ignore_errors=True)
+        free_card()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    say("resume", f"kernel launches over the phase: {counts}")
+    if counts["flash_attention_bwd"] or not counts[
+            "flash_attention_bwd_deterministic"]:
+        fail("resume", "the steps did not run the deterministic backward")
+    return counts["flash_attention_bwd_deterministic"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -873,14 +1109,16 @@ def main() -> int:
     card = phase_device()
     phase_build()
     flash, ssd = phase_kernels(card), phase_ssd_kernels(card)
-    flash_bwd = phase_flash_bwd_kernels(card)
+    flash_bwd, flash_bwd_det = phase_flash_bwd_kernels(card)
     phase_small_reference(card, QWEN)
     phase_small_reference(card, MAMBA)
     flash["launches"] = phase_serve(card, QWEN, "flash_attention")
     ssd["launches"] = phase_serve(card, MAMBA, "ssd")
     phase_small_train_reference(card)
     flash_bwd["launches"] = phase_train(card)
-    print(json.dumps({"kernels": [flash, ssd, flash_bwd]}), flush=True)
+    flash_bwd_det["launches"] = phase_resume(card)
+    print(json.dumps({"kernels": [flash, ssd, flash_bwd, flash_bwd_det]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -74,10 +74,27 @@
 // key tile 0, 1 for the last) start longest first and the short ones fill
 // the tail. dK and dV are then sums over blocks.
 //
-// Determinism: dQ sums one partial per key tile and dK / dV one per q
-// head, in the order the blocks reach them, so the low bits of the bf16
-// outputs can differ from call to call (chip_smoke.py prints by how much);
-// every term is the same.
+// Determinism. The fast path sums dQ's partials (one per key tile) and dK /
+// dV's (one per q head) by reduce-adds in the order the blocks reach them,
+// so the low bits of the outputs can differ from call to call (chip_smoke.py
+// prints by how much); every term is the same. The deterministic path
+// (kDet, taken when PyTorch's deterministic-algorithms switch is on) fixes
+// both orders, bit-identical from call to call:
+//   dK / dV: each main block stores its q head's fp32 partial in a slot of
+//     its own ([2][B * Hq][Sk_pad][D], written by a bulk store, zeros where
+//     no row sees the keys), and the convert kernel sums a group's Hq / Hkv
+//     slots in head order.
+//   dQ: the partials of one (b, q head, q tile) are added in key-tile order.
+//     A counter per (b, q head, q tile, 64-column half), zeroed by the
+//     caller, counts the partials added; the block of key tile kb waits
+//     until it equals kb minus the first key tile that reaches that q tile,
+//     adds its partial, waits until the add has landed and increments the
+//     counter with release semantics (FlashAttention-3's deterministic
+//     backward does the same). It cannot deadlock: a block waits only on
+//     blocks of lower key tiles, whose block indices are lower (key tile
+//     first), and blocks are handed to SMs in index order, so each block it
+//     waits on is resident or done; the block of the first key tile waits
+//     on none. Only thread 0 of a warpgroup spins.
 //
 // Registers set the block. ptxas caps a thread at 16,384 registers / (32 x
 // the warps on one of the SM's four partitions), rounded down to 8: 255 for
@@ -350,22 +367,41 @@ __device__ __forceinline__ void stage_acc(const float (&acc)[N / 2], uint32_t sm
 }
 
 // Staged values added to fp32 sums at `dst` by a TMA bulk reduce-add that
-// thread 0 of the warpgroup issues, once the warpgroup's stores are in.
-// Before the staging buffer is written again, that thread waits until the
-// reduce has read it (`bulk_wait_read`).
+// thread 0 of the warpgroup issues, once the warpgroup's stores are in, or
+// with kStore written there by a bulk store. Before the staging buffer is
+// written again, that thread waits until the copy has read it
+// (`bulk_wait_read`).
+template <bool kStore = false>
 __device__ __forceinline__ void reduce_staged(uint32_t smem, float* dst, int bytes, int tid,
                                               int bar_id) {
   fence_proxy_async();
   named_barrier(bar_id, 128);
-  if (tid == 0) bulk_reduce_add(dst, smem, bytes);
+  if (tid == 0) {
+    if constexpr (kStore) {
+      bulk_store(dst, smem, bytes);
+    } else {
+      bulk_reduce_add(dst, smem, bytes);
+    }
+  }
+}
+
+// The first key tile whose main block walks q tile `qt`: the main kernel's
+// q-tile range [qt_begin, qt_end) holds qt for key tiles kb >= this one
+// (qt_end grows with kb), up to kb = qt when causal.
+__device__ __forceinline__ int first_key_tile(int qt, int window) {
+  const int need = kQTile * qt - (kKTile - 2) - window;  // kb * kKTile >= need
+  return window <= 0 || need <= 0 ? 0 : (need + kKTile - 1) / kKTile;
 }
 
 // One warpgroup's dQ partial for a q tile: columns [n0, n0 + 64) of dS K
 // over the block's 64 keys (dS^T [key][q row] in shared memory, read as a
 // transposed A; K [key][d] from `k_box`, a transposed B), staged in `dq_s`
-// and added to dQ's fp32 sum at `dst`.
+// and added to dQ's fp32 sum at `dst`. With kDet the add waits its turn on
+// the counter `sem`, which then counts `rank` partials, and publishes it.
+template <bool kDet>
 __device__ __forceinline__ void dq_partial(uint32_t ds_s, uint32_t k_box, uint32_t dq_s,
-                                           float* dst, int tid, int bar_id) {
+                                           float* dst, int* sem, int rank, int tid,
+                                           int bar_id) {
   float dq[32];  // the first k-step overwrites it
   wgmma_fence();
 #pragma unroll
@@ -376,18 +412,30 @@ __device__ __forceinline__ void dq_partial(uint32_t ds_s, uint32_t k_box, uint32
   wgmma_wait<0>();
   fence_regs(dq);
   stage_acc<64>(dq, dq_s, tid);
-  reduce_staged(dq_s, dst, kChunkBytes, tid, bar_id);
+  if constexpr (kDet) {
+    fence_proxy_async();
+    named_barrier(bar_id, 128);
+    if (tid == 0) {
+      sem_wait_eq(sem, rank);
+      bulk_reduce_add(dst, dq_s, kChunkBytes);
+      bulk_wait_done();
+      sem_release_inc(sem);
+    }
+  } else {
+    reduce_staged(dq_s, dst, kChunkBytes, tid, bar_id);
+  }
 }
 
-template <int D>
+template <int D, bool kDet>
 __global__ void __maxnreg__(168)
 flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const float* __restrict__ rows, float* __restrict__ dq_acc,
-                      float* __restrict__ dkv_acc, int B, int Hq, int Hkv, int Sq, int Sk,
-                      int Sq_pad, int Sk_pad, float scale_log2, int causal, int window) {
+                      float* __restrict__ dkv_acc, int* __restrict__ dq_sem, int B, int Hq,
+                      int Hkv, int Sq, int Sk, int Sq_pad, int Sk_pad, float scale_log2,
+                      int causal, int window) {
   constexpr int kQTileBytes = kQTile * D * 2;  // a Q or dO tile
   constexpr int kKVBytes = kKTile * D * 2;     // the K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -417,7 +465,20 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
   int qt_end = Sq_pad / kQTile;
   if (window > 0) qt_end = min(qt_end, (k_lo + kKTile - 2 + window) / kQTile + 1);
   const int n_q = max(qt_end - qt_begin, 0);  // iteration i: q tile qt_begin + i
-  if (n_q == 0) return;  // no row sees these keys: their dK, dV stay 0
+  // this block's share of dK's fp32 sum (dV's one plane further), summing
+  // the group's q heads across blocks; with kDet its own slot of them
+  const int slot = kDet ? b * Hq + h : b * Hkv + hk;
+  const long long kv_plane = static_cast<long long>(B) * (kDet ? Hq : Hkv) * Sk_pad * D;
+  float* dkp = dkv_acc + (static_cast<long long>(slot) * Sk_pad + k_lo) * D;
+  if (n_q == 0) {  // no row sees these keys: their dK, dV stay 0
+    if constexpr (kDet) {
+      for (int i = threadIdx.x; i < kKTile * D / 4; i += blockDim.x) {
+        reinterpret_cast<float4*>(dkp)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        reinterpret_cast<float4*>(dkp + kv_plane)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    return;
+  }
 
   // Thread 0 issues every load: K and V once, then tile i's Q, dO and rows
   // into stage i % kStages, completing on full[stage]. A stage is refilled
@@ -446,9 +507,9 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
   // element 4 j + e of a [64 keys x 64 q rows] accumulator: key k_lo + 16 warp
   // + g + 8 (e / 2), q row q_lo + 8 j + 2 t + e % 2
   const bool does_dq = D == 128 || wg == 0;  // dQ's columns [64 wg, + 64)
-  // this block's share of dK's fp32 sum (dV's one plane further), summing
-  // the group's q heads across blocks
-  float* dkp = dkv_acc + (static_cast<long long>(b * Hkv + hk) * Sk_pad + k_lo) * D;
+  // kDet: the counters of this (b, q head)'s q tiles, this warpgroup's half
+  int* const sems = kDet ? dq_sem + static_cast<long long>(b * Hq + h) * (Sq_pad / kQTile) * 2 + wg
+                         : nullptr;
   mbar_wait(kv_full, 0);
 
   if (wg == 0) {
@@ -511,13 +572,15 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
         load_q_tile<D>(&tm_q, &tm_do, rows, sQ, sDO, sRows, full, n, h, (qt_begin + n) * kQTile,
                        b, Hq, Sq_pad, plane);
       }
-      dq_partial(sDS, sK, sDQ,
-                 dq_acc + (static_cast<long long>(b * Hq + h) * Sq_pad + q_lo) * D, tid, 3);
+      const int qt = qt_begin + i;
+      dq_partial<kDet>(sDS, sK, sDQ,
+                       dq_acc + (static_cast<long long>(b * Hq + h) * Sq_pad + q_lo) * D,
+                       sems + 2 * qt, kb - first_key_tile(qt, window), tid, 3);
     }
     // dV, staged in the Q ring once warpgroup 1's last dK has read it
     named_barrier(5, 256);
     stage_acc<D>(dv, sQ, tid);
-    reduce_staged(sQ, dkp + static_cast<long long>(B) * Hkv * Sk_pad * D, kKTile * D * 4, tid, 3);
+    reduce_staged<kDet>(sQ, dkp + kv_plane, kKTile * D * 4, tid, 3);
   } else {
     // ---- warpgroup 1: dP^T, dS^T, dK -------------------------------------------
     float dk[D / 2];
@@ -580,16 +643,18 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
       named_barrier(2, 256);           // dS^T is in; P^T has been read
       wgmma_wait<0>();
       fence_regs(dk);
-      if (does_dq)
-        dq_partial(sDS, sK + kKBoxBytes, sDQ + kChunkBytes,
-                   dq_acc + (static_cast<long long>(b * Hq + h) * Sq_pad + q_lo) * D +
-                       kQTile * 64,
-                   tid, 4);
+      if (does_dq) {
+        const int qt = qt_begin + i;
+        dq_partial<kDet>(sDS, sK + kKBoxBytes, sDQ + kChunkBytes,
+                         dq_acc + (static_cast<long long>(b * Hq + h) * Sq_pad + q_lo) * D +
+                             kQTile * 64,
+                         sems + 2 * qt, kb - first_key_tile(qt, window), tid, 4);
+      }
     }
     // dK, staged in the dO ring
     named_barrier(5, 256);
     stage_acc<D>(dk, sDO, tid);
-    reduce_staged(sDO, dkp, kKTile * D * 4, tid, 4);
+    reduce_staged<kDet>(sDO, dkp, kKTile * D * 4, tid, 4);
   }
   if (tid == 0) bulk_wait_read();  // shared memory stays until the reduces have read it
 }
@@ -598,15 +663,17 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
 // One output: its fp32 sums [B, H, S_pad / 64, D / 64] chunks of [64 rows]
 // [64 columns], column c of row r at c ^ 8 (r mod 8), as the main kernel
 // stages them, times `scale`, into bf16 out [B, S, H, D] (strides in
-// elements).
+// elements). With kDet the sums of head h are `group` consecutive slots
+// [B, H * group, ...], added in slot order.
 struct ConvertJob {
   const float* acc;
   __nv_bfloat16* out;
   long long sb, ss, sh;
-  int H, S, S_pad;
+  int H, S, S_pad, group;
   float scale;
 };
 
+template <bool kDet>
 __global__ void __launch_bounds__(256)
 flash_bwd_convert_kernel(ConvertJob dq, ConvertJob dk, ConvertJob dv, int B, int D) {
   const ConvertJob job = blockIdx.y == 0 ? dq : (blockIdx.y == 1 ? dk : dv);
@@ -621,11 +688,21 @@ flash_bwd_convert_kernel(ConvertJob dq, ConvertJob dk, ConvertJob dv, int B, int
     const int s = static_cast<int>(rest % job.S);
     const int b = static_cast<int>(rest / job.S);
     const int r = s % 64;
-    const long long chunk_row0 = (static_cast<long long>(b) * job.H + h) * job.S_pad + s - r;
+    const int group = kDet ? job.group : 1;
+    const long long chunk_row0 =
+        (static_cast<long long>(b) * job.H + h) * group * job.S_pad + s - r;
     const float4* src = reinterpret_cast<const float4*>(
         job.acc + chunk_row0 * D + (8 * d8 / 64) * 64 * 64 + r * 64 +
         ((8 * d8) % 64 ^ ((r & 7) << 3)));
-    const float4 x = src[0], y = src[1];
+    float4 x = src[0], y = src[1];
+    if constexpr (kDet) {
+      const long long slot = static_cast<long long>(job.S_pad) * D / 4;  // in float4
+      for (int g = 1; g < group; ++g) {
+        const float4 x1 = src[g * slot], y1 = src[g * slot + 1];
+        x = make_float4(x.x + x1.x, x.y + x1.y, x.z + x1.z, x.w + x1.w);
+        y = make_float4(y.x + y1.x, y.y + y1.y, y.z + y1.z, y.w + y1.w);
+      }
+    }
     const float sc = job.scale;
     uint4 o;
     o.x = pack_bf16(x.x * sc, x.y * sc);
@@ -637,9 +714,10 @@ flash_bwd_convert_kernel(ConvertJob dq, ConvertJob dk, ConvertJob dv, int B, int
 }
 
 // ---- host ----------------------------------------------------------------
-template <int D>
+template <int D, bool kDet>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           float* rows, float* dq_acc, float* dkv_acc, void* dq, void* dk, void* dv, int B,
+           float* rows, float* dq_acc, float* dkv_acc, int* dq_sem, void* dq, void* dk,
+           void* dv, int B,
            int Hq, int Hkv, int Sq, int Sk, const long long* qs, const long long* ks,
            const long long* vs, const long long* dos, const long long* dqs,
            const long long* dks, const long long* dvs, int causal, int window,
@@ -667,23 +745,25 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   if (e != cudaSuccess) return static_cast<int>(e);
 
   constexpr int main_bytes = main_smem_bytes<D>();
-  e = cudaFuncSetAttribute(flash_bwd_main_kernel<D>,
+  e = cudaFuncSetAttribute(flash_bwd_main_kernel<D, kDet>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, main_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int main_blocks = Sk_pad / kKTile * B * Hq;  // 1024 at the training shape
-  flash_bwd_main_kernel<D><<<main_blocks, 256, main_bytes, stream>>>(
-      tq, tdo, tk, tv, rows, dq_acc, dkv_acc, B, Hq, Hkv, Sq, Sk, Sq_pad, Sk_pad, scale_log2,
-      causal, window);
+  flash_bwd_main_kernel<D, kDet><<<main_blocks, 256, main_bytes, stream>>>(
+      tq, tdo, tk, tv, rows, dq_acc, dkv_acc, dq_sem, B, Hq, Hkv, Sq, Sk, Sq_pad, Sk_pad,
+      scale_log2, causal, window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  const long long kv_plane = static_cast<long long>(B) * Hkv * Sk_pad * D;
-  const ConvertJob jq{dq_acc, static_cast<bf16*>(dq), dqs[0], dqs[1], dqs[2], Hq, Sq, Sq_pad, scale};
-  const ConvertJob jk{dkv_acc, static_cast<bf16*>(dk), dks[0], dks[1], dks[2], Hkv, Sk, Sk_pad,
+  const int group = kDet ? Hq / Hkv : 1;  // slots per kv head's sums
+  const long long kv_plane = static_cast<long long>(B) * Hkv * group * Sk_pad * D;
+  const ConvertJob jq{dq_acc, static_cast<bf16*>(dq), dqs[0], dqs[1], dqs[2], Hq, Sq, Sq_pad, 1,
                       scale};
+  const ConvertJob jk{dkv_acc, static_cast<bf16*>(dk), dks[0], dks[1], dks[2], Hkv, Sk, Sk_pad,
+                      group, scale};
   const ConvertJob jv{dkv_acc + kv_plane, static_cast<bf16*>(dv), dvs[0], dvs[1], dvs[2], Hkv, Sk,
-                      Sk_pad, 1.f};
-  flash_bwd_convert_kernel<<<dim3(4 * 132, 3), 256, 0, stream>>>(jq, jk, jv, B, D);
+                      Sk_pad, group, 1.f};
+  flash_bwd_convert_kernel<kDet><<<dim3(4 * 132, 3), 256, 0, stream>>>(jq, jk, jv, B, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -693,13 +773,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // with a unit stride on D, other strides multiples of 8 elements and
 // 16-byte aligned bases; each *_strides array holds the (batch, seq, head)
 // strides in elements. lse: contiguous fp32 [B, Hq, Sq], the forward's.
-// Scratch, fp32 and contiguous, with Sq_pad = Sq rounded up to 64 and
-// Sk_pad = Sk rounded up to 128: rows [2, B * Hq, Sq_pad] and dq_acc
-// [B * Hq, Sq_pad, D], both written before they are read; dkv_acc
-// [2, B * Hkv, Sk_pad, D], zeros. Returns a cudaError_t.
+// Scratch, fp32 and contiguous, with Sq_pad = Sq and Sk_pad = Sk rounded up
+// to 64: rows [2, B * Hq, Sq_pad] and dq_acc [B * Hq, Sq_pad, D], both
+// written before they are read; dkv_acc [2, B * Hkv, Sk_pad, D], zeros.
+// dq_sem null takes the fast path. Non-null, it is int32 [B * Hq, Sq_pad /
+// 64, 2], zeros, and the path is deterministic; dkv_acc is then
+// [2, B * Hq, Sk_pad, D], written before it is read. Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    void* rows, void* dq_acc, void* dkv_acc, void* dq, void* dk, void* dv, int B, int Hq,
+    void* rows, void* dq_acc, void* dkv_acc, void* dq_sem, void* dq, void* dk, void* dv,
+    int B, int Hq,
     int Hkv, int Sq, int Sk, int D, const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* do_strides, const long long* dq_strides,
     const long long* dk_strides, const long long* dv_strides, int causal, int window,
@@ -709,13 +792,13 @@ extern "C" int repro_flash_attention_bwd_bf16(
   float* r = static_cast<float*>(rows);
   float* aq = static_cast<float*>(dq_acc);
   float* akv = static_cast<float*>(dkv_acc);
-  if (D == 64)
-    return launch<64>(q, k, v, dout, l, r, aq, akv, dq, dk, dv, B, Hq, Hkv, Sq, Sk, q_strides,
-                      k_strides, v_strides, do_strides, dq_strides, dk_strides, dv_strides,
-                      causal, window, s);
-  if (D == 128)
-    return launch<128>(q, k, v, dout, l, r, aq, akv, dq, dk, dv, B, Hq, Hkv, Sq, Sk, q_strides,
-                       k_strides, v_strides, do_strides, dq_strides, dk_strides, dv_strides,
-                       causal, window, s);
+  int* sem = static_cast<int*>(dq_sem);
+#define REPRO_BWD_LAUNCH(D_, DET_)                                                          \
+  launch<D_, DET_>(q, k, v, dout, l, r, aq, akv, sem, dq, dk, dv, B, Hq, Hkv, Sq, Sk,       \
+                   q_strides, k_strides, v_strides, do_strides, dq_strides, dk_strides,     \
+                   dv_strides, causal, window, s)
+  if (D == 64) return sem ? REPRO_BWD_LAUNCH(64, true) : REPRO_BWD_LAUNCH(64, false);
+  if (D == 128) return sem ? REPRO_BWD_LAUNCH(128, true) : REPRO_BWD_LAUNCH(128, false);
+#undef REPRO_BWD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -84,9 +84,41 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, int by
       : "memory");
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
+// Copies `bytes` contiguous bytes (a multiple of 16, both ends 16-byte
+// aligned) from shared memory to global memory, as one bulk group of this
+// thread.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
 // Waits until this thread's bulk groups have read their shared memory.
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// Waits until this thread's bulk groups have completed, their writes to
+// global memory included, and orders them before this thread's later
+// generic-proxy accesses (a release that publishes them).
+__device__ __forceinline__ void bulk_wait_done() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+// Spins until the int at `sem` equals `value` (an acquire at GPU scope),
+// then orders that acquire before this thread's later async-proxy accesses
+// to global memory. Traps after ~2^26 polls rather than hang the card.
+__device__ __forceinline__ void sem_wait_eq(const int* sem, int value) {
+  int v = -1;
+  for (uint32_t polls = 0; v != value; ++polls) {
+    asm volatile("ld.global.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(sem) : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+// Adds 1 to the int at `sem`, releasing this thread's earlier writes.
+__device__ __forceinline__ void sem_release_inc(int* sem) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(sem) : "memory");
 }
 // Makes this thread's ordinary shared-memory stores visible to the async
 // proxy (wgmma operands read from shared memory).

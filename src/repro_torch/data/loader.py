@@ -1,6 +1,6 @@
 """Batch loader: turns the synthetic stream into (tokens, labels) batches on
 the training device. The JAX package's ``ShardedLoader`` places them with
-the step's input shardings; one device needs no sharding (ROADMAP A.8)."""
+the step's input shardings; one device needs no sharding (ROADMAP A.7)."""
 
 from __future__ import annotations
 

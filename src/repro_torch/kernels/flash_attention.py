@@ -18,6 +18,11 @@ model's ``chunked_attention`` (no Pallas backward exists): three kernels in
 dP) exactly; dV, dK and dQ's partials per 64-key tile, summed in fp32;
 the conversion to bf16). Its plain version is
 ``repro_torch.kernels.ref.attention_backward_reference``.
+``flash_attention_bwd_deterministic`` runs the same kernels in an order of
+summation fixed from call to call (dQ's partials added in key-tile order,
+dK's and dV's kept per q head and summed in head order), so its output is
+bit-identical from call to call; ``kernels/ops.py`` takes it when PyTorch's
+``torch.use_deterministic_algorithms`` switch is on.
 
 Unlike the Pallas wrapper this one takes the model layout
 ``[B, S, H, D]`` and hands the kernel strides, from which it builds its
@@ -48,7 +53,7 @@ _SIGNATURES = {
     "repro_flash_attention_fwd_bf16":
         [_p] * 5 + [_i] * 6 + [_s] * 4 + [_i, _i, _p],
     "repro_flash_attention_bwd_bf16":
-        [_p] * 11 + [_i] * 6 + [_s] * 7 + [_i, _i, _p],
+        [_p] * 12 + [_i] * 6 + [_s] * 7 + [_i, _i, _p],
     "repro_flash_wgmma_probe_bf16": [_p, _p, _p, _p, _p, _i, _p],
 }
 _bound = {}
@@ -149,6 +154,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's output, whose bf16 rounding of P moves rows of dQ by up to
     ~5% (csrc/flash_attention_bwd.cu). dQ, dK and dV are sums across
     blocks by fp32 atomics, so their low bits may vary from call to call."""
+    out = _backward(q, k, v, lse, do, causal=causal, window=window,
+                    deterministic=False)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_deterministic(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+        do: torch.Tensor, *, causal: bool = True, window: int = 0):
+    """``flash_attention_bwd``'s gradients, bit-identical from call to call:
+    dQ's partials are added in key-tile order (each waits its turn on a
+    counter per q tile), dK's and dV's are kept per q head and summed in
+    head order. It takes more scratch ([2, B, Hq, Sk, D] fp32 rather than
+    [2, B, Hkv, Sk, D]) and more time."""
+    out = _backward(q, k, v, lse, do, causal=causal, window=window,
+                    deterministic=True)
+    flash_attention_bwd_deterministic.launches += 1
+    return out
+
+
+flash_attention_bwd_deterministic.launches = 0
+
+
+def _backward(q, k, v, lse, do, *, causal: bool, window: int,
+              deterministic: bool):
     _check(q, k, v, do=do)
     if window < 0:
         raise ValueError(f"flash_attention_bwd: window {window} < 0")
@@ -162,30 +195,35 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
     # fp32 scratch: each row's LSE * log2 e and delta, and dQ's sum, written
-    # by the delta kernel; dK's and dV's sums, added into from zero
+    # by the delta kernel; dK's and dV's sums, added into from zero, or
+    # (deterministic) one slot per q head, each written once, and a zeroed
+    # counter per (b, q head, q tile, half of dQ's columns)
     sq_pad = -(-sq // BWD_Q_TILE) * BWD_Q_TILE
     sk_pad = -(-sk // BWD_KEY_TILE) * BWD_KEY_TILE
     f32 = dict(dtype=torch.float32, device=q.device)
     rows = torch.empty((2, b * hq, sq_pad), **f32)
     dq_acc = torch.empty((b * hq, sq_pad, d), **f32)
-    dkv_acc = torch.zeros((2, b * hkv, sk_pad, d), **f32)
+    if deterministic:
+        dkv_acc = torch.empty((2, b * hq, sk_pad, d), **f32)
+        sems = torch.zeros((b * hq, sq_pad // BWD_Q_TILE, 2),
+                           dtype=torch.int32, device=q.device)
+    else:
+        dkv_acc = torch.zeros((2, b * hkv, sk_pad, d), **f32)
+        sems = None
     strides = [_Strides(*t.stride()[:3]) for t in (q, k, v, do, dq, dk, dv)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _entry("repro_flash_attention_bwd_bf16")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), rows.data_ptr(), dq_acc.data_ptr(),
-            dkv_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dkv_acc.data_ptr(), 0 if sems is None else sems.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, hq, hkv, sq, sk, d, *strides, int(causal), int(window),
             stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd: launch failed, cudaError "
                            f"{err}")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0
 
 
 def wgmma_probe(a: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

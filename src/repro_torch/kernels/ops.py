@@ -14,15 +14,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_bwd)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
 from repro_torch.kernels.ref import attention_reference, ssd_chunked_reference
 from repro_torch.kernels.ssd import ssd_chunked_kernel
 
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel with its LSE saved, and the backward kernel: the
-    counterpart of ``jax.grad`` through the JAX model's attention."""
+    counterpart of ``jax.grad`` through the JAX model's attention. Under
+    ``torch.use_deterministic_algorithms(True)`` the backward sums in a
+    fixed order, so its gradients are bit-identical from call to call, as
+    ``jax.grad``'s are."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
@@ -35,8 +38,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, lse, dout.contiguous(),
-                                         causal=ctx.causal, window=ctx.window)
+        bwd = (flash_attention_bwd_deterministic
+               if torch.are_deterministic_algorithms_enabled()
+               else flash_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, lse, dout.contiguous(), causal=ctx.causal,
+                         window=ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -64,7 +70,7 @@ def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B, C, D)):
         raise NotImplementedError(
-            "ssd_op: the SSD kernel has no backward yet (ROADMAP.md A.11), "
+            "ssd_op: the SSD kernel has no backward yet (ROADMAP.md A.3), "
             "so its output would carry no gradient; run it under "
             "torch.no_grad() or on the CPU")
     return ssd_chunked_kernel(x, dt, A, B, C, D)

@@ -1,24 +1,32 @@
 """Serving driver: a batched serving session with the ServeEngine (prefill
-+ decode over a shared ring cache), on random weights from ``Model.init``.
++ decode over a shared ring cache).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --arch mamba2-370m --requests 6 --new-tokens 16
+        --arch mamba2-370m --requests 6 --new-tokens 16 \
+        --workdir /tmp/port_serve
 
 Runs on the CUDA card unless ``--device cpu`` is given, and fails if there
-is no card. The model is the arch's reduced (tiny) variant. BootSeer's
-managed startup and the checkpoint restore of the JAX driver are not part
-of this one yet.
+is no card. The model is the arch's reduced (tiny) variant. With
+``--workdir`` the params live in a checkpoint in a striped DFS under
+``<workdir>/hdfs``, as in the JAX driver: the first run seeds it from
+``Model.init`` (seed 0), and every run serves through
+``ServeEngine.from_checkpoint`` (the planned restore at CRITICAL). Without
+it the engine serves ``Model.init``'s weights directly. BootSeer's managed
+startup around it is not part of this one yet (ROADMAP A.2).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS, get_tiny
+from repro_torch.dfs.hdfs import HdfsCluster
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -31,15 +39,32 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--workdir", default=None,
+                    help="serve the params of a checkpoint under "
+                         "<workdir>/hdfs, seeded on first use")
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_tiny(args.arch)
     model = Model(cfg, device=args.device)
-    params = model.init(torch.Generator(device=model.device).manual_seed(0))
-    engine = ServeEngine(model, params, batch=args.batch,
-                         cache_len=args.cache_len, device=model.device)
+    if args.workdir is None:
+        params = model.init(torch.Generator(device=model.device).manual_seed(0))
+        engine = ServeEngine(model, params, batch=args.batch,
+                             cache_len=args.cache_len, device=model.device)
+    else:
+        root = Path(args.workdir)
+        ck = Checkpointer(HdfsCluster(root / "hdfs", num_groups=8,
+                                      block_size=1 << 20),
+                          f"/serve_ckpt/{args.arch}")
+        if ck.latest_step() is None:
+            gen = torch.Generator(device=model.device).manual_seed(0)
+            ck.save(0, model.init(gen))
+            print("serve params: seeded checkpoint step 0")
+        engine = ServeEngine.from_checkpoint(model, ck, batch=args.batch,
+                                             cache_len=args.cache_len)
+        print(f"serve params: planned restore of step {ck.latest_step()}, "
+              f"{ck.timings['wave0_bytes']} bytes")
 
     rng = np.random.default_rng(0)
     todo = [Request(prompt=rng.integers(0, cfg.vocab_size,

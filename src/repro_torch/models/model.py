@@ -183,6 +183,37 @@ class Model:
         params["layers"] = {k: make(v) for k, v in schema["layers"].items()}
         return params
 
+    def init_like(self, *, dtype: torch.dtype | None = None) -> dict:
+        """``init``'s tree as meta tensors (names, shapes and dtypes, no
+        memory): what a checkpoint restore is asked to fill."""
+        dtype = dtype or self.compute_dtype
+
+        def make(leaf: Leaf) -> torch.Tensor:
+            return torch.empty(leaf.shape, device="meta",
+                               dtype=torch.float32 if leaf.fp32 else dtype)
+
+        schema = param_schema(self.cfg)
+        params = {k: make(v) for k, v in schema.items() if k != "layers"}
+        params["layers"] = {k: make(v) for k, v in schema["layers"].items()}
+        return params
+
+    def serving_params(self, params: dict) -> dict:
+        """``params`` (fp32 masters, or a serving tree) as ``init`` makes
+        them for serving, on the model's device: every leaf in the compute
+        dtype, ``Leaf.fp32`` ones in fp32. A master is rounded once, as
+        the reference rounds it at each use."""
+        schema = param_schema(self.cfg)
+
+        def cast(leaf: Leaf, t: torch.Tensor) -> torch.Tensor:
+            return t.to(self.device, torch.float32 if leaf.fp32
+                        else self.compute_dtype)
+
+        out = {k: cast(v, params[k]) for k, v in schema.items()
+               if k != "layers"}
+        out["layers"] = {k: cast(v, params["layers"][k])
+                         for k, v in schema["layers"].items()}
+        return out
+
     def count_params(self) -> int:
         schema = param_schema(self.cfg)
         leaves = list(schema["layers"].values()) + [
@@ -403,8 +434,8 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: training is ported for the dense family "
                 f"without MoE only, not arch_type {cfg.arch_type!r}"
-                f"{' with MoE' if cfg.moe else ''} (ROADMAP.md A.5, A.6, "
-                "A.11)")
+                f"{' with MoE' if cfg.moe else ''} (ROADMAP.md A.4, A.5, "
+                "A.3)")
         tokens = batch["tokens"].long()
         labels = batch["labels"].long()
         h = L.embed(tokens, params["embed"], self.compute_dtype)

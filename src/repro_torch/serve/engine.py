@@ -51,6 +51,35 @@ class ServeEngine:
         self._prefill = make_prefill(model, batch, cache_len)
         self._decode = make_decode_step(model, batch, cache_len)
 
+    @classmethod
+    def from_checkpoint(cls, model: Model, checkpointer, step=None, *,
+                        batch: int, cache_len: int, sched=None,
+                        priority=None, tune_store=None) -> "ServeEngine":
+        """An engine whose params come from a checkpoint, params only (no
+        optimizer wave is planned or read), through the planned restore at
+        CRITICAL (``priority``) under ``sched``: params gate the time to
+        first token. ``step`` defaults to the latest restorable one. The
+        restored leaves (fp32 masters or a serving tree) are cast as
+        ``Model.serving_params`` casts them. ``tune_store`` (a tuning
+        profile to fetch) comes with ROADMAP.md A.8 and raises."""
+        from repro_torch.core.pipeline import CRITICAL
+        if tune_store is not None:
+            raise NotImplementedError(
+                "from_checkpoint: tune_store — the port has no tuning "
+                "profiles yet (ROADMAP.md A.8)")
+        if step is None:
+            step = checkpointer.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    "from_checkpoint: no checkpoint steps found under "
+                    f"{checkpointer.base!r}")
+        (params,) = checkpointer.restore_planned(
+            step, model.init_like(), sched=sched,
+            priority=CRITICAL if priority is None else priority,
+            device=model.device)
+        return cls(model, model.serving_params(params), batch=batch,
+                   cache_len=cache_len, device=model.device)
+
     def generate(self, requests: list[Request], seed: int = 0) -> list[Request]:
         if len(requests) > self.batch:
             raise ValueError(f"generate: {len(requests)} requests for a "

@@ -1,6 +1,6 @@
-"""Training loop on the synthetic stream: the JAX package's
-``train/loop.py`` without its checkpointing, which comes with the torch
-``Checkpointer`` (ROADMAP A.4): asking for it raises."""
+"""Training loop on the synthetic stream with periodic checkpoints through
+the striped DFS (``repro_torch.ckpt``): the JAX package's ``train/loop.py``
+without its tuning profile (ROADMAP A.8) and without sharding (A.7)."""
 
 from __future__ import annotations
 
@@ -26,30 +26,84 @@ def train_loop(model: Model, *, batch: int, seq_len: int, steps: int,
     """Train on the synthetic stream. Returns (params, opt_state, history),
     history holding {"step", "loss", "grad_norm", "t"} every ``log_every``
     steps and at the last. Without ``params`` the model's fp32 masters are
-    drawn from ``seed`` on its device. ``checkpointer``, ``ckpt_every``,
-    ``full_every``, ``resume_from`` and the ``restore_*`` options are the
-    reference's and raise NotImplementedError until ROADMAP A.4 lands."""
-    wanted = {"checkpointer": checkpointer is not None,
-              "ckpt_every": bool(ckpt_every), "full_every": bool(full_every),
-              "resume_from": resume_from is not None,
-              "restore_specs": restore_specs is not None,
-              "restore_coords": restore_coords is not None,
-              "restore_sched": restore_sched is not None}
-    if any(wanted.values()):
-        raise NotImplementedError(
-            f"train_loop: {sorted(k for k, v in wanted.items() if v)}: "
-            "checkpointing and resume are not ported yet (ROADMAP.md A.4)")
+    drawn from ``seed`` on its device.
+
+    ``checkpointer`` with ``ckpt_every`` saves params and optimizer state
+    after every ``ckpt_every``-th step; with ``full_every`` every
+    ``full_every``-th save of the run is full and those between are deltas
+    against the save before. ``resume_from`` restores that step and trains
+    from it: the params first (wave 0, at CRITICAL under
+    ``restore_sched``), then the optimizer state as a DEFERRED tail that
+    streams while the params are copied to the device and the kernels are
+    built. ``params`` and ``opt_state`` then only name the trees (meta
+    tensors of the model's schema when omitted); no random init is drawn.
+    ``restore_specs`` (PartitionSpec-like trees for params and optimizer
+    state) and ``restore_coords`` plan a partial restore; on one device
+    they restore whole tensors.
+
+    Options that cannot act raise ValueError: ``resume_from``, ``ckpt_every``
+    or ``full_every`` without a checkpointer (the run would silently train
+    from scratch, or never save), ``full_every`` without ``ckpt_every``, and
+    ``restore_*`` without ``resume_from``."""
+    if resume_from is not None and checkpointer is None:
+        raise ValueError(
+            f"resume_from={resume_from} requires a checkpointer — without "
+            "one the run would silently train from scratch")
+    for name, value in (("ckpt_every", ckpt_every),
+                        ("full_every", full_every)):
+        if value and checkpointer is None:
+            raise ValueError(f"{name}={value} requires a checkpointer — "
+                             "without one nothing would be saved")
+    if full_every and not ckpt_every:
+        raise ValueError(f"full_every={full_every} requires ckpt_every")
+    for name, value in (("restore_specs", restore_specs),
+                        ("restore_coords", restore_coords),
+                        ("restore_sched", restore_sched)):
+        if value is not None and resume_from is None:
+            raise ValueError(f"{name} requires resume_from: there is "
+                             "nothing to restore")
+    if checkpointer is not None and not all(
+            hasattr(checkpointer, m)
+            for m in ("save", "save_delta", "restore_planned")):
+        raise TypeError("checkpointer needs save, save_delta and "
+                        "restore_planned (repro_torch.ckpt.Checkpointer)")
     opt_cfg = opt_cfg or AdamWConfig()
-    if params is None:
-        gen = torch.Generator(device=model.device).manual_seed(seed)
-        params = model.init(gen, dtype=getattr(torch, model.cfg.param_dtype))
-    if opt_state is None:
-        opt_state = adamw_init(params)
+    param_dtype = getattr(torch, model.cfg.param_dtype)
+
+    opt_tail = None
+    if resume_from is not None:
+        if params is None:
+            params = model.init_like(dtype=param_dtype)
+        if opt_state is None:
+            opt_state = adamw_init(params)
+        specs = None if restore_specs is None else tuple(restore_specs)
+        params, opt_tail = checkpointer.restore_planned(
+            resume_from, params, opt_state, specs=specs,
+            coords=restore_coords, async_tail=True, sched=restore_sched,
+            device=model.device)
+        start_step = resume_from
+    else:
+        if params is None:
+            gen = torch.Generator(device=model.device).manual_seed(seed)
+            params = model.init(gen, dtype=param_dtype)
+        if opt_state is None:
+            opt_state = adamw_init(params)
 
     step_fn = make_train_step(model, opt_cfg)
     loader = Loader(SyntheticStream(model.cfg.vocab_size, seed), batch,
                     seq_len, model.device)
+    if opt_tail is not None:
+        # the tail streams while the kernels build (a no-op once built);
+        # the port's step updates params and opt_state in place, so it
+        # cannot warm up on the restored trees as the reference does
+        if model.device.type == "cuda":
+            from repro_torch.kernels import build
+            build.build()
+        (opt_state,) = opt_tail.result()
+
     history = []
+    saves = 0       # saves this run: every full_every-th one is full
+    last_saved: Optional[int] = None
     t0 = time.perf_counter()
     for step in range(start_step, start_step + steps):
         params, opt_state, metrics = step_fn(params, opt_state, loader(step))
@@ -59,4 +113,14 @@ def train_loop(model: Model, *, batch: int, seq_len: int, steps: int,
             history.append({"step": step, "loss": loss, "grad_norm": gnorm,
                             "t": time.perf_counter() - t0})
             log_fn(f"step {step:5d}  loss {loss:.4f}  gnorm {gnorm:.3f}")
+        if checkpointer is not None and ckpt_every and \
+                (step + 1) % ckpt_every == 0:
+            if full_every and saves % full_every != 0 \
+                    and last_saved is not None:
+                checkpointer.save_delta(step + 1, params, opt_state,
+                                        base=last_saved)
+            else:
+                checkpointer.save(step + 1, params, opt_state)
+            saves += 1
+            last_saved = step + 1
     return params, opt_state, history

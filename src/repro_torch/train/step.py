@@ -1,6 +1,6 @@
 """The train step: loss -> grad -> clip -> AdamW, the JAX package's
 ``train/step.py`` without jit and without sharding specs (one device;
-sharding is ROADMAP A.8).
+sharding is ROADMAP A.7).
 
 The gradient goes through ``torch.autograd`` into one stacked gradient
 buffer per parameter leaf. The model sees per-layer leaf views of the

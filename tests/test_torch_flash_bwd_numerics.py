@@ -18,6 +18,10 @@ row norm, since row 0 of dQ cancels to zero under a causal mask) at most
 2e-2. bf16 roundings of P, dS and the outputs (2^-9 relative per term)
 leave a sound emulation at ~4e-3.
 
+The deterministic path (``flash_attention_bwd_deterministic``, taken under
+``torch.use_deterministic_algorithms``) adds the same partials in a fixed
+order instead: dQ's in key-tile order, dK's and dV's in head order.
+
 One case takes delta as rowsum(dO o O) from the forward's bf16 output, as
 FlashAttention-2 and SDPA do: on a causal head's first rows, whose dQ
 cancels to a small vector, the forward's bf16 rounding of P reaches dQ
@@ -86,10 +90,23 @@ def _shuffled_sum(parts, gen):
     return total
 
 
-def emulate_backward(q, k, v, do, window, *, seed=0, delta_from_output=False):
+def _ordered_sum(parts, gen):
+    """fp32 sum of ``parts`` added one at a time in their order, as the
+    deterministic path adds them (``gen`` is unused)."""
+    total = torch.zeros_like(parts[0])
+    for x in parts:
+        total = total + x
+    return total
+
+
+def emulate_backward(q, k, v, do, window, *, seed=0, delta_from_output=False,
+                     deterministic=False):
     """dQ, dK, dV [B, S, H, D] in bf16 values (as fp32), computed as the
     kernels compute them; ``delta_from_output`` takes delta = rowsum(dO o
-    O) from the forward's bf16 output instead of the exact rowsum(P o dP)."""
+    O) from the forward's bf16 output instead of the exact rowsum(P o dP);
+    ``deterministic`` adds the cross-block partials in the deterministic
+    path's fixed order instead of a shuffled one."""
+    add = _ordered_sum if deterministic else _shuffled_sum
     q, k, v, do = (torch.from_numpy(x).transpose(1, 2) for x in (q, k, v, do))
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -114,13 +131,13 @@ def emulate_backward(q, k, v, do, window, *, seed=0, delta_from_output=False):
     p_b, ds_b = _bf16(p), _bf16(ds)
     gen = torch.Generator().manual_seed(seed)
     tiles = [slice(t, min(t + BWD_KEY_TILE, sk)) for t in range(0, sk, BWD_KEY_TILE)]
-    dq = _shuffled_sum([ds_b[..., t] @ kh[:, :, t] for t in tiles], gen) * scale
+    dq = add([ds_b[..., t] @ kh[:, :, t] for t in tiles], gen) * scale
     dk_h = ds_b.transpose(-1, -2) @ q          # [B, Hq, Sk, D], per q head
     dv_h = p_b.transpose(-1, -2) @ do
-    dk = torch.stack([_shuffled_sum(list(dk_h[:, h * group:(h + 1) * group].unbind(1)),
-                                    gen) for h in range(hkv)], 1) * scale
-    dv = torch.stack([_shuffled_sum(list(dv_h[:, h * group:(h + 1) * group].unbind(1)),
-                                    gen) for h in range(hkv)], 1)
+    dk = torch.stack([add(list(dk_h[:, h * group:(h + 1) * group].unbind(1)),
+                          gen) for h in range(hkv)], 1) * scale
+    dv = torch.stack([add(list(dv_h[:, h * group:(h + 1) * group].unbind(1)),
+                          gen) for h in range(hkv)], 1)
     return [_bf16(x).transpose(1, 2) for x in (dq, dk, dv)]
 
 
@@ -131,6 +148,22 @@ def test_emulated_kernel_matches_jax_grad(name):
     refs = _jax_grads(q, k, v, do, window)
     grads = emulate_backward(q, k, v, do, window, seed=1)
     for label, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+        err = row_rel_err(g, torch.from_numpy(ref), floor=GRAD_ROW_FLOOR)
+        assert err <= GRAD_ROW_RTOL, (label, err)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fixed_summation_order_matches_jax_grad(name):
+    """The deterministic path's order: within the same tolerance of
+    ``jax.grad``, and the same bits whatever the seed (two runs of the
+    kernel add the same partials in the same order)."""
+    b, hq, hkv, sq, sk, d, window = CASES[name]
+    q, k, v, do = _inputs(b, hq, hkv, sq, sk, d, seed=sq + sk + d + window)
+    refs = _jax_grads(q, k, v, do, window)
+    first = emulate_backward(q, k, v, do, window, seed=1, deterministic=True)
+    second = emulate_backward(q, k, v, do, window, seed=2, deterministic=True)
+    for label, g, g2, ref in zip(("dq", "dk", "dv"), first, second, refs):
+        assert torch.equal(g, g2), label
         err = row_rel_err(g, torch.from_numpy(ref), floor=GRAD_ROW_FLOOR)
         assert err <= GRAD_ROW_RTOL, (label, err)
 

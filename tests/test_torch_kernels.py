@@ -29,9 +29,9 @@ import torch
 
 from repro_torch.configs import get_tiny
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (KEY_TILE, flash_attention,
-                                                 flash_attention_bwd,
-                                                 wgmma_probe)
+from repro_torch.kernels.flash_attention import (
+    KEY_TILE, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_deterministic, wgmma_probe)
 from repro_torch.kernels.ops import attention_op, ssd_op
 from repro_torch.kernels.ref import (attention_backward_reference,
                                      attention_lse_reference,
@@ -87,6 +87,14 @@ def test_flash_attention_bwd_refuses_cpu_tensors():
     attention_op(q, q, q).sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
     assert (flash_attention_bwd.launches, flash_attention.launches) == before
+
+
+def test_flash_attention_bwd_deterministic_refuses_cpu_tensors():
+    x = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
+    before = flash_attention_bwd_deterministic.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_deterministic(x, x, x, torch.zeros((1, 2, 64)), x)
+    assert flash_attention_bwd_deterministic.launches == before
 
 
 def _ssd_inputs(b, s, h, p, g, n, device="cpu", seed=0):
@@ -363,6 +371,56 @@ def test_flash_bwd_matches_plain_on_card(cuda, b, hq, hkv, sq, sk, d, window,
         assert g.dtype == torch.bfloat16 and g.shape == t.shape
         assert row_rel_err(g, r.transpose(1, 2),
                            floor=GRAD_ROW_FLOOR) <= BF16_ROW_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,causal", BWD_EDGES)
+def test_flash_bwd_deterministic_on_card(cuda, b, hq, hkv, sq, sk, d, window,
+                                         causal):
+    """The deterministic backward: within the same tolerance of the plain
+    version, and bit-identical across two calls on the same inputs (its
+    sums across blocks run in a fixed order)."""
+    q, k, v, do = _qkv_do(cuda, b, hq, hkv, sq, sk, d, sq + sk + d)
+    _, lse = flash_attention(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    before = (flash_attention_bwd_deterministic.launches,
+              flash_attention_bwd.launches)
+    first, second = (flash_attention_bwd_deterministic(
+        q, k, v, lse, do, causal=causal, window=window) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_deterministic.launches,
+            flash_attention_bwd.launches) == (before[0] + 2, before[1])
+    refs = attention_backward_reference(
+        *(t.transpose(1, 2) for t in (q, k, v, do)), causal=causal,
+        window=window)
+    for g, g2, r, t in zip(first, second, refs, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert torch.equal(g, g2)
+        assert row_rel_err(g, r.transpose(1, 2),
+                           floor=GRAD_ROW_FLOOR) <= BF16_ROW_RTOL
+
+
+@pytest.mark.gpu
+def test_attention_op_backward_is_deterministic_under_the_switch(cuda):
+    """Under torch.use_deterministic_algorithms(True) autograd calls the
+    deterministic backward, and two backward passes give the same bits."""
+    q, k, v, do = _qkv_do(cuda, 2, 16, 2, 1000, 1000, 128, 5)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = (flash_attention_bwd_deterministic.launches,
+                  flash_attention_bwd.launches)
+        grads = []
+        for _ in range(2):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            torch.autograd.backward(attention_op(*leaves), do)
+            grads.append([leaf.grad for leaf in leaves])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert (flash_attention_bwd_deterministic.launches,
+            flash_attention_bwd.launches) == (before[0] + 2, before[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 @pytest.mark.gpu
