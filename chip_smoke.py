@@ -42,6 +42,18 @@ Phases, one line or more each; any failure exits non-zero:
      ServeEngine.from_checkpoint serves the checkpoint's params, whose
      prefill logits must be bit-equal to an engine's built from the saved
      tensors directly, and the time to first token from the cold restore.
+  9. boot: the port's launchers as fresh processes, each booting through
+     the BootSeer runtime: qwen2.5-3b training at full width cold (image
+     record, nvcc builds the kernel library inside env.install, 2 steps,
+     a 40.77 GB checkpoint) and warm (hot-block prefetch, the library
+     restored from the env cache, byte-identical, no nvcc; resume, one
+     step of 72 forward and 36 backward flash launches), then mamba2-370m
+     serving cold and warm (48 SSD launches per prefill, the same greedy
+     tokens). Prints each runtime stage, the critical path, the bytes the
+     I/O scheduler read at CRITICAL and DEFERRED, and the wall time from
+     the launch to the first step or the first token; and, against a
+     fresh process that resumes the same checkpoint without the runtime,
+     what the runtime's own reads of the checkpoint cost the warm boot.
 The line before the last lists the kernels as JSON; the last line is the
 result as JSON. Exits non-zero without a CUDA card.
 """
@@ -139,6 +151,82 @@ PROMPT_LENS = (256, 1024)
 # the resume phase: run A's steps, run B's steps before its save, and the
 # disk its checkpoint needs (params, mu, nu in fp32: 40.84 GB, with room)
 RESUME_STEPS, RESUME_SAVE_AT, RESUME_DISK_BYTES = 6, 3, 45e9
+# the boot phase: the launchers' runs, each in a process of its own, and
+# the longest one may take (a cold full-width training boot with its save)
+BOOT_TRAIN_ARGS = ["--full", "--arch", QWEN, "--nodes", "1", "--batch",
+                   str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+                   "--ckpt-every", "2"]
+BOOT_SERVE_ARGS = ["--full", "--arch", MAMBA, "--nodes", "1"]
+BOOT_CHILD_TIMEOUT_S = 420
+# the control for the warm training boot: a fresh process that loads the
+# boot's kernel library and resumes its checkpoint as train_loop does, as
+# the warm launcher does after the runtime, but without the runtime and
+# its own reads of the checkpoint; part by part, then a second step.
+# argv: workdir, library directory, arch, batch, sequence length
+RESUME_ALONE = """
+import sys, time
+from pathlib import Path
+import torch
+from repro_torch.ckpt.checkpoint import Checkpointer
+from repro_torch.configs import get_config
+from repro_torch.data.loader import Loader
+from repro_torch.data.synthetic import SyntheticStream
+from repro_torch.dfs.hdfs import HdfsCluster
+from repro_torch.kernels import build
+from repro_torch.launch.boot import init_card, report_restore
+from repro_torch.models.model import Model
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, tree_map
+from repro_torch.train.step import loss_and_grads, make_train_step
+root, lib, arch = Path(sys.argv[1]), Path(sys.argv[2]), sys.argv[3]
+batch, seq = int(sys.argv[4]), int(sys.argv[5])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+build.build(directory=lib)
+init_card(torch.device("cuda"))
+ck = Checkpointer(HdfsCluster(root / "hdfs", num_groups=8,
+                              block_size=1 << 20), width=8)
+step = ck.latest_step()
+print(f"resuming params/opt from step {step}", flush=True)
+marks = [("start", time.perf_counter())]
+
+def mark(name):
+    torch.cuda.synchronize()
+    marks.append((name, time.perf_counter()))
+
+# train_loop's resume, part by part
+model = Model(get_config(arch), device="cuda")
+params = model.init_like(dtype=getattr(torch, model.cfg.param_dtype))
+opt = adamw_init(params)
+mark("schema")
+params, tail = ck.restore_planned(step, params, opt, async_tail=True,
+                                  device=model.device)
+mark("wave 0")
+(opt,) = tail.result()
+mark("tail")
+cfg = AdamWConfig()
+loader = Loader(SyntheticStream(model.cfg.vocab_size, 0), batch, seq,
+                model.device)
+data = loader(step)
+mark("batch")
+grads = tree_map(torch.zeros_like, params)
+mark("first step: gradient buffers")
+loss, _ = loss_and_grads(model, params, data, grads)
+mark("forward and backward")
+params, opt, _ = adamw_update(params, grads, opt, cfg, lr=cfg.lr)
+del grads
+print(f"step {step:5d}  loss {float(loss):.4f}", flush=True)
+mark("AdamW")
+params, opt, m = make_train_step(model, cfg)(params, opt, loader(step + 1))
+print(f"step {step + 1:5d}  loss {float(m['loss']):.4f}", flush=True)
+mark("second step")
+report_restore(ck.timings)
+print("parts: " + ", ".join(f"{b[0]} {b[1] - a[1]:.2f}s"
+                            for a, b in zip(marks, marks[1:])), flush=True)
+print(f"first step: {marks[-2][1] - marks[-5][1]:.2f}s", flush=True)
+"""
+# the flash backward's time beside SDPA's backward: rounds of one timing
+# each, alternating, and their medians
+YARDSTICK_ROUNDS = 7
 # (name, B, S, Hq, Hkv, D, window, causal) of the flash backward's checks:
 # the training shape (qwen2.5-3b's heads at B = 2, S = 2048), then its edges
 BWD_CASES = [("train", TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128, 0, True),
@@ -427,17 +515,28 @@ def phase_flash_bwd_kernels(card: str) -> tuple[dict, dict]:
     _, b, s, hq, hkv, d, window, causal = cases[0]
     q, k, v, do = (randn(b, s, h, d) for h in (hq, hkv, hkv, hq))
     _, lse = flash_attention(q, k, v, return_lse=True)
-    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, lse, do), iters=20)
+    # the kernel and SDPA's backward timed in turn, round by round, so
+    # that a change in the host or the card's clocks during the call
+    # moves both: the medians are the table's numbers
+    leaves, o_lib = sdpa(q, k, v, causal, window)
+    do_t = do.transpose(1, 2)
+    rounds = [(cuda_ms(lambda: flash_attention_bwd(q, k, v, lse, do),
+                       iters=10),
+               cuda_ms(lambda: torch.autograd.grad(
+                   o_lib, leaves, do_t, retain_graph=True), iters=10))
+              for _ in range(YARDSTICK_ROUNDS)]
+    ms = statistics.median(r[0] for r in rounds)
+    library_ms = statistics.median(r[1] for r in rounds)
+    say("kernels", f"flash_attention_bwd train, kernel / SDPA backward in "
+        f"{YARDSTICK_ROUNDS} alternating rounds of 10 calls: "
+        f"{', '.join(f'{a:.4f}/{b:.4f}' for a, b in rounds)} ms; medians "
+        f"{ms:.4f} / {library_ms:.4f} ms, on {card}")
     det_ms = cuda_ms(lambda: flash_attention_bwd_deterministic(
         q, k, v, lse, do), iters=20)
     fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True),
                      iters=20)
     plain_ms = cuda_ms(lambda: attention_backward_reference(
         *heads_first(q, k, v, do)), iters=3, warmup=1)
-    leaves, o_lib = sdpa(q, k, v, causal, window)
-    do_t = do.transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        o_lib, leaves, do_t, retain_graph=True), iters=20)
     pairs = unmasked_pairs(s, s, causal, window)
     bound_ms, bound_by = attention_bwd_bound(b, hq, hkv, s, d, pairs)
     tflops = 10 * d * pairs * b * hq / ms / 1e9
@@ -1100,23 +1199,234 @@ def phase_resume(card: str) -> int:
     return counts["flash_attention_bwd_deterministic"]
 
 
+
+def run_launcher(tag: str, args: list[str]) -> dict:
+    """Runs ``python -u args`` (PYTHONPATH=src) as a fresh process,
+    echoing its output and the time since the launch at which each line
+    arrived; kills it after BOOT_CHILD_TIMEOUT_S. Returns its exit code,
+    its lines with their arrival times, and its ``boot:``, ``boot-end:``
+    and ``kernels:`` lines parsed."""
+    import threading
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-u", *args],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(BOOT_CHILD_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            lines.append((time.perf_counter() - t0, line))
+            say("boot", f"  {tag} {lines[-1][0]:7.2f}s | {line}")
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = {"rc": rc, "lines": lines, "wall_s": time.perf_counter() - t0}
+    for t, line in lines:
+        for key in ("boot", "boot-end"):
+            if line.startswith(key + ": "):
+                out[key] = json.loads(line[len(key) + 2:])
+                out[key + "_at"] = t
+        if line.startswith("kernels: "):
+            out["sha256"] = line.rsplit(" ", 1)[-1]
+            out["library_dir"] = line.split(" loaded from ")[1].split(" in ")[0]
+            out["kernels_at"] = t
+    return out
+
+
+def first_line(run: dict, prefix: str) -> tuple[float, str] | None:
+    return next(((t, line) for t, line in run["lines"]
+                 if line.startswith(prefix)), None)
+
+
+def report_boot(tag: str, run: dict, first: tuple[float, str] | None,
+                what: str, card: str) -> None:
+    """One boot's stages, critical path, scheduler bytes and walls."""
+    b, end = run["boot"], run["boot-end"]
+    io = {res: end["io_bytes"].get(res, {}) for res in ("dfs", "registry",
+                                                        "peer")}
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in b["stages_s"].items())
+    say("boot", f"{tag}: runtime stages (slowest node) {stages}, total_s "
+        f"{b['total_s']:.3f} s; critical path {' -> '.join(b['critical_path'])}"
+        f" (tasks {', '.join(f'{k} {v:.3f}' for k, v in b['tasks_s'].items())}"
+        f" s); prefetch_used {b['prefetch_used']}; nvcc in env.install "
+        f"{b['nvcc_builds']}, after the runtime "
+        f"{end['nvcc_builds'][len(b['nvcc_builds']):]}, on {card}")
+    say("boot", f"{tag}: I/O scheduler bytes, CRITICAL / DEFERRED: "
+        + "; ".join(f"{res} {v.get('critical', 0)} / {v.get('deferred', 0)}"
+                    for res, v in io.items())
+        + f" (after drain_deferred; at the TRAINING mark dfs "
+        f"{b['io_bytes'].get('dfs', {}).get('critical', 0)} / "
+        f"{b['io_bytes'].get('dfs', {}).get('deferred', 0)})")
+    t_main = first_line(run, "launcher:")[0]
+    t_start = first_line(run, "== startup")[0]
+    t_total = run["boot_at"]
+    t_lib = run.get("kernels_at", t_total)
+    say("boot", f"{tag}: wall from the launch: {t_main:.2f} s to the "
+        f"launcher's first line (the interpreter, imports), {t_start:.2f} s "
+        f"to the runtime's start (registry, image, DFS, checkpoint "
+        f"lookup), runtime {b['total_s']:.2f}"
+        f" s, TRAINING mark at {t_total:.2f} s; then the library loaded at "
+        f"{t_lib:.2f} s; {what} at {first[0]:.2f} s ({first[0] - t_lib:.2f}"
+        f" s after the library: model, restore onto the card, the first "
+        f"{'step' if 'step' in what else 'prefill'}); exit at "
+        f"{run['wall_s']:.2f} s, on {card}")
+
+
+def phase_boot(card: str) -> None:
+    """The launchers booting through the BootSeer runtime, cold and warm,
+    each in a fresh process at full width."""
+    import torch
+    free_card()
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build_dir).free
+    if free < RESUME_DISK_BYTES:
+        fail("boot", f"{free / 1e9:.1f} GB free under {build_dir}, the "
+             f"training boot's checkpoint needs "
+             f"{RESUME_DISK_BYTES / 1e9:.0f} GB")
+    say("boot", f"this process holds {torch.cuda.memory_reserved() / 1e9:.2f}"
+        f" GB of the card; the launchers run as fresh processes")
+    train_dir = Path(tempfile.mkdtemp(prefix="boot-train-", dir=build_dir))
+    serve_dir = Path(tempfile.mkdtemp(prefix="boot-serve-", dir=build_dir))
+    try:
+        runs = {}
+        for tag, steps in (("train cold", 2), ("train warm", 1)):
+            runs[tag] = run_launcher(
+                tag, ["-m", "repro_torch.launch.train", *BOOT_TRAIN_ARGS,
+                      "--steps", str(steps), "--workdir", str(train_dir)])
+        lib = train_dir / "rt" / runs["train warm"].get("library_dir", "")
+        control = run_launcher(
+            "resume alone", ["-c", RESUME_ALONE, str(train_dir), str(lib),
+                             QWEN, str(TRAIN_BATCH), str(TRAIN_SEQ)])
+        for tag in ("serve cold", "serve warm"):
+            runs[tag] = run_launcher(
+                tag, ["-m", "repro_torch.launch.serve", *BOOT_SERVE_ARGS,
+                      "--workdir", str(serve_dir)])
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    for tag, run in runs.items():
+        if run["rc"] != 0 or "boot" not in run or "boot-end" not in run:
+            fail("boot", f"{tag}: exit code {run['rc']}, see its lines above")
+    if control["rc"] != 0 or first_line(control, "first step") is None:
+        fail("boot", f"resume alone: exit code {control['rc']}")
+
+    problems = []
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            problems.append(what)
+
+    for kind in ("train", "serve"):
+        cold, warm = runs[f"{kind} cold"], runs[f"{kind} warm"]
+        gate(cold["boot"]["prefetch_used"] is False,
+             f"{kind} cold: prefetch_used")
+        gate(warm["boot"]["prefetch_used"] is True,
+             f"{kind} warm: no prefetch")
+        gate(len(cold["boot"]["nvcc_builds"]) == 1
+             and cold["boot-end"]["nvcc_builds"] == cold["boot"]["nvcc_builds"],
+             f"{kind} cold: nvcc did not run exactly once, inside env.install")
+        gate(warm["boot-end"]["nvcc_builds"] == [],
+             f"{kind} warm: nvcc ran")
+        gate(cold.get("sha256") is not None
+             and warm.get("sha256") == cold.get("sha256"),
+             f"{kind} warm: the library differs from the cold run's")
+    cold, warm = runs["train cold"], runs["train warm"]
+    saved = first_line(cold, "  checkpoint @ step 2 (full")
+    gate(saved is not None, "train cold: step 2 not saved")
+    gate(first_line(warm, "resuming params/opt from step 2") is not None,
+         "train warm: did not resume from step 2")
+    from repro_torch.configs import get_config
+    layers = get_config(QWEN).num_layers
+    ssd_layers = get_config(MAMBA).num_layers
+    launches = warm["boot-end"]["launches"]
+    gate(launches == {"flash_attention": 2 * layers,
+                      "flash_attention_bwd": layers,
+                      "flash_attention_bwd_deterministic": 0,
+                      "ssd_chunked_kernel": 0},
+         f"train warm: launches {launches}")
+    done = first_line(warm, "done: loss")
+    loss = float(done[1].split()[4]) if done else float("nan")
+    gate(math.isfinite(loss), f"train warm: loss {loss}")
+    for tag in ("serve cold", "serve warm"):
+        end = runs[tag]["boot-end"]
+        gate(end["launches"]["ssd_chunked_kernel"]
+             == ssd_layers * end["prefills"]
+             and sum(end["launches"].values())
+             == end["launches"]["ssd_chunked_kernel"],
+             f"{tag}: launches {end['launches']} over {end['prefills']} "
+             f"prefills, expected {ssd_layers} SSD launches each")
+        gate(first_line(runs[tag], "first token") is not None,
+             f"{tag}: no first token")
+    tokens = [runs[t]["boot-end"]["greedy_tokens"]
+              for t in ("serve cold", "serve warm")]
+    gate(tokens[0] == tokens[1] and all(tokens[0]),
+         f"serve: greedy tokens cold {tokens[0]} warm {tokens[1]}")
+
+    for tag, run in runs.items():
+        first = first_line(run, "step" if tag.startswith("train")
+                           else "first token")
+        report_boot(tag, run, first, "first step ended" if
+                    tag.startswith("train") else "first token", card)
+    # what the warm boot's reads of the checkpoint cost the restore beside
+    # them: from "resuming" to the first step, against the control's
+    spans = {}
+    for tag, run in (("warm boot", warm), ("resume alone", control)):
+        t_resume = first_line(run, "resuming params/opt")[0]
+        t_step = first_line(run, "step")[0]
+        spans[tag] = t_step - t_resume
+        parts = "; ".join((first_line(run, p) or (0, f"no {p} line"))[1]
+                          for p in ("card:", "restore:", "first step:",
+                                    "parts:"))
+        say("boot", f"{tag}: {t_step - t_resume:.2f} s from 'resuming' to "
+            f"the first step ended; {parts}; on {card}")
+    say("boot", f"the runtime's reads of the checkpoint beside the restore "
+        f"cost {spans['warm boot'] - spans['resume alone']:.2f} s of the "
+        f"warm boot's time to its first step, on {card}")
+    say("boot", f"train cold: {saved[1].strip() if saved else 'no save'}; "
+        f"train warm: {done[1] if done else 'no done line'}; launches "
+        f"{launches}; library sha256 {warm.get('sha256')} in both; serve "
+        f"greedy tokens equal cold/warm: {tokens[0] == tokens[1]}")
+    if problems:
+        fail("boot", "; ".join(problems))
+    say("boot", "ok")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card",
               file=sys.stderr)
         return 1
-    card = phase_device()
-    phase_build()
-    flash, ssd = phase_kernels(card), phase_ssd_kernels(card)
-    flash_bwd, flash_bwd_det = phase_flash_bwd_kernels(card)
-    phase_small_reference(card, QWEN)
-    phase_small_reference(card, MAMBA)
-    flash["launches"] = phase_serve(card, QWEN, "flash_attention")
-    ssd["launches"] = phase_serve(card, MAMBA, "ssd")
-    phase_small_train_reference(card)
-    flash_bwd["launches"] = phase_train(card)
-    flash_bwd_det["launches"] = phase_resume(card)
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        out = fn(*args)
+        say("time", f"{name} ended {time.perf_counter() - t0:.1f} s after "
+            "the start")
+        return out
+
+    card = timed("device", phase_device)
+    timed("build", phase_build)
+    flash = timed("kernels flash", phase_kernels, card)
+    ssd = timed("kernels ssd", phase_ssd_kernels, card)
+    flash_bwd, flash_bwd_det = timed("kernels flash_bwd",
+                                     phase_flash_bwd_kernels, card)
+    timed("reference qwen", phase_small_reference, card, QWEN)
+    timed("reference mamba", phase_small_reference, card, MAMBA)
+    flash["launches"] = timed("serve qwen", phase_serve, card, QWEN,
+                              "flash_attention")
+    ssd["launches"] = timed("serve mamba", phase_serve, card, MAMBA, "ssd")
+    timed("reference train", phase_small_train_reference, card)
+    flash_bwd["launches"] = timed("train", phase_train, card)
+    flash_bwd_det["launches"] = timed("resume", phase_resume, card)
+    timed("boot", phase_boot, card)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, flash_bwd_det]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

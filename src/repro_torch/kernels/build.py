@@ -2,12 +2,15 @@
 
 Each ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``, all
 started together, and the objects are linked into
-``<repo>/build/repro_torch/libkernels-<hash>.so``, where the hash covers the
-sources and the flags, so a changed source never loads a stale library.
-The library has a plain C interface and is loaded with ``ctypes``: no
-PyTorch headers are compiled, which keeps the build to seconds. It links
-only the CUDA runtime; the flash kernel reaches the driver's
-``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``.
+``libkernels-<hash>.so`` in ``<repo>/build/repro_torch/`` or in the
+directory the caller names, where the hash covers the sources and the
+flags, so a changed source never loads a stale library. The launchers
+build into the job's environment (``JobSpec.env_setup``), so BootSeer's
+env cache snapshots the library and a warm restart restores it instead of
+running ``nvcc``. The library has a plain C interface and is loaded with
+``ctypes``: no PyTorch headers are compiled, which keeps the build to
+seconds. It links only the CUDA runtime; the flash kernel reaches the
+CUDA driver's ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine that has no ``nvcc``.
@@ -20,6 +23,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from collections import namedtuple
 from pathlib import Path
 
@@ -31,6 +36,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the loaded library, its path, and what ptxas said while building it
 KernelLibrary = namedtuple("KernelLibrary", ["lib", "path", "ptxas_log"])
 _loaded: KernelLibrary | None = None
+# every nvcc build this process ran: (library path, seconds)
+builds: list[tuple[Path, float]] = []
 
 
 class KernelBuildError(RuntimeError):
@@ -60,39 +67,57 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> KernelLibrary:
-    """Compile (unless this exact build exists) and load the kernels."""
+def compile_into(directory: str | Path) -> Path:
+    """The path of this source's library in ``directory``, compiled there
+    first unless it exists (its ptxas report beside it, ``.log``)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    target = directory / f"libkernels-{source_hash()}.so"
+    if target.exists():
+        return target
+    t0 = time.perf_counter()
+    # written aside and renamed: a concurrent loader never sees a
+    # half-written library
+    tmp = target.with_name(
+        f".{target.name}.{os.getpid()}.{threading.get_ident()}")
+    nvcc = find_nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    cmds = [[nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o",
+             str(obj)] for src, obj in zip(srcs, objs)]
+    cmds.append([nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o",
+                 str(tmp)])
+    log = ""
+    for batch in (cmds[:-1], cmds[-1:]):  # the sources, then the link
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in batch]
+        outs = [proc.communicate()[0] for proc in procs]
+        log += "".join(outs)
+        for cmd, proc, out in zip(batch, procs, outs):
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed:\n$ {' '.join(cmd)}\n{out}")
+    for obj in objs:
+        obj.unlink()
+    target.with_suffix(".log").write_text(log)
+    os.replace(tmp, target)
+    builds.append((target, time.perf_counter() - t0))
+    return target
+
+
+def build(directory: str | Path | None = None) -> KernelLibrary:
+    """Load the kernels, compiling them into ``directory`` (by default
+    ``BUILD_DIR``) unless this exact build exists there. The first load
+    wins for the process: without ``directory`` a loaded library is
+    returned as it is, and with one the library is still compiled there
+    if absent, then the loaded one returned."""
     global _loaded
+    if _loaded is not None and directory is None:
+        return _loaded
+    target = compile_into(BUILD_DIR if directory is None else directory)
     if _loaded is None:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        target = BUILD_DIR / f"libkernels-{source_hash()}.so"
         log_path = target.with_suffix(".log")
-        if not target.exists():
-            # written aside and renamed: a concurrent loader never sees a
-            # half-written library
-            tmp = target.with_name(f".{target.name}.{os.getpid()}")
-            nvcc = find_nvcc()
-            srcs = sorted(CSRC.glob("*.cu"))
-            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
-            cmds = [[nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o",
-                     str(obj)] for src, obj in zip(srcs, objs)]
-            cmds.append([nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o",
-                         str(tmp)])
-            log = ""
-            for batch in (cmds[:-1], cmds[-1:]):  # the sources, then the link
-                procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True)
-                         for c in batch]
-                outs = [proc.communicate()[0] for proc in procs]
-                log += "".join(outs)
-                for cmd, proc, out in zip(batch, procs, outs):
-                    if proc.returncode != 0:
-                        raise KernelBuildError(
-                            f"nvcc failed:\n$ {' '.join(cmd)}\n{out}")
-            for obj in objs:
-                obj.unlink()
-            log_path.write_text(log)
-            os.replace(tmp, target)
         ptxas = log_path.read_text() if log_path.exists() else ""
         _loaded = KernelLibrary(ctypes.CDLL(str(target)), target, ptxas)
     return _loaded

@@ -13,8 +13,7 @@ to 2e-4 (fp32 arithmetic in another order, as tests/test_torch_train.py).
 """
 
 import dataclasses
-import threading
-from contextlib import contextmanager
+import json
 from pathlib import Path
 
 import jax
@@ -22,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_io_witness
 from jax.sharding import AxisType, PartitionSpec
 
 from repro.ckpt import plan as jplan
@@ -41,7 +41,7 @@ from repro_torch.ckpt import plan
 from repro_torch.ckpt.checkpoint import Checkpointer, flat_with_names
 from repro_torch.ckpt.index import TensorIndex
 from repro_torch.configs import get_config, reduced
-from repro_torch.core.pipeline import CRITICAL, DEFERRED, IOScheduler
+from repro_torch.core.pipeline import CRITICAL, IOScheduler
 from repro_torch.dfs.hdfs import HdfsCluster
 from repro_torch.dfs.striped import StripedReader, StripeMissingError
 from repro_torch.fabric.placement import Placement
@@ -537,88 +537,11 @@ def test_serve_cli_seeds_and_serves_its_checkpoint(tmp_path, capsys):
 
 # ------------------------------------------------- the I/O guardrail ---
 
-class IoWitness:
-    """Bytes read through the port's ``HdfsCluster`` (``pread`` and the raw
-    group-file handles of striped files), each attributed to the "dfs"
-    slot its thread holds at the time (None: outside any slot)."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.local = threading.local()
-        self.read = {}          # priority or None -> bytes
-
-    def held(self):
-        stack = getattr(self.local, "stack", [])
-        return stack[-1] if stack else None
-
-    def count(self, nbytes: int):
-        with self.lock:
-            key = self.held()
-            self.read[key] = self.read.get(key, 0) + nbytes
-
-    def check(self, critical: int, deferred: int):
-        """Every byte read inside a dfs slot, at the stated priorities."""
-        assert self.read.get(None, 0) == 0, (
-            f"{self.read[None]} bytes read outside any dfs slot")
-        want = {p: n for p, n in ((CRITICAL, critical), (DEFERRED, deferred))
-                if n}
-        assert self.read == want, self.read
-
-
-class _Handle:
-    def __init__(self, f, witness):
-        self._f, self._w = f, witness
-
-    def read(self, *args):
-        data = self._f.read(*args)
-        self._w.count(len(data))
-        return data
-
-    def readinto(self, buf):
-        n = self._f.readinto(buf)
-        self._w.count(int(n or 0))
-        return n
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self._f.close()
-
-    def __getattr__(self, name):
-        return getattr(self._f, name)
-
-
 @pytest.fixture
 def io_witness(monkeypatch):
-    w = IoWitness()
-    real_slot = IOScheduler.slot
-    real_pread = HdfsCluster.pread
-    real_open = HdfsCluster.open_group_file
-
-    @contextmanager
-    def slot(self, resource, *, priority=CRITICAL, nbytes=0):
-        with real_slot(self, resource, priority=priority, nbytes=nbytes):
-            stack = w.local.__dict__.setdefault("stack", [])
-            stack.append(priority if resource == "dfs" else None)
-            try:
-                yield
-            finally:
-                stack.pop()
-
-    def pread(self, path, offset, length):
-        data = real_pread(self, path, offset, length)
-        w.count(len(data))
-        return data
-
-    def open_group_file(self, group, name, mode="rb"):
-        f = real_open(self, group, name, mode)
-        return _Handle(f, w) if "r" in mode else f
-
-    monkeypatch.setattr(IOScheduler, "slot", slot)
-    monkeypatch.setattr(HdfsCluster, "pread", pread)
-    monkeypatch.setattr(HdfsCluster, "open_group_file", open_group_file)
-    return w
+    """Bytes read through the port's ``HdfsCluster``, each attributed to
+    the "dfs" slot its thread holds at the time (tests/torch_io_witness.py)."""
+    return torch_io_witness.install(monkeypatch)
 
 
 @pytest.mark.parametrize("async_tail", [False, True])
@@ -661,11 +584,16 @@ def test_the_witness_catches_an_unscheduled_read(tmp_path, fp32_pair,
 
 
 def test_lint_finds_nothing_new_in_the_port():
-    """The lock-order and I/O-discipline lint over the port: one expected
-    finding, the copy of the reference's own suppressed one (the plain
-    reader's ``priority`` is accepted for signature parity and not
-    forwarded: a plain file is read whole under the caller's slot)."""
+    """The lock-order and I/O-discipline lint over the port: its findings
+    are exactly the copies of the reference's reviewed, suppressed ones
+    (analysis_baseline.json): the plain reader's ``priority``, accepted
+    for signature parity and not forwarded (a plain file is read whole
+    under the caller's slot), and three intentional singleflights that
+    block same-key callers under a per-key lock."""
     from repro.analysis.cli import run_analysis
     report = run_analysis(roots=[ROOT / "src" / "repro_torch"])
-    assert {(f.check, f.function) for f in report.findings} == {
-        ("io-priority-drop", "repro_torch.dfs.striped:pread_many_fallback")}
+    reviewed = json.loads(
+        (ROOT / "analysis_baseline.json").read_text())["suppressions"]
+    assert {(f.check, f.function, f.detail) for f in report.findings} == {
+        (r["check"], r["function"].replace("repro.", "repro_torch.", 1),
+         r["detail"]) for r in reviewed}
