@@ -14,7 +14,9 @@ Phases, one line or more each; any failure exits non-zero:
      flash backward also the difference between two calls on the same
      inputs (its sums across blocks are atomic) and its kernels' device
      times from torch.profiler; its deterministic path too, bit-equal
-     across two calls.
+     across two calls. The SSD backward: all six gradients against
+     autograd of the plain version at the training shape and its edges,
+     two calls bit-equal, its workspace, time and bound.
   4. reference: tiny qwen2.5-3b and tiny mamba2-370m in bf16 on the card
      against the plain CPU path.
   5. serve, once per model: qwen2.5-3b (36 layers) and mamba2-370m (48
@@ -23,15 +25,17 @@ Phases, one line or more each; any failure exits non-zero:
      prefill ran through its kernel; prefill(S) is held against
      prefill(S-1) + decode_step; torch.profiler splits one prefill and
      four decode steps into device busy and idle time.
-  6. reference train: one AdamW step of tiny qwen2.5-3b (bf16 over fp32
-     masters) on the card against the plain CPU path: loss, gradient norm
-     and every gradient leaf.
+  6. reference train: one AdamW step of tiny qwen2.5-3b and of tiny
+     mamba2-370m (bf16 over fp32 masters) on the card against the plain
+     CPU path: loss, gradient norm and every gradient leaf.
   7. train: qwen2.5-3b at full width (fp32 masters, bf16 compute, remat)
      takes 8 AdamW steps on the synthetic stream at B = 2, S = 2048; the
      loss must fall, every step must launch the forward flash kernel 72
      times (36 layers, forward and recompute) and the backward 36 times,
      and peak memory stay under 80 GB; step time, tokens/s, model FLOPs
-     utilisation and a torch.profiler split of one step.
+     utilisation and a torch.profiler split of one step. Then mamba2-370m
+     the same way at B = 8, S = 2048: 96 SSD forward launches a step (48
+     layers, forward and recompute) and 48 backward, no flash launch.
   8. resume, under torch.use_deterministic_algorithms(True): qwen2.5-3b at
      full width trains 6 steps (run A), then anew 3 steps, saves a striped
      checkpoint of params and AdamW state (40.84 GB) into build/, frees the
@@ -145,6 +149,8 @@ TRAIN_LOSS_RTOL = 1e-2
 
 QWEN, MAMBA = "qwen2.5-3b", "mamba2-370m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 8, 3e-4
+# each arch's training batch at TRAIN_SEQ: qwen2.5-3b's fits 80 GB at 2
+TRAIN_BATCHES = {QWEN: TRAIN_BATCH, MAMBA: 8}
 CARD_BYTES = 80e9
 BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
 PROMPT_LENS = (256, 1024)
@@ -235,6 +241,13 @@ BWD_CASES = [("train", TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128, 0, True),
              ("d64", 2, 512, 8, 2, 64, 0, True),
              ("noncausal", 2, 1000, 16, 2, 128, 0, False),
              ("group1", 2, 512, 4, 4, 128, 0, True)]
+# (name, B, S, H, P, G, N) of the SSD backward's checks: mamba2-370m's
+# training shape, then a ragged S, two groups, P = 32 with N = 16, N = 64
+SSD_BWD_CASES = [("train", TRAIN_BATCHES[MAMBA], TRAIN_SEQ, 32, 64, 1, 128),
+                 ("ragged", 2, 1000, 32, 64, 1, 128),
+                 ("grouped", 2, 512, 8, 64, 2, 128),
+                 ("p32n16", 2, 300, 8, 32, 1, 16),
+                 ("n64", 2, 260, 8, 64, 2, 64)]
 
 
 def say(phase: str, msg: str) -> None:
@@ -321,6 +334,32 @@ def ssd_bound(b: int, s: int, h: int, p: int, g: int, n: int, *,
     nbytes = (2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * g * n
               + 4 * b * h * p * n)
     ops_ms = 1e3 * ssd_flops(b, s, h, p, g, n) / peak_flops
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def ssd_bwd_flops(b: int, s: int, h: int, p: int, g: int, n: int) -> int:
+    """The SSD backward's least work, reckoned as ``ssd_flops``: per
+    (batch, group, tile) the triangle of C . B^T (recomputed), 2 N per
+    pair; per (batch, head, tile) the triangles of dy . x^T and M^T dy (2 P
+    per pair each) and of the dB and dC sums (2 N each); per token and head
+    five [P, N] products, 2 N P each: the state recomputed, S_in^T dy,
+    dS_out B, dS_out^T x and the state gradient's update."""
+    from repro_torch.kernels.ssd import TILE
+    tiles = -(-s // TILE)
+    pairs = TILE * (TILE + 1) // 2
+    return (b * g * tiles * pairs * 2 * n
+            + b * h * tiles * pairs * (4 * p + 4 * n) + b * h * s * 10 * n * p)
+
+
+def ssd_bwd_bound(b: int, s: int, h: int, p: int, g: int, n: int, *,
+                  peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """Least time (ms) for the SSD backward at ``peak_flops``, and what
+    sets it: ``ssd_bwd_flops``, or one read of x, dy, B, C, dt and one
+    write of dx, dB, dC, ddt (bf16 except dt and ddt; dA, dD are [H])."""
+    nbytes = 3 * 2 * b * s * h * p + 4 * 2 * b * s * g * n + 2 * 4 * b * s * h
+    ops_ms = 1e3 * ssd_bwd_flops(b, s, h, p, g, n) / peak_flops
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -595,6 +634,20 @@ def ssd_inputs(gen, b: int, s: int, h: int, p: int, g: int, n: int):
     return x, dt, A, B, C, D
 
 
+def ssd_train_inputs(gen, b: int, s: int, h: int, p: int, g: int, n: int):
+    """``ssd_inputs`` with dt and A drawn as the model initialises them
+    (dt log-uniform in [1e-3, 1e-1], A = -U[1, 16]): decays from ~1 to
+    ~e^-50 over a tile of 32, so the state carried between tiles, and its
+    gradient, move every output. Under ``ssd_inputs``' dt a tile decays by
+    ~e^-30, and a fault in what crosses tiles would hide."""
+    import torch
+    x, _, _, B, C, D = ssd_inputs(gen, b, s, h, p, g, n)
+    u = torch.rand((b, s, h), generator=gen, device="cuda")
+    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    A = -(1 + 15 * torch.rand((h,), generator=gen, device="cuda"))
+    return x, dt, A, B, C, D
+
+
 def phase_ssd_kernels(card: str) -> dict:
     import torch
     from repro_torch.configs import get_config
@@ -656,15 +709,84 @@ def phase_ssd_kernels(card: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def phase_ssd_bwd_kernels(card: str) -> dict:
+    """The SSD backward against autograd of the plain version at the
+    training shape and its edges, two calls bit-equal; its workspace, its
+    time beside the plain version's and its bound. Returns its kernels-line
+    entry."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import row_rel_err, ssd_backward_reference
+    from repro_torch.kernels.ssd import (ssd_bwd_workspace_bytes,
+                                         ssd_chunked_bwd_kernel)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    chunk = get_config(MAMBA).ssm.chunk_size
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    worst, failed = 0.0, []
+    for name, b, s, h, p, g, n in SSD_BWD_CASES:
+        args = ssd_train_inputs(gen, b, s, h, p, g, n)
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda").bfloat16()
+        got = [ssd_chunked_bwd_kernel(*args, dy) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(*got))
+        refs = ssd_backward_reference(*args, dy, chunk=chunk)
+        errs = [row_rel_err(x, r, floor=GRAD_ROW_FLOOR)
+                for x, r in zip(got[0], refs)]
+        worst = max([worst] + [(x.float() - r).abs().max().item()
+                               for x, r in zip(got[0], refs)])
+        ok = same and all(math.isfinite(e) and e <= GRAD_ROW_RTOL
+                          for e in errs)
+        if not ok:
+            failed.append(name)
+        say("kernels", f"ssd_bwd {name} B={b} S={s} H={h} P={p} G={g} N={n}:"
+            " worst row rel L2 err " + ", ".join(
+                f"{k} {e:.3e}" for k, e in zip(names, errs))
+            + f" (tol {GRAD_ROW_RTOL}, floor {GRAD_ROW_FLOOR} x median); two "
+            f"calls bit-equal: {same} {'ok' if ok else 'FAIL'}")
+        del args, dy, got, refs
+    if failed:
+        fail("kernels", f"ssd_chunked_bwd_kernel disagrees with plain: "
+             f"{failed}")
+
+    _, b, s, h, p, g, n = SSD_BWD_CASES[0]
+    args = ssd_train_inputs(gen, b, s, h, p, g, n)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").bfloat16()
+    ws = ssd_bwd_workspace_bytes(b, s, h, p, n)
+    ms = cuda_ms(lambda: ssd_chunked_bwd_kernel(*args, dy), iters=10)
+    plain_ms = cuda_ms(lambda: ssd_backward_reference(*args, dy, chunk=chunk),
+                       iters=2, warmup=1)
+    bound_ms, bound_by = ssd_bwd_bound(b, s, h, p, g, n)
+    fp32_ms, fp32_by = ssd_bwd_bound(b, s, h, p, g, n,
+                                     peak_flops=PEAK_FP32_FLOPS)
+    flops = ssd_bwd_flops(b, s, h, p, g, n)
+    say("kernels", f"ssd_bwd train: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s of {flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, "
+        f"library: none, bound {bound_ms:.4f} ms ({bound_by}, bf16 tensor "
+        f"cores; {100 * bound_ms / ms:.1f}% reached), fp32 CUDA-core bound "
+        f"(the kernel's arithmetic) {fp32_ms:.4f} ms ({fp32_by}, "
+        f"{100 * fp32_ms / ms:.1f}% reached); workspace {ws} bytes "
+        f"({ws / 1e9:.3f} GB: both states per tile, dB/dC per head), on "
+        f"{card}")
+    profile_window("ssd_bwd train", lambda: ssd_chunked_bwd_kernel(*args, dy),
+                   card, share_of="ssd_bwd")
+    return {"name": "ssd_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:37", "launches": None,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper, by the name the kernels line gives it."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
-    from repro_torch.kernels.ssd import ssd_chunked_kernel
+    from repro_torch.kernels.ssd import ssd_chunked_bwd_kernel, ssd_chunked_kernel
     return {"flash_attention": flash_attention, "ssd": ssd_chunked_kernel,
             "flash_attention_bwd": flash_attention_bwd,
             "flash_attention_bwd_deterministic":
-                flash_attention_bwd_deterministic}
+                flash_attention_bwd_deterministic,
+            "ssd_bwd": ssd_chunked_bwd_kernel}
 
 
 def phase_serve(card: str, arch: str, kernel: str) -> int:
@@ -880,8 +1002,8 @@ def phase_small_reference(card: str, arch: str) -> None:
         fail("reference", "the card disagrees with the CPU path")
 
 
-def phase_small_train_reference(card: str) -> None:
-    """One train step of tiny qwen2.5-3b, bf16 over fp32 masters, on the
+def phase_small_train_reference(card: str, arch: str) -> None:
+    """One train step of tiny ``arch``, bf16 over fp32 masters, on the
     card against the plain CPU path (which the CPU tests hold against the
     JAX package's train step): the loss, the gradient norm and each
     gradient leaf. The parameters after the step are not compared: Adam's
@@ -897,7 +1019,7 @@ def phase_small_train_reference(card: str) -> None:
                                          tree_map)
     from repro_torch.train.step import loss_and_grads, make_train_step
 
-    cfg = get_tiny(QWEN)
+    cfg = get_tiny(arch)
     models = {"cpu": Model(cfg, device="cpu"), "cuda": Model(cfg, device="cuda")}
     p_cpu = models["cpu"].init(torch.Generator().manual_seed(0),
                                dtype=torch.float32)
@@ -924,7 +1046,7 @@ def phase_small_train_reference(card: str) -> None:
            for k in ("loss", "grad_norm")}
     ok = (math.isfinite(worst) and worst <= TRAIN_GRAD_ROW_RTOL
           and all(r <= TRAIN_LOSS_RTOL for r in rel.values()))
-    say("reference", f"tiny {QWEN} train step, bf16 over fp32 masters, card "
+    say("reference", f"tiny {arch} train step, bf16 over fp32 masters, card "
         f"vs CPU plain path: loss {m_gpu['loss']:.5f} vs {m_cpu['loss']:.5f}"
         f" (rel {rel['loss']:.2e}), grad_norm {m_gpu['grad_norm']:.5f} vs "
         f"{m_cpu['grad_norm']:.5f} (rel {rel['grad_norm']:.2e}; tol "
@@ -935,9 +1057,10 @@ def phase_small_train_reference(card: str) -> None:
         fail("reference", "the card's train step disagrees with the CPU path")
 
 
-def phase_train(card: str) -> int:
-    """qwen2.5-3b at full width takes TRAIN_STEPS AdamW steps; returns the
-    backward kernel's launches over the run."""
+def phase_train(card: str, arch: str) -> int:
+    """``arch`` at full width takes TRAIN_STEPS AdamW steps at
+    TRAIN_BATCHES[arch] x TRAIN_SEQ; returns its backward kernel's launches
+    over the run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.loader import Loader
@@ -946,27 +1069,32 @@ def phase_train(card: str) -> int:
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import init_train_state, make_train_step
 
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(QWEN)
+    cfg = get_config(arch)
+    batch_size = TRAIN_BATCHES[arch]
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda")
     state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
     params, opt = state.params, state.opt
     torch.cuda.synchronize()
     n_params = model.count_params()
-    say("train", f"{QWEN}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    say("train", f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params, fp32 masters + AdamW mu/nu "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, compute {cfg.dtype}, "
         f"remat {model.remat}; init {time.perf_counter() - t0:.1f} s")
-    loader = Loader(SyntheticStream(cfg.vocab_size, 0), TRAIN_BATCH, TRAIN_SEQ,
+    loader = Loader(SyntheticStream(cfg.vocab_size, 0), batch_size, TRAIN_SEQ,
                     "cuda")
     step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
     counters = launch_counters()
-    want = {"flash_attention": 2 * cfg.num_layers,
-            "flash_attention_bwd": cfg.num_layers, "ssd": 0,
-            "flash_attention_bwd_deterministic": 0}
+    want = dict.fromkeys(counters, 0)
+    if cfg.arch_type == "ssm":   # forward and remat recompute, backward
+        want.update(ssd=2 * cfg.num_layers, ssd_bwd=cfg.num_layers)
+        bwd, share_of = "ssd_bwd", "ssd"
+    else:
+        want.update(flash_attention=2 * cfg.num_layers,
+                    flash_attention_bwd=cfg.num_layers)
+        bwd, share_of = "flash_attention_bwd", "flash_bwd"
     losses, gnorms, times, total = [], [], [], dict.fromkeys(counters, 0)
     torch.cuda.reset_peak_memory_stats()
     for step in range(TRAIN_STEPS):
@@ -980,14 +1108,14 @@ def phase_train(card: str) -> int:
         times.append(time.perf_counter() - t0)
         counts = {name: fn.launches for name, fn in counters.items()}
         if counts != want:
-            fail("train", f"step {step}: kernel launches {counts}, expected "
-                 f"{want} ({cfg.num_layers} layers: forward + remat "
-                 "recompute, backward)")
+            fail("train", f"{arch} step {step}: kernel launches {counts}, "
+                 f"expected {want} ({cfg.num_layers} layers: forward + "
+                 "remat recompute, backward)")
         for name, n in counts.items():
             total[name] += n
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
-        say("train", f"step {step}: loss {losses[-1]:.4f}, grad_norm "
+        say("train", f"{arch} step {step}: loss {losses[-1]:.4f}, grad_norm "
             f"{gnorms[-1]:.3f}, {1e3 * times[-1]:.1f} ms, launches {counts}")
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses + gnorms):
@@ -997,25 +1125,37 @@ def phase_train(card: str) -> int:
     if not peak < CARD_BYTES:
         fail("train", f"peak memory {peak / 1e9:.2f} GB exceeds the card's 80 GB")
     step_s = statistics.median(times[2:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * TRAIN_SEQ
     n_matmul = n_params - cfg.vocab_size * cfg.d_model  # all but the embedding
-    attn = 3.5 * cfg.num_layers * attention_flops(
-        TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, cfg.head_dim)
-    flops = 6 * n_matmul * tokens + attn
-    say("train", f"{TRAIN_STEPS} steps B={TRAIN_BATCH} S={TRAIN_SEQ}: loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}; median step (steps 3-"
+    if cfg.arch_type == "ssm":
+        s_cfg = cfg.ssm
+        heads = s_cfg.expand * cfg.d_model // s_cfg.head_dim
+        shape = (batch_size, TRAIN_SEQ, heads, s_cfg.head_dim, s_cfg.ngroups,
+                 s_cfg.state_dim)
+        extra = (cfg.num_layers * (ssd_flops(*shape) + ssd_bwd_flops(*shape)),
+                 "the SSD's own, forward + backward, in no MFU")
+        model_flops = 6 * n_matmul * tokens
+    else:
+        attn = 3.5 * cfg.num_layers * attention_flops(
+            batch_size, cfg.num_heads, TRAIN_SEQ, cfg.head_dim)
+        extra = (attn, "attention, in the MFU")
+        model_flops = 6 * n_matmul * tokens + attn
+    say("train", f"{arch}: {TRAIN_STEPS} steps B={batch_size} S={TRAIN_SEQ}: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step (steps 3-"
         f"{TRAIN_STEPS}) {1e3 * step_s:.1f} ms (all: "
         f"{', '.join(f'{1e3 * t:.1f}' for t in times)}), {tokens / step_s:.0f}"
-        f" tokens/s, model FLOPs {flops / 1e12:.1f} T per step (6 N T, N = "
-        f"{n_matmul / 1e9:.3f} B outside the embedding, + attention "
-        f"{attn / 1e12:.2f} T; remat's recompute not counted) = "
-        f"{100 * flops / step_s / PEAK_BF16_FLOPS:.1f}% MFU of 989 TFLOP/s; "
-        f"peak memory {peak / 1e9:.2f} GB; launches over the run {total}, on "
-        f"{card}")
-    profile_window(f"{QWEN} train step", lambda: step_fn(params, opt,
+        f" tokens/s, model FLOPs {model_flops / 1e12:.2f} T per step (6 N T, "
+        f"N = {n_matmul / 1e9:.3f} B outside the embedding; {extra[1]} "
+        f"{extra[0] / 1e12:.2f} T; remat's recompute not counted) = "
+        f"{100 * model_flops / step_s / PEAK_BF16_FLOPS:.1f}% MFU of 989 "
+        f"TFLOP/s; peak memory {peak / 1e9:.2f} GB; launches over the run "
+        f"{total}, on {card}")
+    profile_window(f"{arch} train step", lambda: step_fn(params, opt,
                                                          loader(TRAIN_STEPS)),
-                   card, grad=True, share_of="flash_bwd", top=14)
-    return total["flash_attention_bwd"]
+                   card, grad=True, share_of=share_of, top=14)
+    del params, opt, state, step_fn
+    free_card()
+    return total[bwd]
 
 
 def fingerprints(*trees) -> list[tuple[str, int, int]]:
@@ -1349,7 +1489,7 @@ def phase_boot(card: str) -> None:
     gate(launches == {"flash_attention": 2 * layers,
                       "flash_attention_bwd": layers,
                       "flash_attention_bwd_deterministic": 0,
-                      "ssd_chunked_kernel": 0},
+                      "ssd_chunked_kernel": 0, "ssd_chunked_bwd_kernel": 0},
          f"train warm: launches {launches}")
     done = first_line(warm, "done: loss")
     loss = float(done[1].split()[4]) if done else float("nan")
@@ -1416,6 +1556,7 @@ def main() -> int:
     timed("build", phase_build)
     flash = timed("kernels flash", phase_kernels, card)
     ssd = timed("kernels ssd", phase_ssd_kernels, card)
+    ssd_bwd = timed("kernels ssd_bwd", phase_ssd_bwd_kernels, card)
     flash_bwd, flash_bwd_det = timed("kernels flash_bwd",
                                      phase_flash_bwd_kernels, card)
     timed("reference qwen", phase_small_reference, card, QWEN)
@@ -1423,11 +1564,14 @@ def main() -> int:
     flash["launches"] = timed("serve qwen", phase_serve, card, QWEN,
                               "flash_attention")
     ssd["launches"] = timed("serve mamba", phase_serve, card, MAMBA, "ssd")
-    timed("reference train", phase_small_train_reference, card)
-    flash_bwd["launches"] = timed("train", phase_train, card)
+    timed("reference train qwen", phase_small_train_reference, card, QWEN)
+    timed("reference train mamba", phase_small_train_reference, card, MAMBA)
+    flash_bwd["launches"] = timed("train qwen", phase_train, card, QWEN)
+    ssd_bwd["launches"] = timed("train mamba", phase_train, card, MAMBA)
     flash_bwd_det["launches"] = timed("resume", phase_resume, card)
     timed("boot", phase_boot, card)
-    print(json.dumps({"kernels": [flash, ssd, flash_bwd, flash_bwd_det]}),
+    print(json.dumps({"kernels": [flash, ssd, flash_bwd, flash_bwd_det,
+                                  ssd_bwd]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,9 @@
 # EXPR one sed expression. Each copy goes to build/variants/NAME (git-ignored)
 # with src/ and chip_smoke.py; all copies build at once, then each runs
 # chip_smoke.py's device and build phases and the kernel phases of FILE
-# (ssd.cu: the SSD phase; flash_attention.cu: the forward's and the
-# backward's, which checks the forward's LSE; flash_attention_bwd.cu: the
-# backward's), one after another. Prints per variant the changed lines,
+# (ssd.cu: the SSD phase; ssd_bwd.cu: the SSD backward's;
+# flash_attention.cu: the forward's and the backward's, which checks the
+# forward's LSE; flash_attention_bwd.cu: the backward's), one after another. Prints per variant the changed lines,
 # ptxas's lines for that kernel at D = 128 or the serving shape, the
 # phases' [kernels] lines and their exit code (a planted fault must give 1).
 set -u
@@ -36,6 +36,8 @@ for name in "${names[@]}"; do
   d=build/variants/$name
   case "$(cat "$d/FILE")" in
     ssd.cu) phases="c.phase_ssd_kernels(card)"; kernel=ssd_fwd_kernelILi64ELi128 ;;
+    ssd_bwd.cu)
+      phases="c.phase_ssd_bwd_kernels(card)"; kernel=ssd_bwd_grad_kernelILi64ELi128 ;;
     flash_attention.cu)
       phases="c.phase_kernels(card); c.phase_flash_bwd_kernels(card)"
       kernel=flash_fwd_kernelILi128 ;;

@@ -4,10 +4,9 @@ A tensor on the CPU goes to the plain version, through which autograd
 differentiates; a CUDA tensor goes to the hand-written kernel, which raises
 on anything it cannot take. No path falls back from the kernel to the
 plain version, and no kernel output that needs a gradient lacks one: on
-the card attention differentiates through the backward kernel, and the
-SSD scan, which has none yet, refuses inputs that require a gradient.
-Launch configurations are fixed inside the kernels for now; per-shape
-tuning is a later slice.
+the card attention and the SSD scan differentiate through their backward
+kernels. Launch configurations are fixed inside the kernels for now;
+per-shape tuning is a later slice.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ import torch
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
 from repro_torch.kernels.ref import attention_reference, ssd_chunked_reference
-from repro_torch.kernels.ssd import ssd_chunked_kernel
+from repro_torch.kernels.ssd import ssd_chunked_bwd_kernel, ssd_chunked_kernel
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -59,6 +58,31 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
+class _SSDScan(torch.autograd.Function):
+    """The forward kernel, its inputs saved, and the backward kernel: the
+    counterpart of ``jax.grad`` through the JAX model's ``ssd_chunked``,
+    bit-identical from call to call as that is. The final state's gradient
+    is not computed (the train path drops the state): a caller whose loss
+    reaches the state gets an error, not a gradient without that part."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D):
+        y, state = ssd_chunked_kernel(x, dt, A, B, C, D)
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        if dstate is not None:
+            raise NotImplementedError(
+                "ssd_op: the SSD backward kernel takes no gradient of the "
+                "final state; drop the state, or differentiate on the CPU")
+        if dy is None:
+            return (None,) * 6
+        return ssd_chunked_bwd_kernel(*ctx.saved_tensors, dy.contiguous())
+
+
 def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *, chunk: int):
     """Model layout: x [B, S, H, P], dt [B, S, H], A/D [H], B/C [B, S, G, N]
@@ -69,8 +93,5 @@ def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_chunked_reference(x, dt, A, B, C, D, chunk=chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B, C, D)):
-        raise NotImplementedError(
-            "ssd_op: the SSD kernel has no backward yet (ROADMAP.md A.3), "
-            "so its output would carry no gradient; run it under "
-            "torch.no_grad() or on the CPU")
+        return _SSDScan.apply(x, dt, A, B, C, D)
     return ssd_chunked_kernel(x, dt, A, B, C, D)

@@ -6,7 +6,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.ssd import TILE
 from repro_torch.models import ssm
 
 NEG_INF = -1e30
@@ -81,6 +83,101 @@ def ssd_chunked_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A, D [H]; B/C [B, S, G, N]. Returns (y in x's dtype, fp32 final state
     [B, H, P, N])."""
     return ssm.ssd_chunked(x, dt, A, B, C, D, chunk=chunk, return_state=True)
+
+
+def ssd_backward_reference(x: torch.Tensor, dt: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           D: torch.Tensor, dy: torch.Tensor, *,
+                           chunk: int = 256):
+    """The SSD backward kernel's plain version: (dx, ddt, dA, dB, dC, dD) of
+    ``ssd_chunked_reference``'s y for the output gradient ``dy`` (x's
+    shape), by ``torch.autograd`` in fp32 from the given (bf16) inputs. The
+    final state's gradient is not an input: the train path drops the
+    state. Returns fp32 tensors in the inputs' shapes."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_()
+                  for t in (x, dt, A, B, C, D)]
+        y, _ = ssd_chunked_reference(*leaves, chunk=chunk)
+        return torch.autograd.grad(y, leaves, dy.float())
+
+
+def ssd_backward_tiles(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                       dy: torch.Tensor, *, tile: int = TILE):
+    """The SSD backward kernel's algorithm (``csrc/ssd_bwd.cu``) in fp32
+    torch, at its tile size: per tile the local state and state-gradient
+    contributions, a forward walk over the tiles for the state entering
+    each and a reverse walk for the state gradient leaving each, then each
+    tile's gradients from those two and its own inputs, and the per-head
+    dB / dC summed over each group's heads. What the kernel computes, in
+    the kernel's formulas; the order of its fp32 sums is not repeated.
+    Shapes and returns as ``ssd_backward_reference``."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hg = h // g
+    pad = -s % tile
+    nt = (s + pad) // tile
+
+    def tiles(t):  # [b, s, ...] -> [b, nt, tile, ...] fp32, zeros past S
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(b, nt, tile, *t.shape[2:])
+
+    xt, dyt, dtt = tiles(x), tiles(dy), tiles(dt)
+    Bt = tiles(B).repeat_interleave(hg, dim=3)  # [b, nt, L, h, n]
+    Ct = tiles(C).repeat_interleave(hg, dim=3)
+    A, D = A.float(), D.float()
+    cs = torch.cumsum(dtt * A, dim=2)                  # [b, nt, L, h]
+    cs_last = cs[:, :, -1]                              # [b, nt, h]
+    ecs = torch.exp(cs)
+    wl = torch.exp(cs_last[:, :, None] - cs) * dtt      # exp(cs_L - cs_j) dt_j
+
+    # the local contributions, then the two walks over the tiles
+    s_loc = torch.einsum("btlh,btlhp,btlhn->bthpn", wl, xt, Bt)
+    d_loc = torch.einsum("btlh,btlhp,btlhn->bthpn", ecs, dyt, Ct)
+    decay = torch.exp(cs_last)[..., None, None]         # [b, nt, h, 1, 1]
+    s_in, ds_out = [None] * nt, [None] * nt
+    carry = torch.zeros((b, h, p, n))
+    for t in range(nt):
+        s_in[t] = carry
+        carry = decay[:, t] * carry + s_loc[:, t]
+    carry = torch.zeros((b, h, p, n))
+    for t in reversed(range(nt)):
+        ds_out[t] = carry
+        carry = decay[:, t] * carry + d_loc[:, t]
+    s_in, ds_out = torch.stack(s_in, 1), torch.stack(ds_out, 1)
+
+    # each tile's gradients; exp(cs_i - cs_j) only on and below the diagonal
+    lower = torch.tril(torch.ones((tile, tile), dtype=torch.bool))
+    diff = cs.transpose(2, 3)[..., :, None] - cs.transpose(2, 3)[..., None, :]
+    w = torch.exp(torch.where(lower, diff, float("-inf")))   # [b, nt, h, i, j]
+    G = torch.einsum("btihn,btjhn->bthij", Ct, Bt)
+    q = torch.einsum("btihp,btjhp->bthij", dyt, xt)
+    dt_j = dtt.transpose(2, 3)[..., None, :]
+    M, Q, Fm = G * w * dt_j, q * w * dt_j, G * w * q
+    U = torch.einsum("bthpn,btihp->btihn", s_in, dyt)        # S_in^T dy_i
+    dsb = torch.einsum("bthpn,btjhn->btjhp", ds_out, Bt)     # dS_out B_j
+    dsx = torch.einsum("bthpn,btjhp->btjhn", ds_out, xt)     # dS_out^T x_j
+    dx = (torch.einsum("bthij,btihp->btjhp", M, dyt) + wl[..., None] * dsb
+          + D[:, None] * dyt)
+    dBh = torch.einsum("bthij,btihn->btjhn", Q, Ct) + wl[..., None] * dsx
+    dCh = torch.einsum("bthij,btjhn->btihn", Q, Bt) + ecs[..., None] * U
+    v = (xt * dsb).sum(-1)                                   # [b, nt, L, h]
+    col_f = Fm.sum(3).transpose(2, 3)                        # sum over i
+    row_e = (Fm * dt_j).sum(4).transpose(2, 3)               # sum over j
+    dcs = row_e - dtt * col_f + ecs * (Ct * U).sum(-1) - wl * v
+    dcs[:, :, -1] += (torch.exp(cs_last) * (ds_out * s_in).sum((-1, -2))
+                      + (wl * v).sum(2))
+    da = dcs.flip(2).cumsum(2).flip(2)                       # sum over k >= j
+    ddt = A * da + col_f + torch.exp(cs_last[:, :, None] - cs) * v
+    dA = (dtt * da).sum((0, 1, 2))
+    dD = (dyt * xt).sum((0, 1, 2, 4))
+
+    def untile(t):
+        return t.reshape(b, nt * tile, *t.shape[3:])[:, :s]
+
+    dB = untile(dBh).reshape(b, s, g, hg, n).sum(3)
+    dC = untile(dCh).reshape(b, s, g, hg, n).sum(3)
+    return untile(dx), untile(ddt), dA, dB, dC, dD
 
 
 def row_rel_err(out: torch.Tensor, ref: torch.Tensor, *,

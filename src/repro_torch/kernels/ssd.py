@@ -1,17 +1,25 @@
-"""Hand-written CUDA SSD chunked scan for Hopper, and its launcher.
+"""Hand-written CUDA SSD chunked scan for Hopper, forward and backward,
+and their launchers.
 
-Replaces the Pallas TPU kernel ``_ssd_kernel`` / ``ssd_chunked_kernel`` of
-``src/repro/kernels/ssd.py``. The kernel is ``csrc/ssd.cu``; its header
-says what bounds it on the H100, what its design does about that and its
-error budget. In short: all four products run on tensor cores in bf16,
-each fp32 operand split into a bf16 hi and lo part, over tiles of
-``TILE`` positions loaded ahead with ``cp.async``. Its plain version is
-``repro_torch.kernels.ref.ssd_chunked_reference``.
+The forward replaces the Pallas TPU kernel ``_ssd_kernel`` /
+``ssd_chunked_kernel`` of ``src/repro/kernels/ssd.py``. The kernel is
+``csrc/ssd.cu``; its header says what bounds it on the H100, what its
+design does about that and its error budget. In short: all four products
+run on tensor cores in bf16, each fp32 operand split into a bf16 hi and lo
+part, over tiles of ``TILE`` positions loaded ahead with ``cp.async``. Its
+plain version is ``repro_torch.kernels.ref.ssd_chunked_reference``.
 
-Unlike the Pallas wrapper this one takes the model layout ``[B, S, H, P]``
-/ ``[B, S, G, N]`` and hands the kernel strides, so nothing is transposed
-or padded; the kernel walks the sequence in its own tiles, so there is no
-``chunk`` argument. It launches on CUDA tensors only and never falls back.
+The backward (``csrc/ssd_bwd.cu``) had no TPU kernel: it replaces
+``jax.grad`` of the JAX model's ``ssd_chunked``. It computes the same
+tiles' gradients chunk-parallel in fp32 and sums across blocks in a fixed
+order, so two calls give the same bits. Its plain version is
+``repro_torch.kernels.ref.ssd_backward_reference``; its algorithm, in
+torch, ``ssd_backward_tiles``.
+
+Unlike the Pallas wrapper these take the model layout ``[B, S, H, P]`` /
+``[B, S, G, N]`` and hand the kernels strides, so nothing is transposed or
+padded; the kernels walk the sequence in their own tiles, so there is no
+``chunk`` argument. They launch on CUDA tensors only and never fall back.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ _MAX_GRID_YZ = 65535
 
 _Strides = ctypes.c_longlong * 3
 _bound = None
+_bwd_bound = None
 
 
 def _entry():
@@ -44,51 +53,73 @@ def _entry():
     return _bound
 
 
-def _check(x, dt, A, B, C, D) -> None:
-    named = (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C), ("D", D))
+def _bwd_entry():
+    """(the backward's entry point, its workspace size in bytes)."""
+    global _bwd_bound
+    if _bwd_bound is None:
+        lib = build.build().lib
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ptr = ctypes.POINTER(ctypes.c_longlong)
+        fn = lib.repro_ssd_chunked_bwd_bf16
+        fn.argtypes = [p] * 14 + [i] * 6 + [ptr] * 5 + [p]
+        fn.restype = ctypes.c_int
+        ws = lib.repro_ssd_chunked_bwd_workspace_bytes
+        ws.argtypes = [i] * 5
+        ws.restype = ctypes.c_longlong
+        _bwd_bound = fn, ws
+    return _bwd_bound
+
+
+def _check(who, x, dt, A, B, C, D, dy=None) -> None:
+    named = [("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C), ("D", D)]
+    wide = [("x", x), ("B", B), ("C", C)]
+    if dy is not None:
+        named.append(("dy", dy))
+        wide.append(("dy", dy))
     for name, t in named:
         if t.device.type != "cuda":
-            raise ValueError(f"ssd_chunked_kernel: {name} is on {t.device}, "
-                             "the kernel runs on CUDA tensors only")
+            raise ValueError(f"{who}: {name} is on {t.device}, the kernel "
+                             "runs on CUDA tensors only")
         if t.device != x.device:
-            raise ValueError("ssd_chunked_kernel: inputs on different devices")
-    for name, t in (("x", x), ("B", B), ("C", C)):
+            raise ValueError(f"{who}: inputs on different devices")
+    for name, t in wide:
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"ssd_chunked_kernel: {name} is {t.dtype}; the "
-                            "kernel takes bfloat16")
-        # the kernel copies 16-byte vectors along the last axis
+            raise TypeError(f"{who}: {name} is {t.dtype}; the kernel takes "
+                            "bfloat16")
+        # the kernels read 16-byte vectors along the last axis
         if (t.dim() != 4 or t.stride(-1) != 1
                 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16):
-            raise ValueError(f"ssd_chunked_kernel: {name} must be 4-d with a "
-                             "unit last stride, other strides a multiple of "
-                             "8 and a 16-byte aligned base, got "
+            raise ValueError(f"{who}: {name} must be 4-d with a unit last "
+                             "stride, other strides a multiple of 8 and a "
+                             "16-byte aligned base, got "
                              f"{tuple(t.shape)} strides {t.stride()}")
     for name, t in (("dt", dt), ("A", A), ("D", D)):
         if t.dtype != torch.float32:
-            raise TypeError(f"ssd_chunked_kernel: {name} is {t.dtype}; the "
-                            "kernel takes float32")
+            raise TypeError(f"{who}: {name} is {t.dtype}; the kernel takes "
+                            "float32")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if (dt.shape != (b, s, h) or B.shape != C.shape
-            or B.shape[:2] != (b, s) or A.shape != (h,) or D.shape != (h,)):
+            or B.shape[:2] != (b, s) or A.shape != (h,) or D.shape != (h,)
+            or (dy is not None and dy.shape != x.shape)):
         raise ValueError(
-            f"ssd_chunked_kernel: shapes x {tuple(x.shape)}, dt "
-            f"{tuple(dt.shape)}, A {tuple(A.shape)}, B {tuple(B.shape)}, C "
-            f"{tuple(C.shape)}, D {tuple(D.shape)} disagree")
+            f"{who}: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+            f"{tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, D "
+            f"{tuple(D.shape)}"
+            + ("" if dy is None else f", dy {tuple(dy.shape)}")
+            + " disagree")
     if not (A.is_contiguous() and D.is_contiguous()):
-        raise ValueError("ssd_chunked_kernel: A and D must be contiguous")
+        raise ValueError(f"{who}: A and D must be contiguous")
     if s < 1 or g < 1 or h % g:
-        raise ValueError(f"ssd_chunked_kernel: S = {s}, {g} groups for {h} "
-                         "heads")
+        raise ValueError(f"{who}: S = {s}, {g} groups for {h} heads")
     if p not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"ssd_chunked_kernel: head_dim {p} not in "
-                         f"{SUPPORTED_HEAD_DIMS}")
+        raise ValueError(f"{who}: head_dim {p} not in {SUPPORTED_HEAD_DIMS}")
     if n not in SUPPORTED_STATE_DIMS:
-        raise ValueError(f"ssd_chunked_kernel: state_dim {n} not in "
+        raise ValueError(f"{who}: state_dim {n} not in "
                          f"{SUPPORTED_STATE_DIMS}")
     if h > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
-        raise ValueError(f"ssd_chunked_kernel: H = {h}, B = {b} exceed the "
-                         f"grid's {_MAX_GRID_YZ}")
+        raise ValueError(f"{who}: H = {h}, B = {b} exceed the grid's "
+                         f"{_MAX_GRID_YZ}")
 
 
 def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -96,7 +127,7 @@ def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x [B, S, H, P] bf16; dt [B, S, H] fp32 (> 0); A [H] fp32 (< 0);
     B/C [B, S, G, N] bf16; D [H] fp32; all on one CUDA device.
     Returns (y [B, S, H, P] bf16, final_state [B, H, P, N] fp32)."""
-    _check(x, dt, A, B, C, D)
+    _check("ssd_chunked_kernel", x, dt, A, B, C, D)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -117,3 +148,48 @@ def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_chunked_kernel.launches = 0
+
+
+def ssd_bwd_workspace_bytes(b: int, s: int, h: int, p: int, n: int) -> int:
+    """The backward's fp32 scratch for these shapes, in bytes: the state
+    entering each tile and the state gradient leaving it ([B, H, S / TILE,
+    P, N] each), dB and dC per head, per-tile sums."""
+    return int(_bwd_entry()[1](b, s, h, p, n))
+
+
+def ssd_chunked_bwd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                           B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                           dy: torch.Tensor):
+    """The gradients of ``ssd_chunked_kernel``'s y for the output gradient
+    ``dy`` [B, S, H, P] bf16 (x's shape and layout rules), the inputs as
+    the forward's, all on one CUDA device; the final state's gradient is
+    taken as zero. Returns (dx [B, S, H, P] bf16, ddt [B, S, H] fp32,
+    dA [H] fp32, dB [B, S, G, N] bf16, dC [B, S, G, N] bf16, dD [H] fp32),
+    the same bits from call to call."""
+    _check("ssd_chunked_bwd_kernel", x, dt, A, B, C, D, dy)
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    dev = x.device
+    fn, workspace_bytes = _bwd_entry()
+    dx = torch.empty((b, s, h, p), dtype=torch.bfloat16, device=dev)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    dA = torch.empty((h,), dtype=torch.float32, device=dev)
+    dD = torch.empty((h,), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, g, n), dtype=torch.bfloat16, device=dev)
+    dC = torch.empty((b, s, g, n), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty((workspace_bytes(b, s, h, p, n) // 4,),
+                     dtype=torch.float32, device=dev)
+    strides = [_Strides(*t.stride()[:3]) for t in (x, dt, B, C, dy)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in (x, dt, A, B, C, D, dy, dx, ddt, dA,
+                                          dB, dC, dD, ws)),
+                 b, s, h, p, g, n, *strides, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunked_bwd_kernel: launch failed, "
+                           f"cudaError {err}")
+    ssd_chunked_bwd_kernel.launches += 1
+    return dx, ddt, dA, dB, dC, dD
+
+
+ssd_chunked_bwd_kernel.launches = 0

@@ -20,8 +20,10 @@ library: the cold boot's ``env.install`` builds it with nvcc, a warm boot
 restores it from the env cache, and the launcher loads it from node 0's
 environment before training (``repro_torch.launch.boot``). The model is
 the arch's reduced (tiny) variant, or with ``--full`` its published
-config, with fp32 master parameters drawn from seed 0; the port trains
-the dense family only. Every ``--full-every``-th save is full, the ones
+config, with fp32 master parameters drawn from seed 0: the dense family
+(attention through the flash kernels on the card) or the SSM family
+(``--arch mamba2-370m``: the SSD scan through its forward and backward
+kernels). Every ``--full-every``-th save is full, the ones
 between deltas. Without ``--workdir`` the job lives in a temporary
 directory that is deleted at exit.
 

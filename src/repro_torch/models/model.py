@@ -21,9 +21,9 @@ Three entry points, matching the reference's:
                    the SSM and conv states for Mamba2), returns last-token
                    fp32 logits;
   ``decode_step``  one new token against those caches, updated in place;
-  ``train_loss``   mean cross-entropy of full-sequence fp32 logits, dense
-                   family only, each layer recomputed in the backward pass
-                   (``remat``) as under the reference's ``Rules.remat``.
+  ``train_loss``   mean cross-entropy of full-sequence fp32 logits, each
+                   layer recomputed in the backward pass (``remat``) as
+                   under the reference's ``Rules.remat``.
 """
 
 from __future__ import annotations
@@ -139,8 +139,8 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: arch_type {cfg.arch_type!r}"
                 f"{' with MoE' if cfg.moe else ''} is not ported yet; the "
-                f"port serves {PORTED_ARCH_TYPES} without MoE only "
-                "(ROADMAP.md, queue A)")
+                f"port serves and trains {PORTED_ARCH_TYPES} without MoE "
+                "only (ROADMAP.md A.4 hybrid, A.5 MoE, A.6 frontends)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.dtype)
@@ -251,6 +251,8 @@ class Model:
 
     def _train_layer(self, p: dict, h: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
+        if self.cfg.arch_type == "ssm":
+            return self.mamba_sublayer(p, h, None, mode="train")
         return self._mlp(p, self._attention(p, h, positions)[0])
 
     def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -275,25 +277,29 @@ class Model:
         # unembed casts the table to the activations' dtype
         return table.to(self.compute_dtype).float()
 
-    def mamba_sublayer(self, p: dict, h: torch.Tensor, cache: dict, *,
-                       decode: bool) -> torch.Tensor:
-        """One Mamba2 block: the reference's ``mamba_sublayer``. ``cache``
-        holds this layer's views of the SSM caches; the prefill (``decode``
-        false, from zero states) and the one-token decode write the new
-        states into them in place. Returns h with the block's output added."""
+    def mamba_sublayer(self, p: dict, h: torch.Tensor, cache: dict | None,
+                       *, mode: str) -> torch.Tensor:
+        """One Mamba2 block: the reference's ``mamba_sublayer``. ``mode`` is
+        "train" (no caches: ``cache`` is None, the final state is dropped
+        and nothing is written), "prefill" (from zero states) or "decode"
+        (one token); the last two write the new states into ``cache``, this
+        layer's views of the SSM caches, in place. Each projection is cast
+        to h's dtype where it is used, as the reference casts it. Returns h
+        with the block's output added."""
         cfg, s_cfg = self.cfg, self.cfg.ssm
         b, s, d = h.shape
         di = s_cfg.expand * d
         nh, pd = di // s_cfg.head_dim, s_cfg.head_dim
         g, n = s_cfg.ngroups, s_cfg.state_dim
+        dtc = h.dtype
         a = L.rms_norm(h, p["norm"], cfg.norm_eps)
-        z = a @ p["z_proj"]
-        x = a @ p["x_proj"]
-        Bm = a @ p["B_proj"]
-        Cm = a @ p["C_proj"]
-        dtr = a @ p["dt_proj"]
+        z = a @ p["z_proj"].to(dtc)
+        x = a @ p["x_proj"].to(dtc)
+        Bm = a @ p["B_proj"].to(dtc)
+        Cm = a @ p["C_proj"].to(dtc)
+        dtr = a @ p["dt_proj"].to(dtc)
         A = -torch.exp(p["A_log"])
-        if not decode:
+        if mode in ("train", "prefill"):
             x, cx = ssm_lib.causal_conv(x, p["conv_x_w"], p["conv_x_b"])
             Bm, cb = ssm_lib.causal_conv(Bm, p["conv_B_w"], p["conv_B_b"])
             Cm, cc = ssm_lib.causal_conv(Cm, p["conv_C_w"], p["conv_C_b"])
@@ -302,7 +308,7 @@ class Model:
                               Bm.reshape(b, s, g, n), Cm.reshape(b, s, g, n),
                               p["ssm_D"], chunk=s_cfg.chunk_size)
             y = y.reshape(b, s, di)
-        else:
+        elif mode == "decode":
             x1, cx = ssm_lib.conv_decode_step(cache["conv_x"], x[:, 0],
                                               p["conv_x_w"], p["conv_x_b"])
             B1, cb = ssm_lib.conv_decode_step(cache["conv_B"], Bm[:, 0],
@@ -314,19 +320,20 @@ class Model:
                 cache["ssm"], x1.reshape(b, nh, pd), dt1, A,
                 B1.reshape(b, g, n), C1.reshape(b, g, n), p["ssm_D"])
             y = y1.reshape(b, 1, di)
-        for name, new in (("ssm", state), ("conv_x", cx), ("conv_B", cb),
-                          ("conv_C", cc)):
-            cache[name].copy_(new)
+        else:
+            raise ValueError(f"mamba_sublayer: mode {mode!r}")
+        if mode != "train":
+            for name, new in (("ssm", state), ("conv_x", cx), ("conv_B", cb),
+                              ("conv_C", cc)):
+                cache[name].copy_(new)
         gated = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-        return h + gated @ p["out_proj"]
+        return h + gated @ p["out_proj"].to(dtc)
 
     def _mamba_layers(self, params: dict, h: torch.Tensor, caches: dict, *,
-                      decode: bool) -> torch.Tensor:
-        layers = params["layers"]
-        for i in range(self.cfg.num_layers):
-            p = {name: t[i] for name, t in layers.items()}
+                      mode: str) -> torch.Tensor:
+        for i, p in enumerate(self._layer_params(params)):
             layer_cache = {name: t[i] for name, t in caches.items()}
-            h = self.mamba_sublayer(p, h, layer_cache, decode=decode)
+            h = self.mamba_sublayer(p, h, layer_cache, mode=mode)
         return h
 
     # ----- entry points -----
@@ -343,7 +350,7 @@ class Model:
         h = L.embed(tokens, params["embed"], self.compute_dtype)
         if cfg.arch_type == "ssm":
             caches = self.init_cache(b, cache_len)
-            h = self._mamba_layers(params, h, caches, decode=False)
+            h = self._mamba_layers(params, h, caches, mode="prefill")
             return self._logits(params, h[:, -1:], unembed)[:, 0], caches
         positions = torch.arange(s, device=self.device)
         w = self.cache_window(cache_len)
@@ -372,7 +379,7 @@ class Model:
         cfg = self.cfg
         h = L.embed(tokens.long(), params["embed"], self.compute_dtype)
         if cfg.arch_type == "ssm":
-            h = self._mamba_layers(params, h, caches, decode=True)
+            h = self._mamba_layers(params, h, caches, mode="decode")
             return self._logits(params, h, unembed)[:, 0], caches
         b = h.shape[0]
         positions = torch.tensor([pos], device=self.device)
@@ -405,11 +412,11 @@ class Model:
 
     def apply_layers(self, params: dict, h: torch.Tensor, *, mode: str,
                      positions: torch.Tensor):
-        """The dense layer stack over a whole sequence without caches, as
-        the reference's ``apply_layers(mode="train")``, with each layer
+        """The layer stack over a whole sequence without caches, as the
+        reference's ``apply_layers(mode="train")``, with each layer
         checkpointed when ``remat``. Returns (h, aux_mean): aux is 0 for
-        the dense family. ``prefill`` and ``decode_step`` run their own
-        loops, which write the caches."""
+        the families without MoE. ``prefill`` and ``decode_step`` run their
+        own loops, which write the caches."""
         if mode != "train":
             raise ValueError(f"apply_layers: mode {mode!r}; only 'train' runs "
                              "here (prefill and decode_step have their own "
@@ -428,14 +435,8 @@ class Model:
         fp32 logits of the whole sequence, as the reference's
         ``train_loss``. The masters are cast to the compute dtype where
         they are used, inside each (checkpointed) layer, so remat keeps no
-        copies of them. Dense family without MoE only, on every device."""
-        cfg = self.cfg
-        if cfg.arch_type != "dense" or cfg.moe:
-            raise NotImplementedError(
-                f"{cfg.name}: training is ported for the dense family "
-                f"without MoE only, not arch_type {cfg.arch_type!r}"
-                f"{' with MoE' if cfg.moe else ''} (ROADMAP.md A.4, A.5, "
-                "A.3)")
+        copies of them. The dense and SSM families without MoE (the
+        constructor refuses the others), on every device."""
         tokens = batch["tokens"].long()
         labels = batch["labels"].long()
         h = L.embed(tokens, params["embed"], self.compute_dtype)

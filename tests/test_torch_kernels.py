@@ -18,9 +18,13 @@ state (rows over N) to 1e-3. Both sides start from the same bf16 inputs;
 the kernel sums bf16 tensor-core products in fp32 with every fp32 operand
 split into a bf16 hi and lo part (~2^-16 relative per term; the error
 budget in csrc/ssd.cu), in tiles of 32 instead of chunks of 256, then
-both round y to bf16 (2^-9 relative per element).
+both round y to bf16 (2^-9 relative per element). The SSD backward: dx,
+ddt, dA, dB, dC and dD each to 2e-2 by the worst row, floored at 1% of the
+median row as the flash backward's; the kernel's products are fp32 on exact
+widened bf16 inputs, and dx, dB, dC are rounded once to bf16 (2^-9).
 """
 
+import math
 import shutil
 from pathlib import Path
 
@@ -36,8 +40,9 @@ from repro_torch.kernels.ops import attention_op, ssd_op
 from repro_torch.kernels.ref import (attention_backward_reference,
                                      attention_lse_reference,
                                      attention_reference, row_rel_err,
+                                     ssd_backward_reference,
                                      ssd_chunked_reference)
-from repro_torch.kernels.ssd import ssd_chunked_kernel
+from repro_torch.kernels.ssd import ssd_chunked_bwd_kernel, ssd_chunked_kernel
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import tree_map
 from repro_torch.train.step import loss_and_grads
@@ -135,7 +140,8 @@ def test_build_without_nvcc_raises():
 def test_source_hash_names_the_library():
     h = build.source_hash()
     assert len(h) == 16 and h == build.source_hash()
-    for name in ("flash_attention.cu", "flash_attention_bwd.cu", "ssd.cu"):
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu", "ssd.cu",
+                 "ssd_bwd.cu"):
         assert (build.CSRC / name).is_file()
 
 
@@ -496,13 +502,137 @@ def test_tiny_model_trains_through_the_kernels_on_card(cuda):
             assert err.item() <= 5e-2, name
 
 
+# (B, S, H, P, G, N) of the SSD backward: the training shape, a ragged S,
+# one position into a second tile, two groups, P = 32, N = 16 and 64
+SSD_BWD_SHAPES = [
+    (8, 2048, 32, 64, 1, 128),
+    (2, 1000, 32, 64, 1, 128),
+    (2, 33, 4, 64, 1, 128),
+    (2, 300, 8, 64, 2, 128),
+    (2, 256, 4, 32, 1, 16),
+    (2, 200, 8, 64, 2, 64),
+    (1, 130, 4, 32, 1, 64),
+]
+
+
+def _ssd_bwd_case(cuda, b, s, h, p, g, n, seed):
+    """_ssd_inputs with dt and A as the model draws them (dt log-uniform
+    in [1e-3, 1e-1], A = -U[1, 16]), so the state carried between tiles
+    matters, and an output gradient dy ~ N(0, 1) in bf16."""
+    x, _, _, B, C, D = _ssd_inputs(b, s, h, p, g, n, device=cuda, seed=seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    u = torch.rand((b, s, h), generator=gen, device=cuda)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    A = -(1 + 15 * torch.rand((h,), generator=gen, device=cuda))
+    dy = torch.randn((b, s, h, p), generator=gen, device=cuda).bfloat16()
+    return (x, dt, A, B, C, D), dy
+
+
+def test_ssd_bwd_kernel_refuses_cpu_tensors():
+    """No backward kernel runs on the CPU; there autograd differentiates
+    the plain version through ssd_op."""
+    args = _ssd_inputs(1, 40, 2, 32, 1, 16)
+    before = ssd_chunked_bwd_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunked_bwd_kernel(*args, args[0])
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, _ = ssd_op(*leaves, chunk=32)
+    y.float().sum().backward()
+    assert all(t.grad is not None for t in leaves)
+    assert ssd_chunked_bwd_kernel.launches == before
+
+
 @pytest.mark.gpu
-def test_ssd_op_refuses_inputs_that_need_a_gradient_on_card(cuda):
-    """The SSD kernel has no backward: its output would carry none."""
-    args = list(_ssd_inputs(1, 64, 2, 32, 1, 16, device=cuda))
-    args[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd_op(*args, chunk=32)
-    with torch.no_grad():
-        y, _ = ssd_op(*args, chunk=32)
-    assert y.shape == args[0].shape
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_BWD_SHAPES)
+def test_ssd_bwd_matches_plain_on_card(cuda, b, s, h, p, g, n):
+    """dx, ddt, dA, dB, dC, dD against autograd of the plain version in
+    fp32 from the same bf16 inputs, each by its worst row, floored."""
+    args, dy = _ssd_bwd_case(cuda, b, s, h, p, g, n, seed=s + h)
+    before = ssd_chunked_bwd_kernel.launches
+    got = ssd_chunked_bwd_kernel(*args, dy)
+    torch.cuda.synchronize()
+    assert ssd_chunked_bwd_kernel.launches == before + 1
+    refs = ssd_backward_reference(*args, dy, chunk=256)
+    for name, t, r, x in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                             refs, args):
+        assert t.shape == x.shape and t.dtype == x.dtype, name
+        assert row_rel_err(t, r, floor=GRAD_ROW_FLOOR) <= BF16_ROW_RTOL, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_BWD_SHAPES[1:4])
+def test_ssd_bwd_is_deterministic_on_card(cuda, b, s, h, p, g, n):
+    """Its sums across blocks run in a fixed order: two calls on the same
+    inputs give the same bits."""
+    args, dy = _ssd_bwd_case(cuda, b, s, h, p, g, n, seed=7)
+    first = ssd_chunked_bwd_kernel(*args, dy)
+    second = ssd_chunked_bwd_kernel(*args, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_ssd_op_differentiates_through_the_kernels_on_card(cuda):
+    """Under grad, ssd_op runs the forward kernel and autograd the
+    backward kernel, once each, with a non-contiguous output gradient; a
+    gradient reaching the final state raises rather than go missing."""
+    args, dy = _ssd_bwd_case(cuda, 2, 300, 8, 64, 2, 128, seed=3)
+    leaves = [t.detach().requires_grad_() for t in args]
+    before = ssd_chunked_kernel.launches, ssd_chunked_bwd_kernel.launches
+    y, state = ssd_op(*leaves, chunk=256)
+    dy_t = dy.transpose(0, 1).contiguous().transpose(0, 1)
+    torch.autograd.backward(y, dy_t)
+    torch.cuda.synchronize()
+    assert (ssd_chunked_kernel.launches, ssd_chunked_bwd_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    refs = ssd_backward_reference(*args, dy, chunk=256)
+    for leaf, r in zip(leaves, refs):
+        assert row_rel_err(leaf.grad, r, floor=GRAD_ROW_FLOOR) <= BF16_ROW_RTOL
+    y, state = ssd_op(*leaves, chunk=256)
+    with pytest.raises(NotImplementedError, match="final state"):
+        (y.float().sum() + state.sum()).backward()
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_rejects_what_it_cannot_take(cuda):
+    args, dy = _ssd_bwd_case(cuda, 1, 64, 2, 32, 1, 16, seed=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ssd_chunked_bwd_kernel(*args, dy.float())
+    with pytest.raises(ValueError, match="dy"):
+        ssd_chunked_bwd_kernel(*args, dy[:, :32])
+
+
+@pytest.mark.gpu
+def test_tiny_mamba_trains_through_the_kernels_on_card(cuda):
+    """Tiny mamba2-370m, bf16 compute over fp32 masters, with and without
+    remat: one SSD forward kernel per layer (two with remat) and one
+    backward kernel per layer; the loss and every gradient agree with the
+    CPU's plain path (bf16 on both sides, rounded in another order: 5e-2
+    by each leaf's relative L2 error)."""
+    cfg = get_tiny("mamba2-370m")
+    cpu = Model(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 101), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    g_cpu = tree_map(torch.zeros_like, p_cpu)
+    loss_cpu, _ = loss_and_grads(cpu, p_cpu, batch, g_cpu)
+    for remat in (True, False):
+        gpu = Model(cfg, device=cuda, remat=remat)
+        g_gpu = tree_map(torch.zeros_like, p_gpu)
+        before = ssd_chunked_kernel.launches, ssd_chunked_bwd_kernel.launches
+        loss, _ = loss_and_grads(gpu, p_gpu, tree_map(lambda t: t.to(cuda),
+                                                      batch), g_gpu)
+        torch.cuda.synchronize()
+        fwd = (2 if remat else 1) * cfg.num_layers
+        assert (ssd_chunked_kernel.launches - before[0],
+                ssd_chunked_bwd_kernel.launches - before[1]) == (
+                    fwd, cfg.num_layers)
+        assert abs(loss.item() - loss_cpu.item()) <= 5e-2 * loss_cpu.item()
+        for name in ("embed", "lm_head", "final_norm"):
+            ref = g_cpu[name]
+            assert ((g_gpu[name].cpu() - ref).norm() / ref.norm()).item() <= 5e-2
+        for name, ref in g_cpu["layers"].items():
+            err = (g_gpu["layers"][name].cpu() - ref).norm() / ref.norm()
+            assert err.item() <= 5e-2, name
