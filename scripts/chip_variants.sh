@@ -14,7 +14,8 @@
 # flash_attention.cu: the forward's and the backward's, which checks the
 # forward's LSE; flash_attention_bwd.cu: the backward's), one after another. Prints per variant the changed lines,
 # ptxas's lines for that kernel at D = 128 or the serving shape, the
-# phases' [kernels] lines and their exit code (a planted fault must give 1).
+# phases' [kernels] lines, the profiler's time per launch of the timed
+# kernels and their exit code (a planted fault must give 1).
 set -u
 cd "$(dirname "$0")/.."
 unset PYTHONPATH
@@ -37,7 +38,7 @@ for name in "${names[@]}"; do
   case "$(cat "$d/FILE")" in
     ssd.cu) phases="c.phase_ssd_kernels(card)"; kernel=ssd_fwd_kernelILi64ELi128 ;;
     ssd_bwd.cu)
-      phases="c.phase_ssd_bwd_kernels(card)"; kernel=ssd_bwd_grad_kernelILi64ELi128 ;;
+      phases="c.phase_ssd_bwd_kernels(card)"; kernel="ssd_bwd_[a-z]*_kernelILi64ELi128" ;;
     flash_attention.cu)
       phases="c.phase_kernels(card); c.phase_flash_bwd_kernels(card)"
       kernel=flash_fwd_kernelILi128 ;;
@@ -49,6 +50,7 @@ card = c.phase_device(); c.phase_build(); $phases" > run.log 2>&1)
   echo "== $name"
   grep -A2 "$kernel" "$d/build.log" | grep -E "spill|registers"
   grep -E "^\[kernels\]" "$d/run.log" | cut -c1-420
+  grep -E "^\[profile\].* \*[a-z_]*\* " "$d/run.log" | cut -c1-160
   grep -E "Error|error" "$d/run.log" | tail -3
   echo "== $name exit $rc"
 done

@@ -37,12 +37,14 @@ for fn in (flash_attention_bwd, flash_attention_bwd_deterministic):
 """
 
 
-def main(argv: list[str]) -> int:
+def main(argv: list[str], one: str = ONE) -> int:
+    """Runs the script ``one`` in a process of its own in each checkout of
+    ``argv`` (default: this repository); the first non-zero exit code."""
     roots = [Path(a) for a in argv] or [Path(__file__).resolve().parents[1]]
     rc = 0
     for root in roots:
         print(f"== {root}", flush=True)
-        proc = subprocess.run([sys.executable, "-c", ONE], cwd=root, timeout=600)
+        proc = subprocess.run([sys.executable, "-c", one], cwd=root, timeout=600)
         rc = rc or proc.returncode
     return rc
 

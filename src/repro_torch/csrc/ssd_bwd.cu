@@ -1,5 +1,6 @@
 // Mamba2 SSD chunked scan, backward, for Hopper (sm_90a): bf16 x/B/C/dy,
-// fp32 dt/A/D; fp32 arithmetic throughout; bf16 dx/dB/dC, fp32 ddt/dA/dD.
+// fp32 dt/A/D; bf16 tensor-core products accumulated in fp32, fp32 carries
+// and sums; bf16 dx/dB/dC, fp32 ddt/dA/dD.
 //
 // No TPU kernel had a backward: this replaces `jax.grad` of the pure-jnp
 // `ssd_chunked` (src/repro/models/ssm.py:37), the gradient of what the
@@ -8,18 +9,18 @@
 // inclusive cumulative sum of a_j = dt_j A, cs_L its last entry, S_in the
 // state entering the tile and dS_out the gradient of the state leaving it:
 //   G_ij = C_i . B_j,  q_ij = dy_i . x_j,  w_ij = exp(cs_i - cs_j)  (j <= i)
-//   dx_j  = sum_{i>=j} G_ij w_ij dt_j dy_i + exp(cs_L - cs_j) dt_j dS_out B_j
-//           + D dy_j
-//   dB_j  = sum_{i>=j} w_ij dt_j q_ij C_i + exp(cs_L - cs_j) dt_j dS_out^T x_j
-//   dC_i  = sum_{j<=i} w_ij dt_j q_ij B_j + exp(cs_i) S_in^T dy_i
-//   dcs_k = sum_j e_kj - sum_i e_ik + exp(cs_k) C_k . (S_in^T dy_k)
-//           - exp(cs_L - cs_k) dt_k v_k, e_ij = G_ij w_ij dt_j q_ij,
-//           v_k = x_k . (dS_out B_k); at k = kTile - 1 also
-//           exp(cs_L) <dS_out, S_in> + sum_j exp(cs_L - cs_j) dt_j v_j
-//   da_j  = sum_{k>=j} dcs_k;  ddt_j = A da_j + sum_{i>=j} G_ij w_ij q_ij
+//   M_ij = G_ij w_ij dt_j,  Q_ij = w_ij dt_j q_ij,  F_ij = G_ij w_ij q_ij
+//   dx_j  = sum_{i>=j} M_ij dy_i + exp(cs_L - cs_j) dt_j dS_out B_j + D dy_j
+//   dB_j  = sum_{i>=j} Q_ij C_i + exp(cs_L - cs_j) dt_j dS_out^T x_j
+//   dC_i  = sum_{j<=i} Q_ij B_j + exp(cs_i) S_in^T dy_i
+//   dcs_k = sum_j F_kj dt_j - dt_k sum_i F_ik + exp(cs_k) C_k . (S_in^T dy_k)
+//           - exp(cs_L - cs_k) dt_k v_k,  v_k = x_k . (dS_out B_k); at
+//           k = kTile - 1 also exp(cs_L) <dS_out, S_in>
+//           + sum_j exp(cs_L - cs_j) dt_j v_j
+//   da_j  = sum_{k>=j} dcs_k;  ddt_j = A da_j + sum_i F_ij
 //           + exp(cs_L - cs_j) v_j;  dA = sum dt_j da_j;  dD = sum dy . x
-//   dS_in = exp(cs_L) dS_out + sum_i exp(cs_i) dy_i C_i^T (the tile before's
-//           dS_out)
+//   S_in of the next tile  = exp(cs_L) S_in + sum_j exp(cs_L - cs_j) dt_j x_j B_j^T
+//   dS_out of the tile before = exp(cs_L) dS_out + sum_i exp(cs_i) dy_i C_i^T
 // dB and dC are summed over the heads of B's group, dA and dD over (batch,
 // position). The final state's gradient is not an input (the train path
 // drops the state), so the last tile's dS_out is zero. Positions at or
@@ -27,53 +28,88 @@
 // and nothing is written for them. exp(cs_i - cs_j) is formed only for
 // j <= i, where it is at most 1: above the diagonal it can overflow.
 //
-// Design: chunk-parallel, in five launches, deterministic (no atomics;
-// every sum has a fixed order, so two calls give the same bits):
-//   1. ssd_bwd_chunk_kernel, one block per (tile, head, batch): the tile's
-//      own contributions to the state, sum_j exp(cs_L - cs_j) dt_j x_j B_j^T,
-//      and to the state gradient, sum_i exp(cs_i) dy_i C_i^T, into a
-//      workspace [B, H, T, P, N] each, and exp(cs_L).
-//   2. ssd_bwd_scan_kernel, one thread per (batch, head, p, n): a forward
-//      walk over the tiles turns the first into the state entering each
-//      tile, a reverse walk the second into the gradient leaving each, in
-//      place.
-//   3. ssd_bwd_grad_kernel, one block per (tile, head, batch): everything
-//      above from the tile's inputs and its two states; dx and ddt to the
-//      outputs, dB/dC per head and dA/dD per tile into the workspace.
-//   4. ssd_bwd_group_sum_kernel: dB, dC summed over each group's heads in
-//      head order.
-//   5. ssd_bwd_head_sum_kernel: dA, dD summed over (batch, tile) in order.
+// Design: three launches, deterministic (no atomics; every sum has a fixed
+// order, so two calls give the same bits):
+//   1. ssd_bwd_walk_kernel, one block per (direction, head, batch), P / 16
+//      warps, each warp 16 rows of the [P, N] state in fp32 `mma`
+//      accumulators for the whole sequence, as csrc/ssd.cu's state warps
+//      carry it. The forward walk stores S_in of every tile, then S <- S
+//      exp(cs_L) + (x w)^T B; the reverse walk, from the last tile, stores
+//      dS_out, then dS <- dS exp(cs_L) + (dy exp(cs))^T C. Each store is
+//      the carry split into bf16 hi and lo planes [P, N] (the same bytes
+//      as fp32), so the next pass `ldmatrix`es them straight into
+//      fragments; each warp's 16 rows of a plane (4 KB, contiguous) go
+//      through shared memory and out as 16-byte vectors. Tiles of x or
+//      dy, B or C and dt arrive by cp.async, double-buffered.
+//   2. ssd_bwd_grad_kernel, one block per (tile, group, batch) of 8
+//      product warps and a sums warp, walking the group's heads in order
+//      with the next head's x, dy, planes and dt loading (cp.async) while
+//      this one computes. G = C B^T once per block. Per head the product
+//      warps compute q = dy x^T and from it M, Q (into shared memory as
+//      hi / lo) and F's row and column sums, a 16 x 8 tile each; then U =
+//      S_in^T dy, dS_out^T x and dS_out B, each a [32, W] output in 2 row
+//      halves x 4 column groups, with v = x . (dS_out B) and C . U from the
+//      accumulator fragments (quad shuffles), and <dS_out, S_in> from the
+//      fragments of the planes those products load. After the block's
+//      second barrier the sums warp turns the partial sums into dcs, da,
+//      ddt and the head's dA / dD partials while the product warps finish
+//      dx = M^T dy + ... and add Q^T C and Q B into the head's dB / dC,
+//      which go into the block's cross-head sums in fp32 registers, head
+//      by head. dx and ddt go out per head, dB and dC once per block as
+//      bf16.
+//   3. ssd_bwd_head_sum_kernel: dA, dD summed over (batch, tile) in a fixed
+//      order, a warp per head.
+// Every product runs on tensor cores, `mma.sync.m16n8k16` bf16 -> fp32
+// with `ldmatrix` fragments. The walks' states are per-warp accumulators
+// carried across 64 tiles and the gradient pass's tiles have 32 rows, so
+// no product has the 64-row, shared-memory-resident operands `wgmma`
+// wants without a trip of the carry through shared memory each tile.
 //
 // What bounds it. At the training shape (B = 8, S = 2048, H = 32, P = 64,
-// N = 128, G = 1) the compulsory traffic is reading x, dy (67.1 MB each),
-// B, C (4.2 MB each) and dt (2.1 MB) and writing dx (67.1 MB), dB, dC and
-// ddt: 222 MB, 66 us at 3.35 TB/s. The least work (chip_smoke.py's
-// ssd_bwd_flops) is ~50 GFLOP: the tiles' triangles and, per position and
-// head, five [P, N] products (the state recomputed, S_in^T dy, dS_out B,
-// dS_out^T x, the state gradient's update). On bf16 tensor cores that is
-// ~50 us, so the bound is bytes; this first version runs its products as
-// fp32 FMA on the CUDA cores (67 TFLOP/s: 0.74 ms), with the per-tile
-// workspace of both states (2 x 537 MB at the training shape) written
-// once and read twice. Tensor cores (`mma.sync` with the forward's hi/lo
-// splits) and a coarser state workspace are later work.
-//   - Blocks of 256 threads; each product is a register-tiled loop over
-//     fp32 operands in shared memory (row strides padded so the column
-//     reads hit distinct banks), float4 along the contraction.
-//   - The grad kernel's shared memory (P = 64, N = 128): x, dy, B, C as
-//     fp32 tiles (51,200 bytes), one [P, N] state buffer (33,024; S_in,
-//     then dS_out over it), M^T, Q, Q^T (13,824) and per-position vectors:
-//     100,544 bytes, so two blocks share an SM at up to 128 registers.
+// N = 128, G = 1; T = 64 tiles) the compulsory traffic is reading x, dy
+// (67.1 MB each), B, C (4.2 MB each) and dt (2.1 MB) and writing dx
+// (67.1 MB), dB, dC and ddt: 222 MB, 66 us at 3.35 TB/s. The workspace is
+// the two states' planes per (batch, head, tile), 2 x 537 MB, and dA / dD
+// per (batch, head, tile): 1.074 GB (the first version's: 1.611 GB, with
+// dB / dC per head), written once by the walks and read once by the
+// gradient pass: with the inputs, ~2.4 GB, ~0.72 ms (the first version
+// moved 5.37 GB through its workspace: 1.60 ms). The work on tensor cores,
+// the hi / lo splits counted, is ~34 GFLOP in the walks and ~75 GFLOP in
+// the gradient pass (chip_smoke.py's ssd_bwd_flops, without the splits:
+// 49.7 GFLOP), ~0.15 ms at mma.sync's rate. Measured (PERF.md, H100 SXM
+// at 700 W), ~1.08 ms in all: the walks ~0.47 ms, 0.22 of it without the
+// plane stores (each warp's stores fired straight from its fragments, 4
+// bytes a lane, took 1.88 ms); the gradient pass ~0.60 ms, set by each
+// head's chain of dependent steps (two barriers, the products, the sums)
+// more than by its 1.07 GB of reads: without the plane loads it still
+// takes ~88%; the sums of dA / dD ~0.004 ms.
+//   - The walks: 64 serial tiles per block, 512 blocks of 4 warps, two a
+//     SM (235 registers a thread; capped at 128 to fit four they spill
+//     and run slower), 44,288 bytes of shared memory each.
+//   - The gradient pass: 512 blocks of 288 threads, one an SM (its
+//     187,456 bytes of shared memory: B and C 17,408, two stages of x,
+//     dy, four planes and dt 2 x 78,976, M and Q hi / lo 10,240, partial
+//     sums 1,856). One sub-partition runs three of its nine warps, so
+//     ptxas caps a thread at 168 registers; it takes 168, no spill. G (4),
+//     the head's dB, dC (2 x N / 8) and the cross-head sums (2 x N / 8)
+//     stay in registers.
 //
-// Error budget. Every product is of exact fp32 values (bf16 inputs
-// widened) summed in fp32, as autograd of the fp32 chunked scan sums them,
-// in another order: ~2^-24 relative per term. The state and its gradient
-// are carried in fp32 across tiles, as the reference carries them across
-// chunks. dx, dB and dC are rounded once to bf16 (2^-9 relative). dcs is a
-// difference of sums and da its suffix sum within one tile (32 terms),
-// against the reference's chunk of 256. Emulated on the CPU
-// (kernels/ref.py::ssd_backward_tiles) every output agrees with jax.grad
-// to ~1e-5 relative (tests/test_torch_train_ssm.py); chip_smoke.py holds
-// the kernel to autograd of the plain version by the worst row at 2e-2.
+// Error budget. B, C, x and dy are bf16, so G, q and every product with
+// them alone is exact products summed in fp32. Each fp32 operand of a
+// product -- x w and dy exp(cs) in the walks (kXwParts), the two states
+// (the planes, kStateParts), M (kMParts) and Q (kQParts) -- is split into
+// hi = bf16(v) and lo = bf16(v - hi), two MMAs into one fp32 accumulator:
+// ~2^-16 relative per term where fp32 errs 2^-24. The carries and the
+// cross-head sums are fp32. dx, dB, dC are rounded once to bf16 (2^-9).
+// Emulated on the CPU (kernels/ref.py::ssd_backward_tiles with split=True,
+// tests/test_torch_ssd_bwd_numerics.py): every output within 2e-5 of
+// jax.grad's largest entry; at P = 64, N = 128 (and N = 64), bf16 in and
+// out, the worst row against the plain version 2.3e-3 (dx, dB, dC) and
+// 3.4e-5 (ddt, dA), as the fp32 emulation. One bf16 rounding instead
+// (the lo part dropped) errs, under the JAX tests' dt: M 7.7e-2 in dx, Q
+// 2.7e-2 in dC, past chip_smoke.py's 2e-2 gate; the states and x w, dy
+// exp(cs) 0.4-1.0e-2 in ddt, dB, dC. dcs is a difference of sums and da its
+// suffix sum within one tile (32 terms).
 //
 // Every C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError().
@@ -85,150 +121,146 @@
 namespace {
 
 constexpr int kTile = 32;  // positions per tile: csrc/ssd.cu's kTile
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// the gradient pass: 8 warps of products in 4 column groups of two row
+// halves, and a warp for the per-position sums
+constexpr int kProductWarps = 8;
+constexpr int kGroups = kProductWarps / 2;
+constexpr int kThreads = 32 * (kProductWarps + 1);
+// hi + lo parts of each fp32 operand of a tensor-core product
+constexpr int kXwParts = 2;     // x w and dy exp(cs), in the walks
+constexpr int kStateParts = 2;  // the S_in and dS_out planes
+constexpr int kMParts = 2;      // M, in M^T dy
+constexpr int kQParts = 2;      // Q, in Q^T C and Q B
 
-// Shared-memory layout in floats. Rows of x, dy (kSX), B, C (kSB) and the
-// 32 x 32 products (kSQ) are multiples of 4 floats, so float4 reads along
-// them are aligned; the state's rows (kSS) are odd, so a warp reading one
-// column of it hits 32 banks.
-template <int P, int N>
-struct Smem {
-  static constexpr int kSX = P + 4;
-  static constexpr int kSB = N + 4;
-  static constexpr int kSS = N + 1;
-  static constexpr int kSQ = kTile + 4;
-  static constexpr int kX = 0;
-  static constexpr int kDY = kX + kTile * kSX;
-  static constexpr int kB = kDY + kTile * kSX;
-  static constexpr int kC = kB + kTile * kSB;
-  static constexpr int kTiles = kC + kTile * kSB;  // end of the four tiles
-  // per-position vectors, kTile floats each, at kVec + kTile * index
-  enum { kDt, kCs, kEcs, kWl, kRowE, kNVec };
-  // the chunk kernel: the tiles and the vectors
-  static constexpr int kChunkVec = kTiles;
-  static constexpr int kChunkFloats = kChunkVec + kNVec * kTile;
-  // the grad kernel: the state, M^T, Q, Q^T, the vectors, partial sums
-  static constexpr int kS = kTiles;
-  static constexpr int kMT = kS + ((P * kSS + 3) / 4) * 4;
-  static constexpr int kQ = kMT + kTile * kSQ;
-  static constexpr int kQT = kQ + kTile * kSQ;
-  static constexpr int kVec = kQT + kTile * kSQ;
-  static constexpr int kColF = kVec + kNVec * kTile;          // [kWarps][kTile]
-  static constexpr int kPartV = kColF + kWarps * kTile;       // [P / 32][kTile]
-  static constexpr int kPartU = kPartV + (P / 32) * kTile;    // [groups][kTile]
-  static constexpr int kRed = kPartU + (N >= 32 ? N / 32 : 1) * kTile;
-  static constexpr int kGradFloats = kRed + 2 * kWarps;
-  static_assert(kSX % 4 == 0 && kSB % 4 == 0 && kMT % 4 == 0, "aligned rows");
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies with a zero fill: src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Fragment layout of m16n8k16 (lane = 4 g + t):
+//   A (16x16): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
+//              a3 = (g+8, 2t+8..)
+//   B (16x8):  b0 = (k = 2t..2t+1, n = g), b1 = (k = 2t+8.., n = g)
+//   C (16x8):  c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// Fragments from bf16 tiles in shared memory (`base` a shared address, `ld`
+// the row stride in elements). The A fragment of rows [m0, m0 + 16) and
+// columns [k0, k0 + 16) of a tile stored [m][k], or stored [k][m]:
+__device__ __forceinline__ void frag_a(uint32_t (&r)[4], uint32_t base, int ld, int m0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(r, base + ((m0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + k0 + 8 * (lane >> 4)) * 2);
+}
+__device__ __forceinline__ void frag_a_t(uint32_t (&r)[4], uint32_t base, int ld, int m0,
+                                         int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(r, base + ((k0 + (lane & 7) + 8 * (lane >> 4)) * ld + m0 + 8 * ((lane >> 3) & 1)) * 2);
+}
+// The B fragments of the two n-tiles [n0, n0 + 8), [n0 + 8, n0 + 16) over
+// k [k0, k0 + 16) (r[0], r[1] the first's, r[2], r[3] the second's), of a
+// tile stored [n][k], or stored [k][n]:
+__device__ __forceinline__ void frag_b(uint32_t (&r)[4], uint32_t base, int ld, int n0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(r, base + ((n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1)) * 2);
+}
+// The B fragment of the one n-tile [n0, n0 + 8), of a tile stored [n][k]:
+__device__ __forceinline__ void frag_b_x2(uint32_t (&r)[2], uint32_t base, int ld, int n0,
+                                          int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x2(r, base + ((n0 + (lane & 7)) * ld + k0 + 8 * ((lane >> 3) & 1)) * 2);
+}
+__device__ __forceinline__ void frag_b_t(uint32_t (&r)[4], uint32_t base, int ld, int n0,
+                                         int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(r, base + ((k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0 + 8 * (lane >> 4)) * 2);
+}
+
+// (v0, v1) -> hi = bf16(v), lo = bf16(v - hi), each a packed pair, v0 in
+// the low half.
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+// A register of two bf16 -> two floats, exactly; the low half first.
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
-
-// A register of two bf16 -> two floats, exactly; the low half first.
-__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
-  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+// Sums over the four lanes of a quad (one row of a C fragment), and over
+// the eight quads (one column).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
-// Rows [s0, s0 + kTile) of a bf16 slice [., W] (row stride `rs` elements,
-// 16-byte aligned rows) into fp32 shared rows of stride `ld`; zeros at
-// positions >= S.
-template <int W>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const __nv_bfloat16* src,
-                                          long long rs, int s0, int S) {
-  for (int c = threadIdx.x; c < kTile * (W / 8); c += kThreads) {
-    const int r = c / (W / 8), col = (c % (W / 8)) * 8;
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (s0 + r < S) {
-      const uint4 v =
-          *reinterpret_cast<const uint4*>(src + static_cast<long long>(s0 + r) * rs + col);
-      const float2 a = unpack_bf16x2(v.x), b = unpack_bf16x2(v.y);
-      const float2 c2 = unpack_bf16x2(v.z), d = unpack_bf16x2(v.w);
-      lo = make_float4(a.x, a.y, b.x, b.y);
-      hi = make_float4(c2.x, c2.y, d.x, d.y);
-    }
-    *reinterpret_cast<float4*>(dst + r * ld + col) = lo;
-    *reinterpret_cast<float4*>(dst + r * ld + col + 4) = hi;
-  }
-}
-
-// dt over the tile, zero past S; threads [0, kTile).
-__device__ __forceinline__ void load_dt(float* dst, const float* dtb,
-                                        long long dt_ss, int s0, int S) {
-  if (threadIdx.x < kTile) {
-    const int s = s0 + threadIdx.x;
-    dst[threadIdx.x] = s < S ? dtb[static_cast<long long>(s) * dt_ss] : 0.f;
-  }
-}
-
-// Warp 0: cs_l (the forward kernel's inclusive Hillis-Steele scan of
-// dt_l A), exp(cs_l) and exp(cs_L - cs_l) dt_l; lane l holds position l.
-__device__ __forceinline__ void tile_cumsum(const float* sDt, float a, float* sCs,
-                                            float* sEcs, float* sWl) {
-  const int lane = threadIdx.x;
-  float v = __fmul_rn(sDt[lane], a);
+// Lane l: cs_l, the forward kernel's inclusive Hillis-Steele scan of dt_l A
+// over the tile; returns it, and cs_L in `last`.
+__device__ __forceinline__ float tile_cumsum(float dt, float a, float& last) {
+  const int lane = threadIdx.x & 31;
+  float v = __fmul_rn(dt, a);
 #pragma unroll
   for (int k = 1; k < 32; k *= 2) {
     const float o = __shfl_up_sync(0xffffffffu, v, k);
     if (lane >= k) v = __fadd_rn(o, v);
   }
-  const float last = __shfl_sync(0xffffffffu, v, 31);
-  sCs[lane] = v;
-  sEcs[lane] = expf(v);
-  sWl[lane] = expf(last - v) * sDt[lane];
-}
-
-// out[i][w] += sum_k A[i][k] Bm(k, w) for a [kTile x W] output: this
-// thread's column w = tid % W and rows i = tid / W + (kThreads / W) r.
-// A is row-major in shared memory (stride lda, read as float4 along k);
-// Bm(k, w) = bm[k * bk + w * bw]. k runs in order, one fmaf chain per
-// output.
-template <int W, int K>
-__device__ __forceinline__ void gemm_rows(float (&acc)[kTile * W / kThreads],
-                                          const float* A, int lda, const float* bm,
-                                          int bk, int bw) {
-  constexpr int R = kTile * W / kThreads;
-  constexpr int kStep = kThreads / W;
-  const int w = threadIdx.x % W, i0 = threadIdx.x / W;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    const float b0 = bm[k * bk + w * bw], b1 = bm[(k + 1) * bk + w * bw];
-    const float b2 = bm[(k + 2) * bk + w * bw], b3 = bm[(k + 3) * bk + w * bw];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(A + (i0 + kStep * r) * lda + k);
-      acc[r] = fmaf(a.x, b0, acc[r]);
-      acc[r] = fmaf(a.y, b1, acc[r]);
-      acc[r] = fmaf(a.z, b2, acc[r]);
-      acc[r] = fmaf(a.w, b3, acc[r]);
-    }
-  }
-}
-
-// sum_w acc[r] * A[i][w] over each of this thread's rows (gemm_rows's
-// layout), across the threads that share them: a butterfly within each
-// group of min(W, 32) lanes, then one partial per group of 32 columns into
-// part[group * kTile + i].
-template <int W>
-__device__ __forceinline__ void row_partials(const float (&acc)[kTile * W / kThreads],
-                                             const float* A, int lda, float* part) {
-  constexpr int R = kTile * W / kThreads;
-  constexpr int kStep = kThreads / W;
-  constexpr int kSpan = W < 32 ? W : 32;
-  const int w = threadIdx.x % W, i0 = threadIdx.x / W;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = i0 + kStep * r;
-    float v = acc[r] * A[i * lda + w];
-#pragma unroll
-    for (int off = kSpan / 2; off > 0; off /= 2)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (threadIdx.x % kSpan == 0) part[(w / kSpan) * kTile + i] = v;
-  }
+  last = __shfl_sync(0xffffffffu, v, kTile - 1);
+  return v;
 }
 
 struct Args {
@@ -240,410 +272,671 @@ struct Args {
   const float* D;
   const __nv_bfloat16* dy;
   int S, H, G, T;
-  long long x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg, c_sb, c_ss,
-      c_sg, dy_sb, dy_ss, dy_sh;
+  long long x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg,
+      dy_sb, dy_ss, dy_sh;
 };
 
-// ---- 1. each tile's own contributions to the state and its gradient -----
+// ---- 1. the two walks over the tiles --------------------------------------
 template <int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_chunk_kernel(const Args a, float* __restrict__ ws_s, float* __restrict__ ws_d,
-                     float* __restrict__ ws_decay) {
-  using L = Smem<P, N>;
-  extern __shared__ __align__(16) float sm[];
-  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+struct WalkLayout {
+  static constexpr int kThreads = 32 * (P / 16);  // a warp per 16 state rows
+  static constexpr int kSN = N + 8;  // bf16 row stride of the B or C tile
+  static constexpr int kSP = P + 8;  // of the x or dy tile
+  // bytes, within a stage
+  static constexpr int kK = 0;  // B (forward walk) or C (reverse walk)
+  static constexpr int kV = kK + kTile * kSN * 2;  // x or dy
+  static constexpr int kDt = kV + kTile * kSP * 2;
+  static constexpr int kStage = kDt + kTile * 4;
+  // after the two stages: each warp's 16 rows of one plane, on their way out
+  static constexpr int kOut = 2 * kStage;
+  static constexpr int kOutWarp = 16 * kSN * 2;
+  static constexpr int kBytes = kOut + (P / 16) * kOutWarp;
+  static_assert(kStage % 16 == 0, "16-byte aligned stages");
+};
+
+// blockIdx.x: 0 the forward walk (the states entering each tile into
+// ws_s), 1 the reverse walk (the state gradients leaving each into ws_d);
+// each [B, H, T, 2 (hi, lo), P, N] bf16.
+template <int P, int N>
+__global__ void __launch_bounds__(WalkLayout<P, N>::kThreads)
+ssd_bwd_walk_kernel(const Args a, __nv_bfloat16* __restrict__ ws_s,
+                    __nv_bfloat16* __restrict__ ws_d) {
+  using L = WalkLayout<P, N>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t sbase = smem_u32(smem);
+  const bool rev = blockIdx.x == 1;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int grp = h / (a.H / a.G);
-  const int s0 = t * kTile;
-  float* sX = sm + L::kX;
-  float* sDY = sm + L::kDY;
-  float* sDt = sm + L::kChunkVec + kTile * L::kDt;
-  float* sCs = sm + L::kChunkVec + kTile * L::kCs;
-  float* sEcs = sm + L::kChunkVec + kTile * L::kEcs;
-  float* sWl = sm + L::kChunkVec + kTile * L::kWl;
-  load_rows<P>(sX, L::kSX, a.x + b * a.x_sb + h * a.x_sh, a.x_ss, s0, a.S);
-  load_rows<P>(sDY, L::kSX, a.dy + b * a.dy_sb + h * a.dy_sh, a.dy_ss, s0, a.S);
-  load_rows<N>(sm + L::kB, L::kSB, a.Bm + b * a.b_sb + grp * a.b_sg, a.b_ss, s0, a.S);
-  load_rows<N>(sm + L::kC, L::kSB, a.Cm + b * a.c_sb + grp * a.c_sg, a.c_ss, s0, a.S);
-  load_dt(sDt, a.dt + b * a.dt_sb + h * a.dt_sh, a.dt_ss, s0, a.S);
-  __syncthreads();
-  const long long bht = (static_cast<long long>(b) * a.H + h) * a.T + t;
-  if (threadIdx.x < 32) {
-    tile_cumsum(sDt, a.A[h], sCs, sEcs, sWl);
-    if (threadIdx.x == 31) ws_decay[bht] = expf(sCs[31]);
-  }
-  __syncthreads();
-  // x_j w_j and dy_i exp(cs_i), in place
-  for (int e = threadIdx.x; e < kTile * P; e += kThreads) {
-    const int l = e / P, p = e % P;
-    sX[l * L::kSX + p] *= sWl[l];
-    sDY[l * L::kSX + p] *= sEcs[l];
-  }
-  __syncthreads();
-  // out[p][n] = sum_l At[l][p] Bm[l][n]: this thread's column n and rows
-  // [R (tid / N), R (tid / N) + R), At read as float4 along them
-  constexpr int R = P * N / kThreads;
-  const int n = threadIdx.x % N, p0 = (threadIdx.x / N) * R;
-  for (int which = 0; which < 2; ++which) {
-    const float* At = which ? sDY : sX;
-    const float* bm = sm + (which ? L::kC : L::kB);
-    float acc[R];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* vb =
+      rev ? a.dy + b * a.dy_sb + h * a.dy_sh : a.x + b * a.x_sb + h * a.x_sh;
+  const long long v_ss = rev ? a.dy_ss : a.x_ss;
+  const __nv_bfloat16* kb =
+      rev ? a.Cm + b * a.c_sb + grp * a.c_sg : a.Bm + b * a.b_sb + grp * a.b_sg;
+  const long long k_ss = rev ? a.c_ss : a.b_ss;
+  const float* dtb = a.dt + b * a.dt_sb + h * a.dt_sh;
+  const float A = a.A[h];
+  __nv_bfloat16* out =
+      (rev ? ws_d : ws_s) + (static_cast<long long>(b) * a.H + h) * a.T * 2 * P * N;
+  __nv_bfloat16* sOut = reinterpret_cast<__nv_bfloat16*>(smem + L::kOut + warp * L::kOutWarp);
+
+  auto load_tile = [&](int tile, int stage) {
+    const int s0 = tile * kTile;
+    const uint32_t st = sbase + stage * L::kStage;
+    for (int c = threadIdx.x; c < kTile * (N / 8); c += L::kThreads) {
+      const int r = c / (N / 8), col = (c % (N / 8)) * 8;
+      const bool in = s0 + r < a.S;
+      const long long pos = in ? s0 + r : 0;
+      cp_async16(st + L::kK + (r * L::kSN + col) * 2, kb + pos * k_ss + col, in);
+    }
+    for (int c = threadIdx.x; c < kTile * (P / 8); c += L::kThreads) {
+      const int r = c / (P / 8), col = (c % (P / 8)) * 8;
+      const bool in = s0 + r < a.S;
+      const long long pos = in ? s0 + r : 0;
+      cp_async16(st + L::kV + (r * L::kSP + col) * 2, vb + pos * v_ss + col, in);
+    }
+    if (threadIdx.x < kTile) {  // dt hard-masked past S
+      const bool in = s0 + threadIdx.x < a.S;
+      const long long pos = in ? s0 + threadIdx.x : 0;
+      cp_async4(st + L::kDt + threadIdx.x * 4, dtb + pos * a.dt_ss, in);
+    }
+    cp_async_commit();
+  };
+
+  float st[N / 8][4];  // carry[16 warp + g (+8)][8 n + 2 t4 (+1)]
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-#pragma unroll 2
-    for (int l = 0; l < kTile; ++l) {
-      const float bv = bm[l * L::kSB + n];
-      if constexpr (R % 4 == 0) {
+  for (int n = 0; n < N / 8; ++n)
 #pragma unroll
-        for (int r = 0; r < R; r += 4) {
-          const float4 av = *reinterpret_cast<const float4*>(At + l * L::kSX + p0 + r);
-          acc[r] = fmaf(av.x, bv, acc[r]);
-          acc[r + 1] = fmaf(av.y, bv, acc[r + 1]);
-          acc[r + 2] = fmaf(av.z, bv, acc[r + 2]);
-          acc[r + 3] = fmaf(av.w, bv, acc[r + 3]);
+    for (int e = 0; e < 4; ++e) st[n][e] = 0.f;
+  float decay = 1.f;  // the tile's exp(cs_L)
+  load_tile(rev ? a.T - 1 : 0, 0);
+  for (int it = 0; it < a.T; ++it) {
+    const int tile = rev ? a.T - 1 - it : it;
+    const int stage = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile `it` landed; every warp is done with it - 1
+    if (it + 1 < a.T) load_tile(rev ? tile - 1 : tile + 1, stage ^ 1);
+    const uint32_t sst = sbase + stage * L::kStage;
+    const float dtl = reinterpret_cast<const float*>(smem + stage * L::kStage + L::kDt)[lane];
+    float last;
+    const float cs = tile_cumsum(dtl, A, last);
+    // the weight of position `lane`: exp(cs_L - cs) dt, or exp(cs)
+    const float wv = rev ? expf(cs) : expf(last - cs) * dtl;
+
+    // the carry, as hi / lo planes: the state entering `tile`, or the
+    // gradient of the state leaving it. Each plane's 16 rows go through
+    // this warp's part of shared memory, so that the stores are whole
+    // 16-byte vectors along the rows.
+    __nv_bfloat16* o =
+        out + static_cast<long long>(tile) * 2 * P * N + 16 * warp * N;
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          uint32_t hi, lo;
+          split2(st[n][2 * rr], st[n][2 * rr + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(sOut + (g + 8 * rr) * L::kSN + 8 * n + 2 * t4) =
+              plane ? lo : hi;
         }
-      } else {
+      __syncwarp();
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(At[l * L::kSX + p0 + r], bv, acc[r]);
+      for (int c = lane; c < 16 * (N / 8); c += 32) {
+        const int r = c / (N / 8), col = (c % (N / 8)) * 8;
+        *reinterpret_cast<uint4*>(o + plane * P * N + r * N + col) =
+            *reinterpret_cast<const uint4*>(sOut + r * L::kSN + col);
       }
+      __syncwarp();
     }
-    float* out = (which ? ws_d : ws_s) + bht * P * N;
-#pragma unroll
-    for (int r = 0; r < R; ++r) out[(p0 + r) * N + n] = acc[r];
-  }
-}
 
-// ---- 2. the two walks over the tiles, in place ---------------------------
-// Each thread walks both ways at once, kAhead tiles' loads in flight before
-// their stores: a walk's loads do not wait for its carry.
-constexpr int kAhead = 8;
-
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_scan_kernel(float* __restrict__ ws_s, float* __restrict__ ws_d,
-                    const float* __restrict__ ws_decay, int H, int T, int PN) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= PN) return;
-  const long long bh = static_cast<long long>(blockIdx.z) * H + blockIdx.y;
-  const float* decay = ws_decay + bh * T;
-  float* s = ws_s + bh * T * PN + e;
-  float* d = ws_d + bh * T * PN + e;
-  float carry_s = 0.f;  // the state entering tile t
-  float carry_d = 0.f;  // the gradient of the state leaving tile T - 1 - t
-  for (int t0 = 0; t0 < T; t0 += kAhead) {
-    float loc_s[kAhead], loc_d[kAhead];
+    // carry <- carry exp(cs_L) + (v w)^T K, v w as hi + lo
+    decay = expf(last);
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      if (t0 + k < T) {
-        loc_s[k] = s[static_cast<long long>(t0 + k) * PN];
-        loc_d[k] = d[static_cast<long long>(T - 1 - t0 - k) * PN];
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] *= decay;
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t vr[4];  // A fragment of v^T [p][j]: v stored [j][p]
+      frag_a_t(vr, sst + L::kV, L::kSP, 16 * warp, 16 * kk);
+      const float w0 = __shfl_sync(0xffffffffu, wv, 16 * kk + 2 * t4);
+      const float w1 = __shfl_sync(0xffffffffu, wv, 16 * kk + 2 * t4 + 1);
+      const float w2 = __shfl_sync(0xffffffffu, wv, 16 * kk + 2 * t4 + 8);
+      const float w3 = __shfl_sync(0xffffffffu, wv, 16 * kk + 2 * t4 + 9);
+      uint32_t vh[4], vl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 v = unpack_bf16x2(vr[e]);
+        split2(v.x * (e < 2 ? w0 : w2), v.y * (e < 2 ? w1 : w3), vh[e], vl[e]);
       }
-    }
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
-      const int tf = t0 + k, tr = T - 1 - t0 - k;
-      if (tf < T) {
-        s[static_cast<long long>(tf) * PN] = carry_s;
-        carry_s = fmaf(decay[tf], carry_s, loc_s[k]);
-        d[static_cast<long long>(tr) * PN] = carry_d;
-        carry_d = fmaf(decay[tr], carry_d, loc_d[k]);
+      for (int np = 0; np < N / 16; ++np) {
+        uint32_t bf[4];
+        frag_b_t(bf, sst + L::kK, L::kSN, 16 * np, 16 * kk);
+#pragma unroll
+        for (int part = 0; part < kXwParts; ++part) {
+          const uint32_t* af = part ? vl : vh;
+          mma_16816(st[2 * np], af, bf[0], bf[1]);
+          mma_16816(st[2 * np + 1], af, bf[2], bf[3]);
+        }
       }
     }
   }
 }
 
-// ---- 3. each tile's gradients --------------------------------------------
+// ---- 2. each tile's gradients, a group's heads in order -------------------
+// Columns of a [kTile, W] product each warp owns: kGroups groups of
+// W / kGroups, at least 16 (then the groups past W sit out).
+constexpr int cols(int W) { return W / kGroups < 16 ? 16 : W / kGroups; }
+
 template <int P, int N>
-__global__ void __launch_bounds__(kThreads, 2)
-ssd_bwd_grad_kernel(const Args a, const float* __restrict__ ws_s,
-                    const float* __restrict__ ws_d, __nv_bfloat16* __restrict__ dx,
-                    float* __restrict__ ddt, float* __restrict__ ws_db,
-                    float* __restrict__ ws_dc, float* __restrict__ ws_da,
+struct GradLayout {
+  static constexpr int kSN = N + 8;      // bf16 row stride of B, C and the planes
+  static constexpr int kSP = P + 8;      // of x and dy
+  static constexpr int kSQ = kTile + 8;  // of M and Q
+  static constexpr int kCn = cols(N), kCp = cols(P);
+  // bytes
+  static constexpr int kB = 0;
+  static constexpr int kC = kB + kTile * kSN * 2;
+  static constexpr int kStages = kC + kTile * kSN * 2;
+  // within a stage: x, dy, the planes S_in hi, lo, dS_out hi, lo, dt
+  static constexpr int kX = 0;
+  static constexpr int kDY = kX + kTile * kSP * 2;
+  static constexpr int kPlanes = kDY + kTile * kSP * 2;
+  static constexpr int kPlane = P * kSN * 2;
+  static constexpr int kDt = kPlanes + 4 * kPlane;
+  static constexpr int kStage = kDt + kTile * 4;
+  // after the stages: M hi, M lo, Q hi, Q lo [kTile][kSQ]
+  static constexpr int kMQ = kStages + 2 * kStage;
+  static constexpr int kMat = kTile * kSQ * 2;
+  // fp32 partial sums, kTile each: rowE [4], colF [2], v [P / kCp],
+  // cu [N / kCn]; then each product warp's parts of <dS_out, S_in> and
+  // x . dy
+  static constexpr int kRowE = kMQ + 4 * kMat;
+  static constexpr int kColF = kRowE + 4 * kTile * 4;
+  static constexpr int kV = kColF + 2 * kTile * 4;
+  static constexpr int kCu = kV + (P / kCp) * kTile * 4;
+  static constexpr int kRed = kCu + (N / kCn) * kTile * 4;
+  static constexpr int kBytes = kRed + 2 * kProductWarps * 4;
+  static_assert(kStage % 16 == 0 && kStages % 16 == 0, "16-byte aligned stages");
+};
+
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_grad_kernel(const Args a, const __nv_bfloat16* __restrict__ ws_s,
+                    const __nv_bfloat16* __restrict__ ws_d, __nv_bfloat16* __restrict__ dx,
+                    float* __restrict__ ddt, __nv_bfloat16* __restrict__ dB,
+                    __nv_bfloat16* __restrict__ dC, float* __restrict__ ws_da,
                     float* __restrict__ ws_dd) {
-  using L = Smem<P, N>;
-  extern __shared__ __align__(16) float sm[];
-  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int grp = h / (a.H / a.G);
+  using L = GradLayout<P, N>;
+  constexpr int kCn = L::kCn, kCp = L::kCp;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t sbase = smem_u32(smem);
+  float* sRowE = reinterpret_cast<float*>(smem + L::kRowE);
+  float* sColF = reinterpret_cast<float*>(smem + L::kColF);
+  float* sV = reinterpret_cast<float*>(smem + L::kV);
+  float* sCu = reinterpret_cast<float*>(smem + L::kCu);
+  float* sRed = reinterpret_cast<float*>(smem + L::kRed);  // [2][kProductWarps]
+  const int t = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int hg = a.H / a.G;
   const int s0 = t * kTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sX = sm + L::kX;
-  float* sDY = sm + L::kDY;
-  float* sB = sm + L::kB;
-  float* sC = sm + L::kC;
-  float* sS = sm + L::kS;
-  float* sMT = sm + L::kMT;
-  float* sQ = sm + L::kQ;
-  float* sQT = sm + L::kQT;
-  float* sDt = sm + L::kVec + kTile * L::kDt;
-  float* sCs = sm + L::kVec + kTile * L::kCs;
-  float* sEcs = sm + L::kVec + kTile * L::kEcs;
-  float* sWl = sm + L::kVec + kTile * L::kWl;
-  float* sRowE = sm + L::kVec + kTile * L::kRowE;
-  float* sColF = sm + L::kColF;
-  float* sPartV = sm + L::kPartV;
-  float* sPartU = sm + L::kPartU;
-  float* sRed = sm + L::kRed;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool sums = warp == kProductWarps;  // the per-position sums' warp
+  const int mi = warp & 1, nq = warp >> 1;  // rows 16 mi.., column group nq
+  const int i0 = 16 * mi + g;               // this thread's rows: i0, i0 + 8
+  const int j0 = 8 * nq + 2 * t4;           // its columns of q, G, M, Q: j0, j0 + 1
+  const bool n_on = !sums && nq < N / kCn;  // the [kTile, N] products
+  const bool p_on = !sums && nq < P / kCp;  // the [kTile, P] products
+  const __nv_bfloat16* bb = a.Bm + b * a.b_sb + grp * a.b_sg;
+  const __nv_bfloat16* cb = a.Cm + b * a.c_sb + grp * a.c_sg;
 
-  load_rows<P>(sX, L::kSX, a.x + b * a.x_sb + h * a.x_sh, a.x_ss, s0, a.S);
-  load_rows<P>(sDY, L::kSX, a.dy + b * a.dy_sb + h * a.dy_sh, a.dy_ss, s0, a.S);
-  load_rows<N>(sB, L::kSB, a.Bm + b * a.b_sb + grp * a.b_sg, a.b_ss, s0, a.S);
-  load_rows<N>(sC, L::kSB, a.Cm + b * a.c_sb + grp * a.c_sg, a.c_ss, s0, a.S);
-  load_dt(sDt, a.dt + b * a.dt_sb + h * a.dt_sh, a.dt_ss, s0, a.S);
-  const long long bht = (static_cast<long long>(b) * a.H + h) * a.T + t;
-  const float* s_in = ws_s + bht * P * N;
-  const float* ds_out = ws_d + bht * P * N;
-  for (int e = threadIdx.x; e < P * N; e += kThreads)
-    sS[(e / N) * L::kSS + e % N] = s_in[e];
-  __syncthreads();
+  // head `k` of the group into stage `stage`: x, dy, dt (zeros past S) and
+  // its two states' planes
+  auto load_head = [&](int k, int stage) {
+    const int h = grp * hg + k;
+    const uint32_t st = sbase + L::kStages + stage * L::kStage;
+    const __nv_bfloat16* xb = a.x + b * a.x_sb + h * a.x_sh;
+    const __nv_bfloat16* dyb = a.dy + b * a.dy_sb + h * a.dy_sh;
+    for (int c = threadIdx.x; c < kTile * (P / 8); c += kThreads) {
+      const int r = c / (P / 8), col = (c % (P / 8)) * 8;
+      const bool in = s0 + r < a.S;
+      const long long pos = in ? s0 + r : 0;
+      const uint32_t off = (r * L::kSP + col) * 2;
+      cp_async16(st + L::kX + off, xb + pos * a.x_ss + col, in);
+      cp_async16(st + L::kDY + off, dyb + pos * a.dy_ss + col, in);
+    }
+    const long long bht = (static_cast<long long>(b) * a.H + h) * a.T + t;
+    const __nv_bfloat16* ps = ws_s + bht * 2 * P * N;
+    const __nv_bfloat16* pd = ws_d + bht * 2 * P * N;
+    for (int c = threadIdx.x; c < 2 * P * (N / 8); c += kThreads) {
+      const int r = c / (N / 8), col = (c % (N / 8)) * 8;  // row r of 2P: plane r / P
+      const uint32_t off = (r * L::kSN + col) * 2;
+      cp_async16(st + L::kPlanes + off, ps + r * N + col, true);
+      cp_async16(st + L::kPlanes + 2 * L::kPlane + off, pd + r * N + col, true);
+    }
+    if (threadIdx.x < kTile) {
+      const bool in = s0 + threadIdx.x < a.S;
+      const long long pos = in ? s0 + threadIdx.x : 0;
+      cp_async4(st + L::kDt + threadIdx.x * 4,
+                a.dt + b * a.dt_sb + h * a.dt_sh + pos * a.dt_ss, in);
+    }
+    cp_async_commit();
+  };
 
-  if (warp == 0) tile_cumsum(sDt, a.A[h], sCs, sEcs, sWl);
-  // U_i = S_in^T dy_i [kTile x N]
-  constexpr int RN = kTile * N / kThreads, RP = kTile * P / kThreads;
-  float acc_u[RN];
-#pragma unroll
-  for (int r = 0; r < RN; ++r) acc_u[r] = 0.f;
-  gemm_rows<N, P>(acc_u, sDY, L::kSX, sS, L::kSS, 1);
-  __syncthreads();  // cs is in; S_in has been read
-
-  // dS_out over S_in, and <dS_out, S_in> on the way
-  float dot = 0.f;
-  for (int e = threadIdx.x; e < P * N; e += kThreads) {
-    const int idx = (e / N) * L::kSS + e % N;
-    const float v = ds_out[e];
-    dot = fmaf(sS[idx], v, dot);
-    sS[idx] = v;
+  for (int c = threadIdx.x; c < kTile * (N / 8); c += kThreads) {
+    const int r = c / (N / 8), col = (c % (N / 8)) * 8;
+    const bool in = s0 + r < a.S;
+    const long long pos = in ? s0 + r : 0;
+    const uint32_t off = (r * L::kSN + col) * 2;
+    cp_async16(sbase + L::kB + off, bb + pos * a.b_ss + col, in);
+    cp_async16(sbase + L::kC + off, cb + pos * a.c_ss + col, in);
   }
-  // G_ij, q_ij for rows i = warp + 8 r and column j = lane; then M^T, Q,
-  // Q^T, the row sums of F_ij dt_j and this warp's column sums of F_ij
-  {
-    const int j = lane;
-    float gv[kTile / kWarps], qv[kTile / kWarps];
+  load_head(0, 0);  // one group with B and C
+
+  float gm[4];  // G for rows i0 (+8), columns j0 (+1)
+  float sum_db[kCn / 8][4], sum_dc[kCn / 8][4];  // the cross-head sums
 #pragma unroll
-    for (int r = 0; r < kTile / kWarps; ++r) gv[r] = qv[r] = 0.f;
-#pragma unroll 4
-    for (int n = 0; n < N; n += 4) {
-      const float4 bv = *reinterpret_cast<const float4*>(sB + j * L::kSB + n);
+  for (int n = 0; n < kCn / 8; ++n)
 #pragma unroll
-      for (int r = 0; r < kTile / kWarps; ++r) {
-        const float4 cv =
-            *reinterpret_cast<const float4*>(sC + (warp + kWarps * r) * L::kSB + n);
-        gv[r] = fmaf(cv.x, bv.x, gv[r]);
-        gv[r] = fmaf(cv.y, bv.y, gv[r]);
-        gv[r] = fmaf(cv.z, bv.z, gv[r]);
-        gv[r] = fmaf(cv.w, bv.w, gv[r]);
+    for (int e = 0; e < 4; ++e) sum_db[n][e] = sum_dc[n][e] = 0.f;
+
+  for (int kh = 0; kh < hg; ++kh) {
+    const int h = grp * hg + kh;
+    const int stage = kh & 1;
+    const uint32_t st = sbase + L::kStages + stage * L::kStage;
+    const uint32_t sPl = st + L::kPlanes;  // S_in hi, lo, dS_out hi, lo
+    const uint8_t* stp = smem + L::kStages + stage * L::kStage;
+    const __nv_bfloat16* sX = reinterpret_cast<const __nv_bfloat16*>(stp + L::kX);
+    const __nv_bfloat16* sDY = reinterpret_cast<const __nv_bfloat16*>(stp + L::kDY);
+    cp_async_wait_all();
+    __syncthreads();  // head kh landed; every warp is done with head kh - 1
+    if (kh + 1 < hg) load_head(kh + 1, stage ^ 1);
+
+    if (kh == 0 && !sums) {  // G = C B^T, once
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gm[e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t af[4], bf[2];
+        frag_a(af, sbase + L::kC, L::kSN, 16 * mi, 16 * kk);
+        frag_b_x2(bf, sbase + L::kB, L::kSN, 8 * nq, 16 * kk);
+        mma_16816(gm, af, bf[0], bf[1]);
       }
     }
-#pragma unroll 4
-    for (int p = 0; p < P; p += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(sX + j * L::kSX + p);
+    // lane l: position l's dt, cs, exp(cs), exp(cs_L - cs) dt
+    const float A = a.A[h];
+    const float dtl = reinterpret_cast<const float*>(stp + L::kDt)[lane];
+    float last;
+    const float cs = tile_cumsum(dtl, A, last);
+    const float ecs = expf(cs);
+    const float wl = expf(last - cs) * dtl;
+    // this thread's rows' exp(cs_i) and exp(cs_L - cs_j) dt_j
+    const float ecs_r[2] = {__shfl_sync(0xffffffffu, ecs, i0),
+                            __shfl_sync(0xffffffffu, ecs, i0 + 8)};
+    const float wl_r[2] = {__shfl_sync(0xffffffffu, wl, i0),
+                           __shfl_sync(0xffffffffu, wl, i0 + 8)};
+    float xdy = 0.f;  // this tile's part of dD: the diagonal of q
+
+    if (!sums) {  // q = dy x^T; M, Q (hi / lo into shared memory), F's sums
+      float qv[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < kTile / kWarps; ++r) {
-        const float4 dv =
-            *reinterpret_cast<const float4*>(sDY + (warp + kWarps * r) * L::kSX + p);
-        qv[r] = fmaf(dv.x, xv.x, qv[r]);
-        qv[r] = fmaf(dv.y, xv.y, qv[r]);
-        qv[r] = fmaf(dv.z, xv.z, qv[r]);
-        qv[r] = fmaf(dv.w, xv.w, qv[r]);
+      for (int kk = 0; kk < P / 16; ++kk) {
+        uint32_t af[4], bf[2];
+        frag_a(af, st + L::kDY, L::kSP, 16 * mi, 16 * kk);
+        frag_b_x2(bf, st + L::kX, L::kSP, 8 * nq, 16 * kk);
+        mma_16816(qv, af, bf[0], bf[1]);
+      }
+      const float cs_i[2] = {__shfl_sync(0xffffffffu, cs, i0),
+                             __shfl_sync(0xffffffffu, cs, i0 + 8)};
+      float m[2][2], qq[2][2], row_e[2] = {0.f, 0.f}, col_f[2] = {0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + c;
+        const float cs_j = __shfl_sync(0xffffffffu, cs, j);
+        const float dt_j = __shfl_sync(0xffffffffu, dtl, j);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = i0 + 8 * rr, e = 2 * rr + c;
+          const float w = j <= i ? expf(cs_i[rr] - cs_j) : 0.f;
+          const float gw = gm[e] * w;
+          const float f = gw * qv[e];
+          m[rr][c] = gw * dt_j;
+          qq[rr][c] = w * dt_j * qv[e];
+          row_e[rr] += f * dt_j;
+          col_f[c] += f;
+          if (i == j) xdy += qv[e];
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int off = ((i0 + 8 * rr) * L::kSQ + j0) * 2;
+        uint32_t hi, lo;
+        split2(m[rr][0], m[rr][1], hi, lo);
+        *reinterpret_cast<uint32_t*>(smem + L::kMQ + off) = hi;
+        *reinterpret_cast<uint32_t*>(smem + L::kMQ + L::kMat + off) = lo;
+        split2(qq[rr][0], qq[rr][1], hi, lo);
+        *reinterpret_cast<uint32_t*>(smem + L::kMQ + 2 * L::kMat + off) = hi;
+        *reinterpret_cast<uint32_t*>(smem + L::kMQ + 3 * L::kMat + off) = lo;
+        const float s = quad_sum(row_e[rr]);
+        if (t4 == 0) sRowE[nq * kTile + i0 + 8 * rr] = s;
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float s = column_sum(col_f[c]);
+        if (g == 0) sColF[mi * kTile + j0 + c] = s;
       }
     }
-    const float cs_j = sCs[j], dt_j = sDt[j];
-    float col_f = 0.f;
-#pragma unroll
-    for (int r = 0; r < kTile / kWarps; ++r) {
-      const int i = warp + kWarps * r;
-      const float w = j <= i ? expf(sCs[i] - cs_j) : 0.f;
-      const float qw = w * dt_j * qv[r];
-      const float f = gv[r] * w * qv[r];
-      sMT[j * L::kSQ + i] = gv[r] * w * dt_j;
-      sQ[i * L::kSQ + j] = qw;
-      sQT[j * L::kSQ + i] = qw;
-      const float row_e = warp_sum(f * dt_j);
-      if (lane == 0) sRowE[i] = row_e;
-      col_f += f;
-    }
-    sColF[warp * kTile + j] = col_f;
-  }
-  dot = warp_sum(dot);
-  float xdy = 0.f;  // this tile's part of dD
-  for (int e = threadIdx.x; e < kTile * P; e += kThreads)
-    xdy = fmaf(sX[(e / P) * L::kSX + e % P], sDY[(e / P) * L::kSX + e % P], xdy);
-  xdy = warp_sum(xdy);
-  if (lane == 0) {
-    sRed[warp] = dot;
-    sRed[kWarps + warp] = xdy;
-  }
-  __syncthreads();  // dS_out, M^T, Q, Q^T, the sums are in
 
-  // dS_out B_j [kTile x P] and dS_out^T x_j [kTile x N]
-  float acc_sb[RP], acc_sx[RN];
+    // the head's dC_i = exp(cs_i) S_in^T dy_i (+ Q B below) and dB_j =
+    // exp(cs_L - cs_j) dt_j dS_out^T x_j (+ Q^T C below), with C_k . U_k;
+    // and <dS_out, S_in> from the same fragments of the planes, each
+    // element once: the row half mi takes the k-steps with kk mod 2 = mi
+    float dc[kCn / 8][4], db[kCn / 8][4], dot = 0.f;
 #pragma unroll
-  for (int r = 0; r < RP; ++r) acc_sb[r] = 0.f;
+    for (int n = 0; n < kCn / 8; ++n)
 #pragma unroll
-  for (int r = 0; r < RN; ++r) acc_sx[r] = 0.f;
-  gemm_rows<P, N>(acc_sb, sB, L::kSB, sS, 1, L::kSS);
-  gemm_rows<N, P>(acc_sx, sX, L::kSX, sS, L::kSS, 1);
-  row_partials<P>(acc_sb, sX, L::kSX, sPartV);  // v_j = x_j . dS_out B_j
-  row_partials<N>(acc_u, sC, L::kSB, sPartU);   // C_k . S_in^T dy_k
-  __syncthreads();
+      for (int e = 0; e < 4; ++e) dc[n][e] = db[n][e] = 0.f;
+    if (n_on) {
+#pragma unroll
+      for (int kk = 0; kk < P / 16; ++kk) {
+        uint32_t ady[4], ax[4];
+        frag_a(ady, st + L::kDY, L::kSP, 16 * mi, 16 * kk);
+        frag_a(ax, st + L::kX, L::kSP, 16 * mi, 16 * kk);
+#pragma unroll
+        for (int np = 0; np < kCn / 16; ++np) {
+          uint32_t bs[kStateParts][4], bd[kStateParts][4];
+#pragma unroll
+          for (int part = 0; part < kStateParts; ++part) {
+            frag_b_t(bs[part], sPl + part * L::kPlane, L::kSN, kCn * nq + 16 * np, 16 * kk);
+            frag_b_t(bd[part], sPl + (2 + part) * L::kPlane, L::kSN, kCn * nq + 16 * np,
+                     16 * kk);
+            mma_16816(dc[2 * np], ady, bs[part][0], bs[part][1]);
+            mma_16816(dc[2 * np + 1], ady, bs[part][2], bs[part][3]);
+            mma_16816(db[2 * np], ax, bd[part][0], bd[part][1]);
+            mma_16816(db[2 * np + 1], ax, bd[part][2], bd[part][3]);
+          }
+          if ((kk & 1) == mi) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              float2 sv = make_float2(0.f, 0.f), dv = sv;
+#pragma unroll
+              for (int part = 0; part < kStateParts; ++part) {
+                const float2 s1 = unpack_bf16x2(bs[part][r]), d1 = unpack_bf16x2(bd[part][r]);
+                sv.x += s1.x; sv.y += s1.y;
+                dv.x += d1.x; dv.y += d1.y;
+              }
+              dot = fmaf(sv.x, dv.x, dot);
+              dot = fmaf(sv.y, dv.y, dot);
+            }
+          }
+        }
+      }
+      const __nv_bfloat16* sC = reinterpret_cast<const __nv_bfloat16*>(smem + L::kC);
+      float cu[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < kCn / 8; ++n)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int col = kCn * nq + 8 * n + 2 * t4;
+          const float2 cv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(sC + (i0 + 8 * rr) * L::kSN + col));
+          cu[rr] = fmaf(cv.x, dc[n][2 * rr], cu[rr]);
+          cu[rr] = fmaf(cv.y, dc[n][2 * rr + 1], cu[rr]);
+        }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float s = quad_sum(cu[rr]);
+        if (t4 == 0) sCu[nq * kTile + i0 + 8 * rr] = s;
+      }
+#pragma unroll
+      for (int n = 0; n < kCn / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dc[n][e] *= ecs_r[e >> 1];
+          db[n][e] *= wl_r[e >> 1];
+        }
+    }
 
-  if (warp == 0) {  // lane k: dcs, da, ddt; dA's and dD's tile partials
-    const int k = lane;
-    float v = 0.f, cu = 0.f, col_f = 0.f, dot_all = 0.f, xdy_all = 0.f;
+    // dS_out B_j [kTile x P], with v_j = x_j . (dS_out B_j)
+    float sb[kCp / 8][4];
 #pragma unroll
-    for (int c = 0; c < P / 32; ++c) v += sPartV[c * kTile + k];
+    for (int n = 0; n < kCp / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < (N >= 32 ? N / 32 : 1); ++c) cu += sPartU[c * kTile + k];
+      for (int e = 0; e < 4; ++e) sb[n][e] = 0.f;
+    if (p_on) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      col_f += sColF[w * kTile + k];
-      dot_all += sRed[w];
-      xdy_all += sRed[kWarps + w];
+      for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t af[4];
+        frag_a(af, sbase + L::kB, L::kSN, 16 * mi, 16 * kk);
+#pragma unroll
+        for (int np = 0; np < kCp / 16; ++np) {
+#pragma unroll
+          for (int part = 0; part < kStateParts; ++part) {
+            uint32_t bf[4];
+            frag_b(bf, sPl + (2 + part) * L::kPlane, L::kSN, kCp * nq + 16 * np, 16 * kk);
+            mma_16816(sb[2 * np], af, bf[0], bf[1]);
+            mma_16816(sb[2 * np + 1], af, bf[2], bf[3]);
+          }
+        }
+      }
+      float v[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < kCp / 8; ++n)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              sX + (i0 + 8 * rr) * L::kSP + kCp * nq + 8 * n + 2 * t4));
+          v[rr] = fmaf(xv.x, sb[n][2 * rr], v[rr]);
+          v[rr] = fmaf(xv.y, sb[n][2 * rr + 1], v[rr]);
+        }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float s = quad_sum(v[rr]);
+        if (t4 == 0) sV[nq * kTile + i0 + 8 * rr] = s;
+      }
     }
-    const float cs = sCs[k], cs_last = sCs[kTile - 1], dt_k = sDt[k];
-    const float wv = sWl[k] * v;
-    float dcs = sRowE[k] - dt_k * col_f + sEcs[k] * cu - wv;
-    const float wv_all = warp_sum(wv);
-    if (k == kTile - 1) dcs += expf(cs_last) * dot_all + wv_all;
-    float da = dcs;  // suffix sum: da_k = sum_{m >= k} dcs_m
-#pragma unroll
-    for (int off = 1; off < 32; off *= 2) {
-      const float o = __shfl_down_sync(0xffffffffu, da, off);
-      if (k + off < 32) da += o;
+
+    if (!sums) {
+      dot = warp_sum(dot);
+      xdy = warp_sum(xdy);
+      if (lane == 0) {
+        sRed[warp] = dot;
+        sRed[kProductWarps + warp] = xdy;
+      }
     }
-    const float g = a.A[h] * da + col_f + expf(cs_last - cs) * v;
-    if (s0 + k < a.S) ddt[(static_cast<long long>(b) * a.S + s0 + k) * a.H + h] = g;
-    const float da_sum = warp_sum(dt_k * da);
-    if (k == 0) {
-      ws_da[bht] = da_sum;
-      ws_dd[bht] = xdy_all;
+    __syncthreads();  // M, Q and the partial sums are in
+
+    if (sums) {  // lane k: dcs, da, ddt; dA's and dD's tile partials
+      const int k = lane;
+      float v = 0.f, cu = 0.f, row_e = 0.f, dot_all = 0.f, xdy_all = 0.f;
+#pragma unroll
+      for (int c = 0; c < P / kCp; ++c) v += sV[c * kTile + k];
+#pragma unroll
+      for (int c = 0; c < N / kCn; ++c) cu += sCu[c * kTile + k];
+#pragma unroll
+      for (int c = 0; c < kGroups; ++c) row_e += sRowE[c * kTile + k];
+      const float col_f = sColF[k] + sColF[kTile + k];
+#pragma unroll
+      for (int w = 0; w < kProductWarps; ++w) {
+        dot_all += sRed[w];
+        xdy_all += sRed[kProductWarps + w];
+      }
+      const float wv = wl * v;
+      float dcs = row_e - dtl * col_f + ecs * cu - wv;
+      const float wv_all = warp_sum(wv);
+      if (k == kTile - 1) dcs += expf(last) * dot_all + wv_all;
+      float da = dcs;  // suffix sum: da_k = sum_{m >= k} dcs_m
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const float o = __shfl_down_sync(0xffffffffu, da, off);
+        if (k + off < 32) da += o;
+      }
+      const float gr = A * da + col_f + expf(last - cs) * v;
+      if (s0 + k < a.S) ddt[(static_cast<long long>(b) * a.S + s0 + k) * a.H + h] = gr;
+      const float da_sum = warp_sum(dtl * da);
+      if (k == 0) {
+        const long long bht = (static_cast<long long>(b) * a.H + h) * a.T + t;
+        ws_da[bht] = da_sum;
+        ws_dd[bht] = xdy_all;
+      }
+    }
+
+    // dx_j = sum_i M_ij dy_i + exp(cs_L - cs_j) dt_j dS_out B_j + D dy_j
+    if (p_on) {
+#pragma unroll
+      for (int n = 0; n < kCp / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sb[n][e] *= wl_r[e >> 1];
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        uint32_t af[kMParts][4];  // A fragments of M^T [j][i]: M stored [i][j]
+#pragma unroll
+        for (int part = 0; part < kMParts; ++part)
+          frag_a_t(af[part], sbase + L::kMQ + part * L::kMat, L::kSQ, 16 * mi, 16 * kk);
+#pragma unroll
+        for (int np = 0; np < kCp / 16; ++np) {
+          uint32_t bf[4];
+          frag_b_t(bf, st + L::kDY, L::kSP, kCp * nq + 16 * np, 16 * kk);
+#pragma unroll
+          for (int part = 0; part < kMParts; ++part) {
+            mma_16816(sb[2 * np], af[part], bf[0], bf[1]);
+            mma_16816(sb[2 * np + 1], af[part], bf[2], bf[3]);
+          }
+        }
+      }
+      const float d_skip = a.D[h];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int j = i0 + 8 * rr;
+        if (s0 + j >= a.S) continue;
+        __nv_bfloat16* row = dx + ((static_cast<long long>(b) * a.S + s0 + j) * a.H + h) * P;
+#pragma unroll
+        for (int n = 0; n < kCp / 8; ++n) {
+          const int p = kCp * nq + 8 * n + 2 * t4;
+          const float2 dv =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sDY + j * L::kSP + p));
+          *reinterpret_cast<__nv_bfloat162*>(row + p) = __floats2bfloat162_rn(
+              sb[n][2 * rr] + d_skip * dv.x, sb[n][2 * rr + 1] + d_skip * dv.y);
+        }
+      }
+    }
+    // dB_j += sum_i Q_ij C_i, dC_i += sum_j Q_ij B_j; then into the sums
+    if (n_on) {
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        uint32_t aqt[kQParts][4], aq[kQParts][4];  // Q^T [j][i] and Q [i][j]
+#pragma unroll
+        for (int part = 0; part < kQParts; ++part) {
+          frag_a_t(aqt[part], sbase + L::kMQ + (2 + part) * L::kMat, L::kSQ, 16 * mi, 16 * kk);
+          frag_a(aq[part], sbase + L::kMQ + (2 + part) * L::kMat, L::kSQ, 16 * mi, 16 * kk);
+        }
+#pragma unroll
+        for (int np = 0; np < kCn / 16; ++np) {
+          uint32_t bc[4], bbf[4];
+          frag_b_t(bc, sbase + L::kC, L::kSN, kCn * nq + 16 * np, 16 * kk);
+          frag_b_t(bbf, sbase + L::kB, L::kSN, kCn * nq + 16 * np, 16 * kk);
+#pragma unroll
+          for (int part = 0; part < kQParts; ++part) {
+            mma_16816(db[2 * np], aqt[part], bc[0], bc[1]);
+            mma_16816(db[2 * np + 1], aqt[part], bc[2], bc[3]);
+            mma_16816(dc[2 * np], aq[part], bbf[0], bbf[1]);
+            mma_16816(dc[2 * np + 1], aq[part], bbf[2], bbf[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kCn / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sum_db[n][e] += db[n][e];
+          sum_dc[n][e] += dc[n][e];
+        }
     }
   }
 
-  // dx_j = sum_i M_ij dy_i + exp(cs_L - cs_j) dt_j dS_out B_j + D dy_j
-  {
-    float acc[RP];
+  // dB, dC: the group's sums, once
+  if (n_on) {
 #pragma unroll
-    for (int r = 0; r < RP; ++r) acc[r] = 0.f;
-    gemm_rows<P, kTile>(acc, sMT, L::kSQ, sDY, L::kSX, 1);
-    const float d_skip = a.D[h];
-    const int p = threadIdx.x % P;
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = i0 + 8 * rr;
+      if (s0 + i >= a.S) continue;
+      const long long o = ((static_cast<long long>(b) * a.S + s0 + i) * a.G + grp) * N;
 #pragma unroll
-    for (int r = 0; r < RP; ++r) {
-      const int j = threadIdx.x / P + (kThreads / P) * r;
-      if (s0 + j >= a.S) continue;
-      const float o = acc[r] + sWl[j] * acc_sb[r] + d_skip * sDY[j * L::kSX + p];
-      dx[((static_cast<long long>(b) * a.S + s0 + j) * a.H + h) * P + p] =
-          __float2bfloat16_rn(o);
-    }
-  }
-  // dB_j = sum_i Q_ij C_i + exp(cs_L - cs_j) dt_j dS_out^T x_j, this head's;
-  // dC_i = sum_j Q_ij B_j + exp(cs_i) S_in^T dy_i, this head's
-  {
-    float acc_b[RN], acc_c[RN];
-#pragma unroll
-    for (int r = 0; r < RN; ++r) acc_b[r] = acc_c[r] = 0.f;
-    gemm_rows<N, kTile>(acc_b, sQT, L::kSQ, sC, L::kSB, 1);
-    gemm_rows<N, kTile>(acc_c, sQ, L::kSQ, sB, L::kSB, 1);
-    const int n = threadIdx.x % N;
-#pragma unroll
-    for (int r = 0; r < RN; ++r) {
-      const int j = threadIdx.x / N + (kThreads / N) * r;
-      if (s0 + j >= a.S) continue;
-      const long long o = ((static_cast<long long>(b) * a.S + s0 + j) * a.H + h) * N + n;
-      ws_db[o] = acc_b[r] + sWl[j] * acc_sx[r];
-      ws_dc[o] = acc_c[r] + sEcs[j] * acc_u[r];
+      for (int n = 0; n < kCn / 8; ++n) {
+        const int col = kCn * nq + 8 * n + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(dB + o + col) =
+            __floats2bfloat162_rn(sum_db[n][2 * rr], sum_db[n][2 * rr + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dC + o + col) =
+            __floats2bfloat162_rn(sum_dc[n][2 * rr], sum_dc[n][2 * rr + 1]);
+      }
     }
   }
 }
 
-// ---- 4. dB, dC: each group's heads summed in order ----------------------
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_group_sum_kernel(const float* __restrict__ ws_db, const float* __restrict__ ws_dc,
-                         __nv_bfloat16* __restrict__ dB, __nv_bfloat16* __restrict__ dC,
-                         long long total, int H, int G, int N) {
-  const int hg = H / G;
-  for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long n = e % N, g = (e / N) % G, row = e / (static_cast<long long>(N) * G);
-    const long long src = (row * H + g * hg) * N + n;
-    float sb = 0.f, sc = 0.f;
-    for (int k = 0; k < hg; ++k) {
-      sb += ws_db[src + static_cast<long long>(k) * N];
-      sc += ws_dc[src + static_cast<long long>(k) * N];
-    }
-    dB[e] = __float2bfloat16_rn(sb);
-    dC[e] = __float2bfloat16_rn(sc);
-  }
-}
-
-// ---- 5. dA, dD: each head's tile partials summed over (batch, tile) -----
+// ---- 3. dA, dD: each head's tile partials summed over (batch, tile) -----
+// A warp per head: lane l adds the partials l, l + 32, ... in order, then
+// the lanes' sums meet in a fixed butterfly.
 __global__ void ssd_bwd_head_sum_kernel(const float* __restrict__ ws_da,
                                         const float* __restrict__ ws_dd,
                                         float* __restrict__ dA, float* __restrict__ dD,
                                         int Bsz, int H, int T) {
-  for (int h = blockIdx.x * blockDim.x + threadIdx.x; h < H; h += gridDim.x * blockDim.x) {
-    float sa = 0.f, sd = 0.f;
-    for (int b = 0; b < Bsz; ++b) {
-      const long long base = (static_cast<long long>(b) * H + h) * T;
-      for (int t = 0; t < T; ++t) {
-        sa += ws_da[base + t];
-        sd += ws_dd[base + t];
-      }
-    }
+  const int h = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (h >= H) return;
+  float sa = 0.f, sd = 0.f;
+  for (int i = lane; i < Bsz * T; i += 32) {
+    const long long o = (static_cast<long long>(i / T) * H + h) * T + i % T;
+    sa += ws_da[o];
+    sd += ws_dd[o];
+  }
+  sa = warp_sum(sa);
+  sd = warp_sum(sd);
+  if (lane == 0) {
     dA[h] = sa;
     dD[h] = sd;
   }
 }
 
-// The workspace's parts, in floats, in this order: the two state
-// workspaces [B, H, T, P, N], exp(cs_L) [B, H, T], dB and dC per head
-// [B, S, H, N], dA and dD per tile [B, H, T].
+// The workspace's parts, in floats, in this order: the two states' hi / lo
+// planes [B, H, T, 2, P, N] bf16 (as many bytes as fp32 [B, H, T, P, N]),
+// dA and dD per tile [B, H, T].
 struct Workspace {
-  long long states, bht, heads;
+  long long states, bht;
   Workspace(int Bsz, int S, int H, int P, int N) {
     const long long T = (S + kTile - 1) / kTile;
     states = static_cast<long long>(Bsz) * H * T * P * N;
     bht = static_cast<long long>(Bsz) * H * T;
-    heads = static_cast<long long>(Bsz) * S * H * N;
   }
-  long long floats() const { return 2 * states + 3 * bht + 2 * heads; }
+  long long floats() const { return 2 * states + 2 * bht; }
 };
 
 template <int P, int N>
 int launch(const Args& a, int Bsz, __nv_bfloat16* dx, float* ddt, float* dA,
-           __nv_bfloat16* dB, __nv_bfloat16* dC, float* dD, float* ws,
-           cudaStream_t stream) {
-  using L = Smem<P, N>;
+           __nv_bfloat16* dB, __nv_bfloat16* dC, float* dD, float* ws, cudaStream_t stream) {
+  using WL = WalkLayout<P, N>;
+  using GL = GradLayout<P, N>;
   const Workspace w(Bsz, a.S, a.H, P, N);
-  float* ws_s = ws;
-  float* ws_d = ws_s + w.states;
-  float* ws_decay = ws_d + w.states;
-  float* ws_da = ws_decay + w.bht;
+  auto* ws_s = reinterpret_cast<__nv_bfloat16*>(ws);
+  auto* ws_d = reinterpret_cast<__nv_bfloat16*>(ws + w.states);
+  float* ws_da = ws + 2 * w.states;
   float* ws_dd = ws_da + w.bht;
-  float* ws_db = ws_dd + w.bht;
-  float* ws_dc = ws_db + w.heads;
-  const int chunk_bytes = L::kChunkFloats * 4, grad_bytes = L::kGradFloats * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_chunk_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, chunk_bytes);
+      ssd_bwd_walk_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, WL::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(ssd_bwd_grad_kernel<P, N>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, grad_bytes);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, GL::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 tiles(a.T, a.H, Bsz);
-  ssd_bwd_chunk_kernel<P, N><<<tiles, kThreads, chunk_bytes, stream>>>(a, ws_s, ws_d,
-                                                                       ws_decay);
+  ssd_bwd_walk_kernel<P, N><<<dim3(2, a.H, Bsz), WL::kThreads, WL::kBytes, stream>>>(a, ws_s,
+                                                                                     ws_d);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const dim3 lanes((P * N + kThreads - 1) / kThreads, a.H, Bsz);
-  ssd_bwd_scan_kernel<<<lanes, kThreads, 0, stream>>>(ws_s, ws_d, ws_decay, a.H, a.T, P * N);
+  ssd_bwd_grad_kernel<P, N><<<dim3(a.T, a.G, Bsz), kThreads, GL::kBytes, stream>>>(
+      a, ws_s, ws_d, dx, ddt, dB, dC, ws_da, ws_dd);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_grad_kernel<P, N><<<tiles, kThreads, grad_bytes, stream>>>(
-      a, ws_s, ws_d, dx, ddt, ws_db, ws_dc, ws_da, ws_dd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(Bsz) * a.S * a.G * N;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  ssd_bwd_group_sum_kernel<<<static_cast<int>(blocks < 65536 ? blocks : 65536), kThreads,
-                             0, stream>>>(ws_db, ws_dc, dB, dC, total, a.H, a.G, N);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_head_sum_kernel<<<(a.H + 127) / 128, 128, 0, stream>>>(ws_da, ws_dd, dA, dD,
-                                                                 Bsz, a.H, a.T);
+  ssd_bwd_head_sum_kernel<<<(a.H + 3) / 4, 128, 0, stream>>>(ws_da, ws_dd, dA, dD, Bsz,
+                                                             a.H, a.T);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -675,7 +968,7 @@ extern "C" long long repro_ssd_chunked_bwd_workspace_bytes(int Bsz, int S, int H
 // Inputs as repro_ssd_chunked_fwd_bf16's, with dy [B, S, H, P] bf16 like x
 // (its own strides). Outputs, contiguous: dx [B, S, H, P] bf16, ddt
 // [B, S, H] fp32, dA, dD [H] fp32, dB, dC [B, S, G, N] bf16. `workspace`:
-// repro_ssd_chunked_bwd_workspace_bytes of fp32 scratch, 16-byte aligned.
+// repro_ssd_chunked_bwd_workspace_bytes of scratch, 16-byte aligned.
 // Returns a cudaError_t.
 extern "C" int repro_ssd_chunked_bwd_bf16(
     const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,

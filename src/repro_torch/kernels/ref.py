@@ -101,17 +101,46 @@ def ssd_backward_reference(x: torch.Tensor, dt: torch.Tensor,
         return torch.autograd.grad(y, leaves, dy.float())
 
 
+# The fp32 operands of the SSD backward kernel's tensor-core products, each
+# split into a bf16 hi and lo part: x w and dy exp(cs) in the two walks, the
+# state entering a tile and the state gradient leaving it (stored as hi / lo
+# planes), and M, Q in the gradient pass.
+SPLIT_OPERANDS = ("xw", "dye", "s_in", "ds_out", "m", "q")
+
+
+def split_bf16(v: torch.Tensor, parts: int = 2) -> torch.Tensor:
+    """v as the kernel feeds it to a bf16 tensor-core product: hi =
+    bf16(v), lo = bf16(v - hi), summed exactly in fp32 (parts = 2); or hi
+    alone (parts = 1)."""
+    hi = v.bfloat16().float()
+    return hi if parts == 1 else hi + (v - hi).bfloat16().float()
+
+
 def ssd_backward_tiles(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                       dy: torch.Tensor, *, tile: int = TILE):
+                       dy: torch.Tensor, *, tile: int = TILE,
+                       split: bool = False, hi_only: tuple[str, ...] = ()):
     """The SSD backward kernel's algorithm (``csrc/ssd_bwd.cu``) in fp32
-    torch, at its tile size: per tile the local state and state-gradient
-    contributions, a forward walk over the tiles for the state entering
-    each and a reverse walk for the state gradient leaving each, then each
-    tile's gradients from those two and its own inputs, and the per-head
-    dB / dC summed over each group's heads. What the kernel computes, in
-    the kernel's formulas; the order of its fp32 sums is not repeated.
-    Shapes and returns as ``ssd_backward_reference``."""
+    torch, at its tile size, in its order: a forward walk over the tiles
+    for the state entering each (S <- S exp(cs_L) + (x w)^T B) and a reverse
+    walk for the state gradient leaving each (dS <- dS exp(cs_L) + (dy
+    exp(cs))^T C); then per (batch, group, tile) G = C B^T once and, for
+    each of the group's heads in order, that head's gradients from its two
+    states and its own inputs, dB / dC summed over the heads in head order.
+    The order of the fp32 sums inside a product is not repeated.
+
+    ``split`` rounds each fp32 operand of a tensor-core product
+    (``SPLIT_OPERANDS``) to its bf16 hi + lo parts, as the kernel does;
+    the operands named in ``hi_only`` keep the hi part alone (one bf16
+    rounding). Shapes and returns as ``ssd_backward_reference``."""
+    unknown = set(hi_only) - set(SPLIT_OPERANDS)
+    if unknown or (hi_only and not split):
+        raise ValueError(f"hi_only {hi_only}: names from {SPLIT_OPERANDS}, "
+                         "with split=True")
+
+    def rnd(name, v):
+        return split_bf16(v, 1 if name in hi_only else 2) if split else v
+
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     hg = h // g
@@ -123,17 +152,20 @@ def ssd_backward_tiles(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return t.reshape(b, nt, tile, *t.shape[2:])
 
     xt, dyt, dtt = tiles(x), tiles(dy), tiles(dt)
-    Bt = tiles(B).repeat_interleave(hg, dim=3)  # [b, nt, L, h, n]
-    Ct = tiles(C).repeat_interleave(hg, dim=3)
+    Bg, Cg = tiles(B), tiles(C)                         # [b, nt, L, g, n]
+    Bt = Bg.repeat_interleave(hg, dim=3)                # [b, nt, L, h, n]
+    Ct = Cg.repeat_interleave(hg, dim=3)
     A, D = A.float(), D.float()
     cs = torch.cumsum(dtt * A, dim=2)                  # [b, nt, L, h]
     cs_last = cs[:, :, -1]                              # [b, nt, h]
     ecs = torch.exp(cs)
     wl = torch.exp(cs_last[:, :, None] - cs) * dtt      # exp(cs_L - cs_j) dt_j
 
-    # the local contributions, then the two walks over the tiles
-    s_loc = torch.einsum("btlh,btlhp,btlhn->bthpn", wl, xt, Bt)
-    d_loc = torch.einsum("btlh,btlhp,btlhn->bthpn", ecs, dyt, Ct)
+    # the two walks, each tile's contribution a product of split operands
+    s_loc = torch.einsum("btlhp,btlhn->bthpn", rnd("xw", wl[..., None] * xt),
+                         Bt)
+    d_loc = torch.einsum("btlhp,btlhn->bthpn",
+                         rnd("dye", ecs[..., None] * dyt), Ct)
     decay = torch.exp(cs_last)[..., None, None]         # [b, nt, h, 1, 1]
     s_in, ds_out = [None] * nt, [None] * nt
     carry = torch.zeros((b, h, p, n))
@@ -144,16 +176,19 @@ def ssd_backward_tiles(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for t in reversed(range(nt)):
         ds_out[t] = carry
         carry = decay[:, t] * carry + d_loc[:, t]
-    s_in, ds_out = torch.stack(s_in, 1), torch.stack(ds_out, 1)
+    # stored as hi / lo planes
+    s_in = rnd("s_in", torch.stack(s_in, 1))
+    ds_out = rnd("ds_out", torch.stack(ds_out, 1))
 
-    # each tile's gradients; exp(cs_i - cs_j) only on and below the diagonal
+    # the gradient pass: G once per (batch, group, tile), then per head;
+    # exp(cs_i - cs_j) only on and below the diagonal
+    G = torch.einsum("btign,btjgn->btgij", Cg, Bg).repeat_interleave(hg, 2)
     lower = torch.tril(torch.ones((tile, tile), dtype=torch.bool))
     diff = cs.transpose(2, 3)[..., :, None] - cs.transpose(2, 3)[..., None, :]
     w = torch.exp(torch.where(lower, diff, float("-inf")))   # [b, nt, h, i, j]
-    G = torch.einsum("btihn,btjhn->bthij", Ct, Bt)
     q = torch.einsum("btihp,btjhp->bthij", dyt, xt)
     dt_j = dtt.transpose(2, 3)[..., None, :]
-    M, Q, Fm = G * w * dt_j, q * w * dt_j, G * w * q
+    M, Q, Fm = rnd("m", G * w * dt_j), rnd("q", w * dt_j * q), G * w * q
     U = torch.einsum("bthpn,btihp->btihn", s_in, dyt)        # S_in^T dy_i
     dsb = torch.einsum("bthpn,btjhn->btjhp", ds_out, Bt)     # dS_out B_j
     dsx = torch.einsum("bthpn,btjhp->btjhn", ds_out, xt)     # dS_out^T x_j
@@ -175,8 +210,12 @@ def ssd_backward_tiles(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     def untile(t):
         return t.reshape(b, nt * tile, *t.shape[3:])[:, :s]
 
-    dB = untile(dBh).reshape(b, s, g, hg, n).sum(3)
-    dC = untile(dCh).reshape(b, s, g, hg, n).sum(3)
+    # dB, dC: each group's heads added in head order
+    dBh = untile(dBh).reshape(b, s, g, hg, n)
+    dCh = untile(dCh).reshape(b, s, g, hg, n)
+    dB, dC = dBh[:, :, :, 0], dCh[:, :, :, 0]
+    for k in range(1, hg):
+        dB, dC = dB + dBh[:, :, :, k], dC + dCh[:, :, :, k]
     return untile(dx), untile(ddt), dA, dB, dC, dD
 
 

@@ -10,11 +10,14 @@ part, over tiles of ``TILE`` positions loaded ahead with ``cp.async``. Its
 plain version is ``repro_torch.kernels.ref.ssd_chunked_reference``.
 
 The backward (``csrc/ssd_bwd.cu``) had no TPU kernel: it replaces
-``jax.grad`` of the JAX model's ``ssd_chunked``. It computes the same
-tiles' gradients chunk-parallel in fp32 and sums across blocks in a fixed
-order, so two calls give the same bits. Its plain version is
+``jax.grad`` of the JAX model's ``ssd_chunked``. Three launches: two walks
+over the tiles (the state entering each tile, the state gradient leaving
+it, stored as bf16 hi / lo planes), a gradient pass per (tile, group)
+over the group's heads in order, and the sums of dA / dD; every product
+on tensor cores with the forward's hi / lo splits, every sum across blocks
+in a fixed order, so two calls give the same bits. Its plain version is
 ``repro_torch.kernels.ref.ssd_backward_reference``; its algorithm, in
-torch, ``ssd_backward_tiles``.
+torch, ``ssd_backward_tiles`` (``split=True`` for the kernel's roundings).
 
 Unlike the Pallas wrapper these take the model layout ``[B, S, H, P]`` /
 ``[B, S, G, N]`` and hand the kernels strides, so nothing is transposed or
@@ -151,9 +154,10 @@ ssd_chunked_kernel.launches = 0
 
 
 def ssd_bwd_workspace_bytes(b: int, s: int, h: int, p: int, n: int) -> int:
-    """The backward's fp32 scratch for these shapes, in bytes: the state
-    entering each tile and the state gradient leaving it ([B, H, S / TILE,
-    P, N] each), dB and dC per head, per-tile sums."""
+    """The backward's scratch for these shapes, in bytes: the state
+    entering each tile and the state gradient leaving it, each as bf16 hi
+    and lo planes ([B, H, S / TILE, 2, P, N], as many bytes as fp32), and
+    dA / dD per (batch, head, tile)."""
     return int(_bwd_entry()[1](b, s, h, p, n))
 
 
