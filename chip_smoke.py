@@ -8,8 +8,10 @@ Phases, one line or more each; any failure exits non-zero:
   2. build: every CUDA kernel from src/repro_torch/csrc, with ptxas's
      register and shared-memory report.
   3. kernels: each kernel (flash attention, the SSD scan) against its plain
-     PyTorch version at the serving paths' shapes and their edges, then its
-     time and achieved TFLOP/s beside the plain version's time, the
+     PyTorch version at the serving paths' shapes and their edges (and
+     zamba2-1.2b's: the flash kernels at 32 heads of 64 with a window of
+     4096, the SSD at 64 heads with N = 64), then its time (at each
+     model's shape) and achieved TFLOP/s beside the plain version's time, the
      library call's (SDPA; none for SSD) and its bound on the card; for the
      flash backward also the difference between two calls on the same
      inputs (its sums across blocks are atomic) and its kernels' device
@@ -17,17 +19,20 @@ Phases, one line or more each; any failure exits non-zero:
      across two calls. The SSD backward: all six gradients against
      autograd of the plain version at the training shape and its edges,
      two calls bit-equal, its workspace, time and bound.
-  4. reference: tiny qwen2.5-3b and tiny mamba2-370m in bf16 on the card
-     against the plain CPU path.
-  5. serve, once per model: qwen2.5-3b (36 layers) and mamba2-370m (48
-     layers), at full width, bf16, random weights from a seed, each answer
-     8 requests through ServeEngine; the kernels' launch counts prove the
-     prefill ran through its kernel; prefill(S) is held against
+  4. reference: tiny qwen2.5-3b, mamba2-370m and zamba2-1.2b (five
+     layers: three calls of its shared block, whose window of 64 the
+     prompts of 100 pass) in bf16 on the card against the plain CPU path.
+  5. serve, once per model: qwen2.5-3b (36 layers), mamba2-370m (48
+     layers) and zamba2-1.2b (38 Mamba2 layers, 7 shared-block calls), at
+     full width, bf16, random weights from a seed, each answer 8 requests
+     through ServeEngine; the kernels' launch counts prove the prefill ran
+     through its kernels (a flash launch per attention call, an SSD launch
+     per Mamba2 layer, nothing else); prefill(S) is held against
      prefill(S-1) + decode_step; torch.profiler splits one prefill and
      four decode steps into device busy and idle time.
-  6. reference train: one AdamW step of tiny qwen2.5-3b and of tiny
-     mamba2-370m (bf16 over fp32 masters) on the card against the plain
-     CPU path: loss, gradient norm and every gradient leaf.
+  6. reference train: one AdamW step of each tiny model of phase 4 (bf16
+     over fp32 masters) on the card against the plain CPU path: loss,
+     gradient norm and every gradient leaf.
   7. train: qwen2.5-3b at full width (fp32 masters, bf16 compute, remat)
      takes 8 AdamW steps on the synthetic stream at B = 2, S = 2048; the
      loss must fall, every step must launch the forward flash kernel 72
@@ -35,7 +40,10 @@ Phases, one line or more each; any failure exits non-zero:
      and peak memory stay under 80 GB; step time, tokens/s, model FLOPs
      utilisation and a torch.profiler split of one step. Then mamba2-370m
      the same way at B = 8, S = 2048: 96 SSD forward launches a step (48
-     layers, forward and recompute) and 48 backward, no flash launch.
+     layers, forward and recompute) and 48 backward, no flash launch. Then
+     zamba2-1.2b at B = 8, S = 2048: 14 flash forward and 7 backward, 76
+     SSD forward and 38 backward launches a step; its MFU counts the
+     shared block once per call.
   8. resume, under torch.use_deterministic_algorithms(True): qwen2.5-3b at
      full width trains 6 steps (run A), then anew 3 steps, saves a striped
      checkpoint of params and AdamW state (40.84 GB) into build/, frees the
@@ -64,6 +72,7 @@ result as JSON. Exits non-zero without a CUDA card.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -147,10 +156,13 @@ LSE_ABS_TOL = 1e-3
 TRAIN_GRAD_ROW_RTOL = 5e-2
 TRAIN_LOSS_RTOL = 1e-2
 
-QWEN, MAMBA = "qwen2.5-3b", "mamba2-370m"
+QWEN, MAMBA, ZAMBA = "qwen2.5-3b", "mamba2-370m", "zamba2-1.2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 8, 3e-4
 # each arch's training batch at TRAIN_SEQ: qwen2.5-3b's fits 80 GB at 2
-TRAIN_BATCHES = {QWEN: TRAIN_BATCH, MAMBA: 8}
+TRAIN_BATCHES = {QWEN: TRAIN_BATCH, MAMBA: 8, ZAMBA: 8}
+# the card-vs-CPU checks' tiny configs: reduced(), with five layers for
+# zamba2-1.2b, so that its shared block runs three times (layers 0, 2, 4)
+TINY_OVERRIDES = {ZAMBA: {"num_layers": 5}}
 CARD_BYTES = 80e9
 BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
 PROMPT_LENS = (256, 1024)
@@ -240,18 +252,28 @@ BWD_CASES = [("train", TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128, 0, True),
              ("window", 2, 2048, 16, 2, 128, 256, True),
              ("d64", 2, 512, 8, 2, 64, 0, True),
              ("noncausal", 2, 1000, 16, 2, 128, 0, False),
-             ("group1", 2, 512, 4, 4, 128, 0, True)]
+             ("group1", 2, 512, 4, 4, 128, 0, True),
+             ("zamba2", TRAIN_BATCHES[ZAMBA], TRAIN_SEQ, 32, 32, 64, 4096,
+              True)]
+# the timed shapes of the flash backward: the training paths' (qwen2.5-3b's
+# first, whose time the kernels line carries)
+BWD_TIMED = ("train", "zamba2")
 # (name, B, S, H, P, G, N) of the SSD backward's checks: mamba2-370m's
 # training shape, then a ragged S, two groups, P = 32 with N = 16, N = 64,
-# all under the model's dt/A draws (ssd_train_inputs); then one under the
-# JAX tests' draws (ssd_inputs), whose dt ~ 1 makes dx lean on M: one bf16
-# rounding of M (its lo part lost) errs ~8e-2 there, ~5e-3 under the
-# model's (kernels/ref.py::ssd_backward_tiles, split=True)
+# zamba2-1.2b's training shape (H = 64, N = 64), all under the model's
+# dt/A draws (ssd_train_inputs); then one under the JAX tests' draws
+# (ssd_inputs), whose dt ~ 1 makes dx lean on M: one bf16 rounding of M
+# (its lo part lost) errs ~8e-2 there, ~5e-3 under the model's
+# (kernels/ref.py::ssd_backward_tiles, split=True)
 SSD_BWD_CASES = [("train", TRAIN_BATCHES[MAMBA], TRAIN_SEQ, 32, 64, 1, 128),
                  ("ragged", 2, 1000, 32, 64, 1, 128),
                  ("grouped", 2, 512, 8, 64, 2, 128),
                  ("p32n16", 2, 300, 8, 32, 1, 16),
-                 ("n64", 2, 260, 8, 64, 2, 64)]
+                 ("n64", 2, 260, 8, 64, 2, 64),
+                 ("zamba2", TRAIN_BATCHES[ZAMBA], TRAIN_SEQ, 64, 64, 1, 64)]
+# the timed shapes of the SSD backward, mamba2-370m's first (the kernels
+# line's)
+SSD_BWD_TIMED = ("train", "zamba2")
 SSD_BWD_JAX_CASES = [("jaxdt", 2, 512, 8, 64, 1, 128)]
 
 
@@ -410,12 +432,15 @@ def phase_kernels(card: str) -> dict:
     # (name, B, S, Hq, Hkv, D, window, causal): the serving path's prefill
     # shape first (8 prompts padded to 1024, qwen2.5-3b heads), then its
     # variants; non-causal at S = 1000, where only the `kpos < Sk` mask
-    # hides the zero keys past Sk in the last 128-key tile
+    # hides the zero keys past Sk in the last 128-key tile; then
+    # zamba2-1.2b's shared block at the same prefill (32 heads of 64, MHA,
+    # its window of 4096)
     cases = [("main", BATCH, PROMPT_LENS[1], 16, 2, 128, 0, True),
              ("ragged", BATCH, 1000, 16, 2, 128, 0, True),
              ("window", BATCH, 1024, 16, 2, 128, 256, True),
              ("d64", 4, 512, 8, 2, 64, 0, True),
-             ("noncausal", 2, 1000, 16, 2, 128, 0, False)]
+             ("noncausal", 2, 1000, 16, 2, 128, 0, False),
+             ("zamba2", BATCH, PROMPT_LENS[1], 32, 32, 64, 4096, True)]
     worst, failed = 0.0, []
     for name, b, s, hq, hkv, d, window, causal in cases:
         q, k, v = qkv(b, s, hq, hkv, d)
@@ -439,29 +464,36 @@ def phase_kernels(card: str) -> dict:
     if failed:
         fail("kernels", f"flash_attention disagrees with plain: {failed}")
 
-    _, b, s, hq, hkv, d, _, _ = cases[0]
-    q, k, v = qkv(b, s, hq, hkv, d)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=50)
-    lse_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
-                                             return_lse=True), iters=50)
-    plain_ms = cuda_ms(lambda: attention_reference(qt, kt, vt, causal=True),
-                       iters=5, warmup=1)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters=50)
-    bound_ms, bound_by = attention_bound(b, hq, hkv, s, d)
-    tflops = attention_flops(b, hq, s, d) / ms / 1e9
-    say("kernels", f"flash_attention main: {ms:.4f} ms ({tflops:.1f} TFLOP/s"
-        f"), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
-        f"({library_ms / ms:.3f}x the kernel's speed), bound {bound_ms:.4f} "
-        f"ms ({bound_by}, {100 * bound_ms / ms:.1f}% reached); with the "
-        f"LSE written (training) {lse_ms:.4f} ms, on {card}")
+    timed = {}
+    for name in ("main", "zamba2"):
+        _, b, s, hq, hkv, d, window, _ = next(c for c in cases
+                                              if c[0] == name)
+        # a window past S is plain causal attention, as SDPA's is_causal
+        assert not window or window >= s
+        q, k, v = qkv(b, s, hq, hkv, d)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                             window=window), iters=50)
+        lse_ms = cuda_ms(lambda: flash_attention(
+            q, k, v, causal=True, window=window, return_lse=True), iters=50)
+        plain_ms = cuda_ms(lambda: attention_reference(
+            qt, kt, vt, causal=True, window=window), iters=5, warmup=1)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=50)
+        bound_ms, bound_by = attention_bound(b, hq, hkv, s, d)
+        tflops = attention_flops(b, hq, s, d) / ms / 1e9
+        say("kernels", f"flash_attention {name}: {ms:.4f} ms ({tflops:.1f} "
+            f"TFLOP/s), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+            f"({library_ms / ms:.3f}x the kernel's speed), bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% "
+            f"reached); with the LSE written (training) {lse_ms:.4f} ms, on "
+            f"{card}")
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "launches": None, "max_abs_err": worst, **timed["main"]}
 
 
 def phase_flash_bwd_kernels(card: str) -> tuple[dict, dict]:
@@ -488,10 +520,12 @@ def phase_flash_bwd_kernels(card: str) -> tuple[dict, dict]:
 
     def sdpa(q, k, v, causal, window):
         """SDPA in its layout on leaves that require grad, as the
-        library's yardstick: (inputs, output)."""
+        library's yardstick: (inputs, output). A window past Sq hides
+        nothing: plain (causal) attention."""
         qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         mask = None
+        window = window if window < q.shape[1] else 0
         if window:
             r = torch.arange(q.shape[1], device="cuda")[:, None]
             c = torch.arange(k.shape[1], device="cuda")[None, :]
@@ -556,69 +590,98 @@ def phase_flash_bwd_kernels(card: str) -> tuple[dict, dict]:
     if failed:
         fail("kernels", f"flash_attention_bwd disagrees with plain: {failed}")
 
-    _, b, s, hq, hkv, d, window, causal = cases[0]
-    q, k, v, do = (randn(b, s, h, d) for h in (hq, hkv, hkv, hq))
-    _, lse = flash_attention(q, k, v, return_lse=True)
+    timed = {}
+    for name in BWD_TIMED:
+        _, b, s, hq, hkv, d, window, causal = next(c for c in cases
+                                                   if c[0] == name)
+        q, k, v, do = (randn(b, s, h, d) for h in (hq, hkv, hkv, hq))
+        _, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+        timed[name] = _time_flash_bwd(card, name, q, k, v, lse, do, causal,
+                                      window, sdpa, heads_first)
+        del q, k, v, do, lse
+    det_ms = timed["train"].pop("det_ms")
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/models/attention.py:51",
+             "launches": None, "max_abs_err": worst, **timed["train"]}
+    return entry, dict(entry, name="flash_attention_bwd_deterministic",
+                       max_abs_err=det_worst, ms=det_ms)
+
+
+def _time_flash_bwd(card, name, q, k, v, lse, do, causal, window, sdpa,
+                    heads_first) -> dict:
+    """The flash backward's time at one shape beside its plain version,
+    SDPA's backward and its bound; at the first timed shape also the
+    deterministic path, two fast calls compared, and the profiler's split.
+    Returns the kernels-line numbers (and the deterministic path's ms)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
+    from repro_torch.kernels.ref import (attention_backward_reference,
+                                         row_rel_err)
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    kw = dict(causal=causal, window=window)
     # the kernel and SDPA's backward timed in turn, round by round, so
     # that a change in the host or the card's clocks during the call
     # moves both: the medians are the table's numbers
     leaves, o_lib = sdpa(q, k, v, causal, window)
     do_t = do.transpose(1, 2)
-    rounds = [(cuda_ms(lambda: flash_attention_bwd(q, k, v, lse, do),
+    rounds = [(cuda_ms(lambda: flash_attention_bwd(q, k, v, lse, do, **kw),
                        iters=10),
                cuda_ms(lambda: torch.autograd.grad(
                    o_lib, leaves, do_t, retain_graph=True), iters=10))
               for _ in range(YARDSTICK_ROUNDS)]
+    del leaves, o_lib
     ms = statistics.median(r[0] for r in rounds)
     library_ms = statistics.median(r[1] for r in rounds)
-    say("kernels", f"flash_attention_bwd train, kernel / SDPA backward in "
+    say("kernels", f"flash_attention_bwd {name}, kernel / SDPA backward in "
         f"{YARDSTICK_ROUNDS} alternating rounds of 10 calls: "
         f"{', '.join(f'{a:.4f}/{b:.4f}' for a, b in rounds)} ms; medians "
         f"{ms:.4f} / {library_ms:.4f} ms, on {card}")
-    det_ms = cuda_ms(lambda: flash_attention_bwd_deterministic(
-        q, k, v, lse, do), iters=20)
-    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True),
+    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True, **kw),
                      iters=20)
     plain_ms = cuda_ms(lambda: attention_backward_reference(
-        *heads_first(q, k, v, do)), iters=3, warmup=1)
+        *heads_first(q, k, v, do), **kw), iters=3, warmup=1)
     pairs = unmasked_pairs(s, s, causal, window)
     bound_ms, bound_by = attention_bwd_bound(b, hq, hkv, s, d, pairs)
     tflops = 10 * d * pairs * b * hq / ms / 1e9
-    say("kernels", f"flash_attention_bwd train: {ms:.4f} ms ({tflops:.1f} "
+    say("kernels", f"flash_attention_bwd {name}: {ms:.4f} ms ({tflops:.1f} "
         f"TFLOP/s at 10*D per pair), plain {plain_ms:.4f} ms, SDPA backward "
         f"{library_ms:.4f} ms ({library_ms / ms:.3f}x the kernel's speed), "
         f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% "
         f"reached); forward with the LSE at this shape {fwd_ms:.4f} ms, on "
         f"{card}")
-    say("kernels", f"flash_bwd deterministic train: {det_ms:.4f} ms "
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    if name != BWD_TIMED[0]:
+        return out
+    det_ms = cuda_ms(lambda: flash_attention_bwd_deterministic(
+        q, k, v, lse, do, **kw), iters=20)
+    say("kernels", f"flash_bwd deterministic {name}: {det_ms:.4f} ms "
         f"({10 * d * pairs * b * hq / det_ms / 1e9:.1f} TFLOP/s), "
         f"{det_ms / ms:.3f}x the fast path's {ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({100 * bound_ms / det_ms:.1f}% reached), on "
         f"{card}")
     # The kernels sum dQ, dK and dV across blocks by fp32 atomic adds, in the
     # order the blocks finish: two calls on the same inputs, compared.
-    first, second = (flash_attention_bwd(q, k, v, lse, do) for _ in range(2))
+    first, second = (flash_attention_bwd(q, k, v, lse, do, **kw)
+                     for _ in range(2))
     torch.cuda.synchronize()
     runs = [row_rel_err(x, y, floor=GRAD_ROW_FLOOR)
             for x, y in zip(first, second)]
     equal = [torch.equal(x, y) for x, y in zip(first, second)]
-    say("kernels", f"flash_attention_bwd train run to run: dq/dk/dv worst row "
-        f"rel L2 difference {runs[0]:.3e}/{runs[1]:.3e}/{runs[2]:.3e} (floor "
-        f"{GRAD_ROW_FLOOR} x median), bit-equal {equal[0]}/{equal[1]}/"
-        f"{equal[2]}")
-    profile_window("flash_bwd train", lambda: flash_attention_bwd(
-        q, k, v, lse, do), card, share_of="flash_bwd")
-    profile_window("flash_bwd deterministic train",
-                   lambda: flash_attention_bwd_deterministic(q, k, v, lse, do),
-                   card, share_of="flash_bwd")
-    entry = {"name": "flash_attention_bwd", "route": "cuda",
-             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-             "replaces": "src/repro/models/attention.py:51",
-             "launches": None, "max_abs_err": worst, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}
-    return entry, dict(entry, name="flash_attention_bwd_deterministic",
-                       max_abs_err=det_worst, ms=det_ms)
+    say("kernels", f"flash_attention_bwd {name} run to run: dq/dk/dv worst "
+        f"row rel L2 difference {runs[0]:.3e}/{runs[1]:.3e}/{runs[2]:.3e} "
+        f"(floor {GRAD_ROW_FLOOR} x median), bit-equal {equal[0]}/"
+        f"{equal[1]}/{equal[2]}")
+    profile_window(f"flash_bwd {name}", lambda: flash_attention_bwd(
+        q, k, v, lse, do, **kw), card, share_of="flash_bwd")
+    profile_window(f"flash_bwd deterministic {name}",
+                   lambda: flash_attention_bwd_deterministic(
+                       q, k, v, lse, do, **kw), card, share_of="flash_bwd")
+    return dict(out, det_ms=det_ms)
 
 
 def ssd_inputs(gen, b: int, s: int, h: int, p: int, g: int, n: int):
@@ -665,14 +728,15 @@ def phase_ssd_kernels(card: str) -> dict:
     heads = scfg.expand * get_config(MAMBA).d_model // scfg.head_dim
     # (name, B, S, H, P, G, N): the serving path's prefill shape first (8
     # prompts padded to 1024, mamba2-370m's heads and state), then its
-    # variants (S one position into a second tile) and tiny mamba2-370m's
-    # shape
+    # variants (S one position into a second tile), tiny mamba2-370m's
+    # shape and zamba2-1.2b's prefill (64 heads, N = 64)
     cases = [("main", BATCH, PROMPT_LENS[1], heads, scfg.head_dim, 1,
               scfg.state_dim),
              ("ragged", BATCH, 1000, heads, scfg.head_dim, 1, scfg.state_dim),
              ("s65", 2, 65, heads, scfg.head_dim, 1, scfg.state_dim),
              ("grouped", 2, 512, 8, 64, 2, 64),
-             ("tiny", 2, 100, 16, 32, 1, 16)]
+             ("tiny", 2, 100, 16, 32, 1, 16),
+             ("zamba2", BATCH, PROMPT_LENS[1], 64, 64, 1, 64)]
     worst, failed = 0.0, []
     for name, b, s, h, p, g, n in cases:
         args = ssd_inputs(gen, b, s, h, p, g, n)
@@ -695,23 +759,27 @@ def phase_ssd_kernels(card: str) -> dict:
     if failed:
         fail("kernels", f"ssd disagrees with plain: {failed}")
 
-    _, b, s, h, p, g, n = cases[0]
-    args = ssd_inputs(gen, b, s, h, p, g, n)
-    ms = cuda_ms(lambda: ssd_chunked_kernel(*args), iters=20)
-    plain_ms = cuda_ms(lambda: ssd_chunked_reference(*args, chunk=chunk),
-                       iters=5, warmup=1)
-    bound_ms, bound_by = ssd_bound(b, s, h, p, g, n)
-    fp32_ms, fp32_by = ssd_bound(b, s, h, p, g, n, peak_flops=PEAK_FP32_FLOPS)
-    tflops = ssd_flops(b, s, h, p, g, n) / ms / 1e9
-    say("kernels", f"ssd main: {ms:.4f} ms ({tflops:.1f} TFLOP/s), plain "
-        f"{plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
-        f"({bound_by}, bf16 tensor cores, the kernel's arithmetic; "
-        f"{100 * bound_ms / ms:.1f}% reached), fp32 CUDA-core bound "
-        f"{fp32_ms:.4f} ms ({fp32_by}) on {card}")
+    timed = {}
+    for name in ("main", "zamba2"):
+        _, b, s, h, p, g, n = next(c for c in cases if c[0] == name)
+        args = ssd_inputs(gen, b, s, h, p, g, n)
+        ms = cuda_ms(lambda: ssd_chunked_kernel(*args), iters=20)
+        plain_ms = cuda_ms(lambda: ssd_chunked_reference(*args, chunk=chunk),
+                           iters=5, warmup=1)
+        bound_ms, bound_by = ssd_bound(b, s, h, p, g, n)
+        fp32_ms, fp32_by = ssd_bound(b, s, h, p, g, n,
+                                     peak_flops=PEAK_FP32_FLOPS)
+        tflops = ssd_flops(b, s, h, p, g, n) / ms / 1e9
+        say("kernels", f"ssd {name}: {ms:.4f} ms ({tflops:.1f} TFLOP/s), "
+            f"plain {plain_ms:.4f} ms, no library call, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, bf16 tensor cores, the "
+            f"kernel's arithmetic; {100 * bound_ms / ms:.1f}% reached), "
+            f"fp32 CUDA-core bound {fp32_ms:.4f} ms ({fp32_by}) on {card}")
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
     return {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:27", "launches": None,
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": worst, **timed["main"]}
 
 
 def phase_ssd_bwd_kernels(card: str) -> dict:
@@ -756,28 +824,36 @@ def phase_ssd_bwd_kernels(card: str) -> dict:
         fail("kernels", f"ssd_chunked_bwd_kernel disagrees with plain: "
              f"{failed}")
 
-    _, b, s, h, p, g, n = SSD_BWD_CASES[0]
-    args = ssd_train_inputs(gen, b, s, h, p, g, n)
-    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").bfloat16()
-    ws = ssd_bwd_workspace_bytes(b, s, h, p, n)
-    ms = cuda_ms(lambda: ssd_chunked_bwd_kernel(*args, dy), iters=10)
-    plain_ms = cuda_ms(lambda: ssd_backward_reference(*args, dy, chunk=chunk),
-                       iters=2, warmup=1)
-    bound_ms, bound_by = ssd_bwd_bound(b, s, h, p, g, n)
-    flops = ssd_bwd_flops(b, s, h, p, g, n)
-    say("kernels", f"ssd_bwd train: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-        f"TFLOP/s of {flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, "
-        f"library: none, bound {bound_ms:.4f} ms ({bound_by}, bf16 tensor "
-        f"cores, the kernel's arithmetic; {100 * bound_ms / ms:.1f}% "
-        f"reached); workspace {ws} bytes ({ws / 1e9:.3f} GB: both states per"
-        f" tile as bf16 hi/lo planes, dA/dD per tile), on {card}")
-    profile_window("ssd_bwd train", lambda: ssd_chunked_bwd_kernel(*args, dy),
-                   card, share_of="ssd_bwd")
+    timed = {}
+    for name in SSD_BWD_TIMED:
+        _, b, s, h, p, g, n = next(c for c in SSD_BWD_CASES if c[0] == name)
+        args = ssd_train_inputs(gen, b, s, h, p, g, n)
+        dy = torch.randn((b, s, h, p), generator=gen,
+                         device="cuda").bfloat16()
+        ws = ssd_bwd_workspace_bytes(b, s, h, p, n)
+        ms = cuda_ms(lambda: ssd_chunked_bwd_kernel(*args, dy), iters=10)
+        plain_ms = cuda_ms(lambda: ssd_backward_reference(*args, dy,
+                                                          chunk=chunk),
+                           iters=2, warmup=1)
+        bound_ms, bound_by = ssd_bwd_bound(b, s, h, p, g, n)
+        flops = ssd_bwd_flops(b, s, h, p, g, n)
+        say("kernels", f"ssd_bwd {name} B={b} S={s} H={h} P={p} G={g} N={n}:"
+            f" {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of "
+            f"{flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, library: "
+            f"none, bound {bound_ms:.4f} ms ({bound_by}, bf16 tensor cores, "
+            f"the kernel's arithmetic; {100 * bound_ms / ms:.1f}% reached); "
+            f"workspace {ws} bytes ({ws / 1e9:.3f} GB: both states per tile "
+            f"as bf16 hi/lo planes, dA/dD per tile), on {card}")
+        profile_window(f"ssd_bwd {name}",
+                       lambda: ssd_chunked_bwd_kernel(*args, dy), card,
+                       share_of="ssd_bwd")
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+        del args, dy
     return {"name": "ssd_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_bwd.cu",
             "replaces": "src/repro/models/ssm.py:37", "launches": None,
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": worst, **timed[SSD_BWD_TIMED[0]]}
 
 
 def launch_counters() -> dict:
@@ -792,9 +868,29 @@ def launch_counters() -> dict:
             "ssd_bwd": ssd_chunked_bwd_kernel}
 
 
-def phase_serve(card: str, arch: str, kernel: str) -> int:
-    """Serves ``arch`` at full width; returns ``kernel``'s launch count
-    over the main path, which must be one prefill's, one per layer."""
+def prefill_launches(cfg) -> dict:
+    """Each forward kernel's launches in one prefill (or one training
+    forward) of ``cfg``: the flash forward once per attention call (a
+    layer each in the dense family, the ceil(L / every) calls of the
+    hybrid's shared block), the SSD forward once per Mamba2 layer."""
+    every = cfg.shared_attention_every
+    calls = {"dense": cfg.num_layers, "ssm": 0,
+             "hybrid": -(-cfg.num_layers // max(every, 1))}[cfg.arch_type]
+    return {"flash_attention": calls,
+            "ssd": 0 if cfg.arch_type == "dense" else cfg.num_layers}
+
+
+def tiny_config(arch: str):
+    """The card-vs-CPU checks' config: ``arch`` reduced, with
+    TINY_OVERRIDES."""
+    from repro_torch.configs import get_config, reduced
+    return reduced(get_config(arch), **TINY_OVERRIDES.get(arch, {}))
+
+
+def phase_serve(card: str, arch: str) -> dict:
+    """Serves ``arch`` at full width; returns every kernel's launches over
+    the main path, which must be one prefill's (``prefill_launches``) and
+    nothing else."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -852,13 +948,14 @@ def phase_serve(card: str, arch: str, kernel: str) -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model.prefill, model.decode_step = entry_points
 
-    # one prefill for the batch, one launch per layer; no other kernel
-    want = {name: cfg.num_layers if name == kernel else 0
-            for name in counters}
+    # one prefill for the batch; no other kernel
+    want = dict.fromkeys(counters, 0)
+    want.update(prefill_launches(cfg))
     if counts != want:
         fail("serve", f"{arch}: kernel launches {counts}, expected {want} "
-             f"({cfg.num_layers} layers x 1 prefill)")
-    launches = counts[kernel]
+             f"(one prefill: a flash launch per attention call, an SSD "
+             f"launch per Mamba2 layer)")
+    launches = ", ".join(f"{k} {n}" for k, n in counts.items() if n)
     if len(finite) != 1 + NEW_TOKENS or not all(bool(f) for f in finite):
         fail("serve", f"non-finite logits in the main path ({len(finite)} "
              "calls watched)")
@@ -870,7 +967,7 @@ def phase_serve(card: str, arch: str, kernel: str) -> int:
     say("serve", f"{arch} generate: {BATCH} requests, prompts {lens.min()}-"
         f"{lens.max()}, {n_tok} tokens in {wall:.3f} s = "
         f"{n_tok / wall:.1f} tok/s, peak memory {peak_gb:.2f} GB, "
-        f"{kernel} launches {launches}, logits of all {len(finite)} "
+        f"launches {launches}, logits of all {len(finite)} "
         f"prefill/decode calls finite, on {card}")
 
     # The same batch again through the model's entry points, timed apart.
@@ -929,14 +1026,15 @@ def phase_serve(card: str, arch: str, kernel: str) -> int:
                                                      unembed=unembed)
                                    for i in range(4)])):
         profile_window(f"{arch} {name}", fn, card)
-    return launches
+    return counts
 
 
 def profile_window(name: str, fn, card: str, *, grad: bool = False,
-                   share_of: str | None = None, top: int = 6) -> None:
+                   share_of: str | tuple = (), top: int = 6) -> None:
     """Device busy share and the ``top`` kernels of one call, from
     torch.profiler: kernel time summed over the window's wall time; with
-    ``share_of``, also the share of the kernels whose name holds it, and
+    ``share_of`` (a name or several), also the share of the kernels whose
+    name holds it, and
     each of them."""
     import torch
     from torch.autograd import DeviceType
@@ -959,32 +1057,35 @@ def profile_window(name: str, fn, card: str, *, grad: bool = False,
     for us, count, key in sorted(rows, reverse=True)[:top]:
         say("profile", f"  {name}: {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f}%"
             f" x{count} {key[:90]}")
-    if share_of and busy_us:
-        mine = [r for r in rows if share_of in r[2]]
+    for key in ([share_of] if isinstance(share_of, str) else share_of):
+        if not busy_us:
+            break
+        mine = [r for r in rows if key in r[2]]
         us = sum(r[0] for r in mine)
-        say("profile", f"  {name}: kernels named *{share_of}*: {us / 1e3:.3f} "
+        say("profile", f"  {name}: kernels named *{key}*: {us / 1e3:.3f} "
             f"ms, {100 * us / busy_us:.1f}% of device busy, "
             f"x{sum(r[1] for r in mine)}")
-        for us, count, key in sorted(mine, reverse=True):
-            say("profile", f"  {name}: *{share_of}* {us / 1e3:8.3f} ms x{count} "
-                f"{key[:90]}")
+        for us, count, k in sorted(mine, reverse=True):
+            say("profile", f"  {name}: *{key}* {us / 1e3:8.3f} ms x{count} "
+                f"{k[:90]}")
 
 
 def phase_small_reference(card: str, arch: str) -> None:
     """The card against the plain CPU path (which the CPU tests hold
-    against the JAX package) on tiny ``arch`` in bf16, same weights:
-    prefill and three decode steps, to REFERENCE_ROW_RTOL."""
+    against the JAX package) on tiny ``arch`` (``tiny_config``) in bf16,
+    same weights: prefill of 100 tokens into a ring of 128 (which the
+    hybrid's window of 64 bounds and wraps) and three decode steps, to
+    REFERENCE_ROW_RTOL."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_tiny
     from repro_torch.kernels.ref import row_rel_err
     from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import tree_map
 
-    cfg = get_tiny(arch)
+    cfg = tiny_config(arch)
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
     p_cpu = cpu.init(torch.Generator().manual_seed(0))
-    p_gpu = {k: ({n: t.cuda() for n, t in v.items()} if k == "layers"
-                 else v.cuda()) for k, v in p_cpu.items()}
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (4, 100)).astype(np.int32))
     worst = 0.0
@@ -998,7 +1099,8 @@ def phase_small_reference(card: str, arch: str) -> None:
             lg, cg = gpu.decode_step(p_gpu, nxt.cuda(), cg, 100 + i)
             worst = max(worst, row_rel_err(lg.cpu(), lc))
     ok = math.isfinite(worst) and worst <= REFERENCE_ROW_RTOL
-    say("reference", f"tiny {arch} bf16, card vs CPU plain path: prefill + 3 "
+    say("reference", f"{cfg.name} ({cfg.num_layers} layers) bf16, card vs "
+        f"CPU plain path: prefill + 3 "
         f"decode steps, worst row rel L2 logit err {worst:.3e} (tol "
         f"{REFERENCE_ROW_RTOL}) {'ok' if ok else 'FAIL'} on {card}")
     if not ok:
@@ -1006,14 +1108,23 @@ def phase_small_reference(card: str, arch: str) -> None:
 
 
 def phase_small_train_reference(card: str, arch: str) -> None:
-    """One train step of tiny ``arch``, bf16 over fp32 masters, on the
-    card against the plain CPU path (which the CPU tests hold against the
-    JAX package's train step): the loss, the gradient norm and each
-    gradient leaf. The parameters after the step are not compared: Adam's
-    first step is ~lr * sign(g), which bf16 noise in a near-zero gradient
-    flips."""
+    """One train step of tiny ``arch`` (``tiny_config``), bf16 over fp32
+    masters, on the card against the plain CPU path (which the CPU tests
+    hold against the JAX package's train step): the loss, the gradient
+    norm and each gradient leaf (the hybrid's shared block's among them).
+    The parameters after the step are not compared: Adam's first step is
+    ~lr * sign(g), which bf16 noise in a near-zero gradient flips.
+    Every leaf is held to TRAIN_GRAD_ROW_RTOL by its relative L2 error,
+    and by its worst row. The worst row's gate was set on the two-layer
+    tiny configs; bf16's own error grows with depth (the CPU's bf16 path
+    against its fp32 path, no kernel involved, errs up to 0.16 in a row
+    of tiny zamba2-1.2b's dt_proj at five layers, 0.12 at a five-layer
+    mamba2-370m, 0.07 at two layers). So a deeper config
+    (TINY_OVERRIDES) holds each leaf's worst row to the larger of the gate
+    and twice that leaf's bf16-vs-fp32 worst row on the CPU: two bf16
+    paths that round independently differ by ~sqrt(2) times one's error,
+    and the worst of many rows spreads more."""
     import torch
-    from repro_torch.configs import get_tiny
     from repro_torch.data.loader import Loader
     from repro_torch.data.synthetic import SyntheticStream
     from repro_torch.kernels.ref import row_rel_err
@@ -1022,7 +1133,7 @@ def phase_small_train_reference(card: str, arch: str) -> None:
                                          tree_map)
     from repro_torch.train.step import loss_and_grads, make_train_step
 
-    cfg = get_tiny(arch)
+    cfg = tiny_config(arch)
     models = {"cpu": Model(cfg, device="cpu"), "cuda": Model(cfg, device="cuda")}
     p_cpu = models["cpu"].init(torch.Generator().manual_seed(0),
                                dtype=torch.float32)
@@ -1037,33 +1148,48 @@ def phase_small_train_reference(card: str, arch: str) -> None:
             params, adamw_init(params), batch)
         out[dev] = (grads, {k: float(v) for k, v in metrics.items()})
     (g_cpu, m_cpu), (g_gpu, m_gpu) = out["cpu"], out["cuda"]
-    worst, where = 0.0, ""
+    tols = [TRAIN_GRAD_ROW_RTOL] * len(tree_leaves(g_cpu))
+    if arch in TINY_OVERRIDES:
+        fp32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+        g_fp32 = tree_map(torch.zeros_like, p_cpu)
+        loss_and_grads(fp32, p_cpu, Loader(stream, 4, 128, "cpu")(0), g_fp32)
+        tols = [max(t, 2 * row_rel_err(a, b, floor=GRAD_ROW_FLOOR))
+                for t, a, b in zip(tols, tree_leaves(g_cpu),
+                                   tree_leaves(g_fp32))]
+    worst, where, tol, leaf_worst = 0.0, "", TRAIN_GRAD_ROW_RTOL, 0.0
     names = [f"{k}/{n}" if isinstance(v, dict) else k
              for k, v in sorted(g_cpu.items())
              for n in (sorted(v) if isinstance(v, dict) else [None])]
-    for name, ref, got in zip(names, tree_leaves(g_cpu), tree_leaves(g_gpu)):
-        err = row_rel_err(got.cpu(), ref, floor=GRAD_ROW_FLOOR)
-        if not err <= worst:
-            worst, where = err, name
+    for name, ref, got, t in zip(names, tree_leaves(g_cpu),
+                                 tree_leaves(g_gpu), tols):
+        got = got.cpu()
+        err = row_rel_err(got, ref, floor=GRAD_ROW_FLOOR)
+        leaf_worst = max(leaf_worst, ((got - ref).norm() / ref.norm()).item())
+        if not err / t <= worst / tol:
+            worst, where, tol = err, name, t
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
            for k in ("loss", "grad_norm")}
-    ok = (math.isfinite(worst) and worst <= TRAIN_GRAD_ROW_RTOL
+    ok = (math.isfinite(worst) and worst <= tol
+          and leaf_worst <= TRAIN_GRAD_ROW_RTOL
           and all(r <= TRAIN_LOSS_RTOL for r in rel.values()))
-    say("reference", f"tiny {arch} train step, bf16 over fp32 masters, card "
+    say("reference", f"{cfg.name} train step, bf16 over fp32 masters, card "
         f"vs CPU plain path: loss {m_gpu['loss']:.5f} vs {m_cpu['loss']:.5f}"
         f" (rel {rel['loss']:.2e}), grad_norm {m_gpu['grad_norm']:.5f} vs "
         f"{m_cpu['grad_norm']:.5f} (rel {rel['grad_norm']:.2e}; tol "
-        f"{TRAIN_LOSS_RTOL}); worst gradient row rel L2 err {worst:.3e} in "
-        f"{where} (tol {TRAIN_GRAD_ROW_RTOL}) {'ok' if ok else 'FAIL'} on "
-        f"{card}")
+        f"{TRAIN_LOSS_RTOL}); worst leaf rel L2 err {leaf_worst:.3e} (tol "
+        f"{TRAIN_GRAD_ROW_RTOL}); worst gradient row rel L2 err against its "
+        f"tol {worst:.3e} in {where} (tol {tol:.3e}; leaves whose row tol is"
+        f" twice the CPU's own bf16 error, above {TRAIN_GRAD_ROW_RTOL}: "
+        f"{sum(t > TRAIN_GRAD_ROW_RTOL for t in tols)} of {len(tols)}) "
+        f"{'ok' if ok else 'FAIL'} on {card}")
     if not ok:
         fail("reference", "the card's train step disagrees with the CPU path")
 
 
-def phase_train(card: str, arch: str) -> int:
+def phase_train(card: str, arch: str) -> dict:
     """``arch`` at full width takes TRAIN_STEPS AdamW steps at
-    TRAIN_BATCHES[arch] x TRAIN_SEQ; returns its backward kernel's launches
-    over the run."""
+    TRAIN_BATCHES[arch] x TRAIN_SEQ; returns every kernel's launches over
+    the run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.loader import Loader
@@ -1090,14 +1216,15 @@ def phase_train(card: str, arch: str) -> int:
                     "cuda")
     step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
     counters = launch_counters()
+    # each forward kernel twice (forward, remat's recompute), its backward
+    # once
+    fwd = prefill_launches(cfg)
     want = dict.fromkeys(counters, 0)
-    if cfg.arch_type == "ssm":   # forward and remat recompute, backward
-        want.update(ssd=2 * cfg.num_layers, ssd_bwd=cfg.num_layers)
-        bwd, share_of = "ssd_bwd", "ssd"
-    else:
-        want.update(flash_attention=2 * cfg.num_layers,
-                    flash_attention_bwd=cfg.num_layers)
-        bwd, share_of = "flash_attention_bwd", "flash_bwd"
+    want.update({name: 2 * n for name, n in fwd.items()},
+                flash_attention_bwd=fwd["flash_attention"],
+                ssd_bwd=fwd["ssd"])
+    share_of = tuple(k for k, name in (("flash_bwd", "flash_attention"),
+                                       ("ssd", "ssd")) if fwd[name])
     losses, gnorms, times, total = [], [], [], dict.fromkeys(counters, 0)
     torch.cuda.reset_peak_memory_stats()
     for step in range(TRAIN_STEPS):
@@ -1112,8 +1239,8 @@ def phase_train(card: str, arch: str) -> int:
         counts = {name: fn.launches for name, fn in counters.items()}
         if counts != want:
             fail("train", f"{arch} step {step}: kernel launches {counts}, "
-                 f"expected {want} ({cfg.num_layers} layers: forward + "
-                 "remat recompute, backward)")
+                 f"expected {want} (per attention call and Mamba2 layer: "
+                 "forward + remat recompute, backward)")
         for name, n in counts.items():
             total[name] += n
         losses.append(float(metrics["loss"]))
@@ -1129,27 +1256,33 @@ def phase_train(card: str, arch: str) -> int:
         fail("train", f"peak memory {peak / 1e9:.2f} GB exceeds the card's 80 GB")
     step_s = statistics.median(times[2:])
     tokens = batch_size * TRAIN_SEQ
-    n_matmul = n_params - cfg.vocab_size * cfg.d_model  # all but the embedding
-    if cfg.arch_type == "ssm":
+    # N: every parameter outside the embedding, once per use: the hybrid's
+    # shared block once per call
+    n_matmul = n_params - cfg.vocab_size * cfg.d_model
+    calls, per_call = fwd["flash_attention"], ""
+    if cfg.arch_type == "hybrid":
+        n_matmul += (calls - 1) * sum(t.numel()
+                                      for t in params["shared_attn"].values())
+        per_call = f", the shared block once per call ({calls})"
+    attn = 3.5 * calls * attention_flops(batch_size, cfg.num_heads,
+                                         TRAIN_SEQ, cfg.head_dim)
+    model_flops = 6 * n_matmul * tokens + attn
+    extra = [f"attention, in the MFU, {attn / 1e12:.2f} T"] if calls else []
+    if fwd["ssd"]:
         s_cfg = cfg.ssm
         heads = s_cfg.expand * cfg.d_model // s_cfg.head_dim
         shape = (batch_size, TRAIN_SEQ, heads, s_cfg.head_dim, s_cfg.ngroups,
                  s_cfg.state_dim)
-        extra = (cfg.num_layers * (ssd_flops(*shape) + ssd_bwd_flops(*shape)),
-                 "the SSD's own, forward + backward, in no MFU")
-        model_flops = 6 * n_matmul * tokens
-    else:
-        attn = 3.5 * cfg.num_layers * attention_flops(
-            batch_size, cfg.num_heads, TRAIN_SEQ, cfg.head_dim)
-        extra = (attn, "attention, in the MFU")
-        model_flops = 6 * n_matmul * tokens + attn
+        ssd = fwd["ssd"] * (ssd_flops(*shape) + ssd_bwd_flops(*shape))
+        extra.append(f"the SSD's own, forward + backward, in no MFU, "
+                     f"{ssd / 1e12:.2f} T")
     say("train", f"{arch}: {TRAIN_STEPS} steps B={batch_size} S={TRAIN_SEQ}: "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step (steps 3-"
         f"{TRAIN_STEPS}) {1e3 * step_s:.1f} ms (all: "
         f"{', '.join(f'{1e3 * t:.1f}' for t in times)}), {tokens / step_s:.0f}"
         f" tokens/s, model FLOPs {model_flops / 1e12:.2f} T per step (6 N T, "
-        f"N = {n_matmul / 1e9:.3f} B outside the embedding; {extra[1]} "
-        f"{extra[0] / 1e12:.2f} T; remat's recompute not counted) = "
+        f"N = {n_matmul / 1e9:.3f} B outside the embedding{per_call}; "
+        f"{'; '.join(extra)}; remat's recompute not counted) = "
         f"{100 * model_flops / step_s / PEAK_BF16_FLOPS:.1f}% MFU of 989 "
         f"TFLOP/s; peak memory {peak / 1e9:.2f} GB; launches over the run "
         f"{total}, on {card}")
@@ -1158,7 +1291,7 @@ def phase_train(card: str, arch: str) -> int:
                    card, grad=True, share_of=share_of, top=14)
     del params, opt, state, step_fn
     free_card()
-    return total[bwd]
+    return total
 
 
 def fingerprints(*trees) -> list[tuple[str, int, int]]:
@@ -1562,15 +1695,22 @@ def main() -> int:
     ssd_bwd = timed("kernels ssd_bwd", phase_ssd_bwd_kernels, card)
     flash_bwd, flash_bwd_det = timed("kernels flash_bwd",
                                      phase_flash_bwd_kernels, card)
-    timed("reference qwen", phase_small_reference, card, QWEN)
-    timed("reference mamba", phase_small_reference, card, MAMBA)
-    flash["launches"] = timed("serve qwen", phase_serve, card, QWEN,
-                              "flash_attention")
-    ssd["launches"] = timed("serve mamba", phase_serve, card, MAMBA, "ssd")
-    timed("reference train qwen", phase_small_train_reference, card, QWEN)
-    timed("reference train mamba", phase_small_train_reference, card, MAMBA)
-    flash_bwd["launches"] = timed("train qwen", phase_train, card, QWEN)
-    ssd_bwd["launches"] = timed("train mamba", phase_train, card, MAMBA)
+    archs = (QWEN, MAMBA, ZAMBA)
+    for arch in archs:
+        timed(f"reference {arch}", phase_small_reference, card, arch)
+    # the forward kernels' launches over the serving paths, the backward
+    # kernels' over the training paths
+    served = [timed(f"serve {arch}", phase_serve, card, arch)
+              for arch in archs]
+    for entry in (flash, ssd):
+        entry["launches"] = sum(c[entry["name"]] for c in served)
+    for arch in archs:
+        timed(f"reference train {arch}", phase_small_train_reference, card,
+              arch)
+    trained = [timed(f"train {arch}", phase_train, card, arch)
+               for arch in archs]
+    for entry in (flash_bwd, ssd_bwd):
+        entry["launches"] = sum(c[entry["name"]] for c in trained)
     flash_bwd_det["launches"] = timed("resume", phase_resume, card)
     timed("boot", phase_boot, card)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, flash_bwd_det,

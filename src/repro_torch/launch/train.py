@@ -21,9 +21,9 @@ restores it from the env cache, and the launcher loads it from node 0's
 environment before training (``repro_torch.launch.boot``). The model is
 the arch's reduced (tiny) variant, or with ``--full`` its published
 config, with fp32 master parameters drawn from seed 0: the dense family
-(attention through the flash kernels on the card) or the SSM family
+(attention through the flash kernels on the card), the SSM family
 (``--arch mamba2-370m``: the SSD scan through its forward and backward
-kernels). Every ``--full-every``-th save is full, the ones
+kernels) or the hybrid (``--arch zamba2-1.2b``: both). Every ``--full-every``-th save is full, the ones
 between deltas. Without ``--workdir`` the job lives in a temporary
 directory that is deleted at exit.
 

@@ -1,11 +1,15 @@
-"""The decoder-only LM in PyTorch, dense and SSM (Mamba2) families: the
-counterpart of those paths of the JAX package's ``models/model.py``.
+"""The decoder-only LM in PyTorch, dense, SSM (Mamba2) and hybrid
+(Zamba2) families: the counterpart of those paths of the JAX package's
+``models/model.py``.
 
 Parameters keep the reference's names, shapes and ``x @ W`` orientation:
 stacked ``[L, ...]`` leaves under ``params["layers"]`` (``wq`` is
 ``[L, d, nq * hd]``, not ``nn.Linear``'s ``[out, in]``), so a checkpoint
-can name its entries the same way in both packages. The layer loop is a
-Python loop over the views ``layers[name][i]``.
+can name its entries the same way in both packages. The hybrid family
+also has one unstacked attention block, ``params["shared_attn"]``, run
+before every ``shared_attention_every``-th Mamba2 layer with the same
+weights each time. The layer loop is a Python loop over the views
+``layers[name][i]`` (``_schedule``).
 
 The reference keeps fp32 masters and casts each to the compute dtype where
 it is used. For serving, a parameter the reference only uses in the
@@ -17,9 +21,9 @@ weights and biases: ``Leaf.fp32``) stay fp32 and are cast where the
 reference casts them.
 
 Three entry points, matching the reference's:
-  ``prefill``      fills the caches (a ring KV cache for the dense family,
-                   the SSM and conv states for Mamba2), returns last-token
-                   fp32 logits;
+  ``prefill``      fills the caches (a ring KV cache for each attention
+                   call, the SSM and conv states for each Mamba2 layer),
+                   returns last-token fp32 logits;
   ``decode_step``  one new token against those caches, updated in place;
   ``train_loss``   mean cross-entropy of full-sequence fp32 logits, each
                    layer recomputed in the backward pass (``remat``) as
@@ -28,6 +32,7 @@ Three entry points, matching the reference's:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections import namedtuple
 
@@ -45,7 +50,10 @@ from repro_torch.models import ssm as ssm_lib
 # ("dt_bias",); fp32: kept in fp32 whatever the compute dtype
 Leaf = namedtuple("Leaf", ["shape", "init", "fp32"], defaults=(False,))
 
-PORTED_ARCH_TYPES = ("dense", "ssm")
+PORTED_ARCH_TYPES = ("dense", "ssm", "hybrid")
+# the per-layer cache entries of a Mamba2 layer and of an attention call
+SSM_CACHE = ("ssm", "conv_x", "conv_B", "conv_C")
+KV_CACHE = ("k", "v", "slot_pos")
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -90,36 +98,50 @@ def _ssm_leaves(cfg: ModelConfig) -> dict:
 
 def param_schema(cfg: ModelConfig) -> dict:
     """Shapes and initialisers of the parameters, under the reference's
-    names."""
+    names: Leaf entries, nested in dicts."""
     schema = {"embed": Leaf((cfg.vocab_size, cfg.d_model), ("normal", 0.02)),
               "final_norm": Leaf((cfg.d_model,), ("ones",))}
     if not cfg.tie_embeddings:
         schema["lm_head"] = Leaf((cfg.d_model, cfg.vocab_size),
                                  ("normal", 0.02))
-    if cfg.arch_type == "ssm":
-        schema["layers"] = _ssm_leaves(cfg)
-    else:
+    if cfg.arch_type == "dense":
         schema["layers"] = _dense_leaves(cfg)
+    else:
+        schema["layers"] = _ssm_leaves(cfg)
+    if cfg.arch_type == "hybrid":
+        # one block, its output scale that of a one-layer model
+        schema["shared_attn"] = _attn_leaves(
+            dataclasses.replace(cfg, num_layers=1), stacked=False)
     return schema
 
 
-def _dense_leaves(cfg: ModelConfig) -> dict:
-    """The reference's ``_attn_leaves`` and dense ``_mlp_leaves``."""
-    d, f = cfg.d_model, cfg.d_ff
-    hd, nq, nkv, n = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+def _attn_leaves(cfg: ModelConfig, *, stacked: bool = True) -> dict:
+    """The reference's ``_attn_leaves``: [L, ...] leaves, or one block's."""
+    d, hd = cfg.d_model, cfg.head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    pre = (cfg.num_layers,) if stacked else ()
     s_in = ("normal", 0.02)
-    s_out = ("normal", 0.02 / math.sqrt(2 * n))
-    layers = {
-        "attn_norm": Leaf((n, d), ("ones",)),
-        "wq": Leaf((n, d, nq * hd), s_in),
-        "wk": Leaf((n, d, nkv * hd), s_in),
-        "wv": Leaf((n, d, nkv * hd), s_in),
-        "wo": Leaf((n, nq * hd, d), s_out),
+    s_out = ("normal", 0.02 / math.sqrt(2 * cfg.num_layers))
+    leaves = {
+        "attn_norm": Leaf(pre + (d,), ("ones",)),
+        "wq": Leaf(pre + (d, nq * hd), s_in),
+        "wk": Leaf(pre + (d, nkv * hd), s_in),
+        "wv": Leaf(pre + (d, nkv * hd), s_in),
+        "wo": Leaf(pre + (nq * hd, d), s_out),
     }
     if cfg.qkv_bias:
-        layers["bq"] = Leaf((n, nq * hd), ("zeros",))
-        layers["bk"] = Leaf((n, nkv * hd), ("zeros",))
-        layers["bv"] = Leaf((n, nkv * hd), ("zeros",))
+        leaves["bq"] = Leaf(pre + (nq * hd,), ("zeros",))
+        leaves["bk"] = Leaf(pre + (nkv * hd,), ("zeros",))
+        leaves["bv"] = Leaf(pre + (nkv * hd,), ("zeros",))
+    return leaves
+
+
+def _dense_leaves(cfg: ModelConfig) -> dict:
+    """The reference's stacked ``_attn_leaves`` and dense ``_mlp_leaves``."""
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
+    s_in = ("normal", 0.02)
+    s_out = ("normal", 0.02 / math.sqrt(2 * n))
+    layers = _attn_leaves(cfg)
     layers.update({
         "mlp_norm": Leaf((n, d), ("ones",)),
         "w_gate": Leaf((n, d, f), s_in),
@@ -127,6 +149,16 @@ def _dense_leaves(cfg: ModelConfig) -> dict:
         "w_down": Leaf((n, f, d), s_out),
     })
     return layers
+
+
+def map_schema(fn, schema: dict, *trees: dict) -> dict:
+    """``fn(leaf, *entries)`` over the schema's leaves, where each entry is
+    the same name's in each of ``trees``: a tree of the schema's nesting,
+    in its order."""
+    return {name: (map_schema(fn, leaf, *(t[name] for t in trees))
+                   if isinstance(leaf, dict)
+                   else fn(leaf, *(t[name] for t in trees)))
+            for name, leaf in schema.items()}
 
 
 class Model:
@@ -140,7 +172,7 @@ class Model:
                 f"{cfg.name}: arch_type {cfg.arch_type!r}"
                 f"{' with MoE' if cfg.moe else ''} is not ported yet; the "
                 f"port serves and trains {PORTED_ARCH_TYPES} without MoE "
-                "only (ROADMAP.md A.4 hybrid, A.5 MoE, A.6 frontends)")
+                "only (ROADMAP.md A.5 MoE, A.6 frontends)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.dtype)
@@ -178,10 +210,7 @@ class Model:
                                 device=self.device) * leaf.init[1]
             return t if leaf.fp32 else t.to(dtype)
 
-        schema = param_schema(self.cfg)
-        params = {k: make(v) for k, v in schema.items() if k != "layers"}
-        params["layers"] = {k: make(v) for k, v in schema["layers"].items()}
-        return params
+        return map_schema(make, param_schema(self.cfg))
 
     def init_like(self, *, dtype: torch.dtype | None = None) -> dict:
         """``init``'s tree as meta tensors (names, shapes and dtypes, no
@@ -192,33 +221,24 @@ class Model:
             return torch.empty(leaf.shape, device="meta",
                                dtype=torch.float32 if leaf.fp32 else dtype)
 
-        schema = param_schema(self.cfg)
-        params = {k: make(v) for k, v in schema.items() if k != "layers"}
-        params["layers"] = {k: make(v) for k, v in schema["layers"].items()}
-        return params
+        return map_schema(make, param_schema(self.cfg))
 
     def serving_params(self, params: dict) -> dict:
         """``params`` (fp32 masters, or a serving tree) as ``init`` makes
         them for serving, on the model's device: every leaf in the compute
         dtype, ``Leaf.fp32`` ones in fp32. A master is rounded once, as
         the reference rounds it at each use."""
-        schema = param_schema(self.cfg)
-
         def cast(leaf: Leaf, t: torch.Tensor) -> torch.Tensor:
             return t.to(self.device, torch.float32 if leaf.fp32
                         else self.compute_dtype)
 
-        out = {k: cast(v, params[k]) for k, v in schema.items()
-               if k != "layers"}
-        out["layers"] = {k: cast(v, params["layers"][k])
-                         for k, v in schema["layers"].items()}
-        return out
+        return map_schema(cast, param_schema(self.cfg), params)
 
     def count_params(self) -> int:
-        schema = param_schema(self.cfg)
-        leaves = list(schema["layers"].values()) + [
-            v for k, v in schema.items() if k != "layers"]
-        return sum(math.prod(leaf.shape) for leaf in leaves)
+        sizes = []
+        map_schema(lambda leaf: sizes.append(math.prod(leaf.shape)),
+                   param_schema(self.cfg))
+        return sum(sizes)
 
     # ----- layers -----
 
@@ -249,11 +269,13 @@ class Model:
         out = attention_op(q, k, v, causal=True, window=cfg.sliding_window)
         return h + out.reshape(b, s, -1) @ p["wo"].to(h.dtype), k, v
 
-    def _train_layer(self, p: dict, h: torch.Tensor,
+    def _train_layer(self, kind: str, p: dict, h: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
-        if self.cfg.arch_type == "ssm":
+        """One entry of ``_schedule`` over a whole sequence, no caches."""
+        if kind == "mamba":
             return self.mamba_sublayer(p, h, None, mode="train")
-        return self._mlp(p, self._attention(p, h, positions)[0])
+        h = self._attention(p, h, positions)[0]
+        return self._mlp(p, h) if "mlp_norm" in p else h
 
     def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
         m = L.rms_norm(h, p["mlp_norm"], self.cfg.norm_eps)
@@ -329,12 +351,24 @@ class Model:
         gated = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
         return h + gated @ p["out_proj"].to(dtc)
 
-    def _mamba_layers(self, params: dict, h: torch.Tensor, caches: dict, *,
-                      mode: str) -> torch.Tensor:
-        for i, p in enumerate(self._layer_params(params)):
-            layer_cache = {name: t[i] for name, t in caches.items()}
-            h = self.mamba_sublayer(p, h, layer_cache, mode=mode)
-        return h
+    def _schedule(self, params: dict) -> list[tuple[str, dict, int]]:
+        """The layer stack in order, as (kind, parameters, cache index):
+        "attn" is an attention sublayer (with its MLP after it when the
+        parameters have one, the dense family's), "mamba" a Mamba2 layer.
+        The hybrid family runs ``params["shared_attn"]`` before every
+        ``shared_attention_every``-th Mamba2 layer, as the reference's
+        ``_apply_hybrid``; call j has cache index j."""
+        cfg = self.cfg
+        layers = self._layer_params(params)
+        if cfg.arch_type == "dense":
+            return [("attn", p, i) for i, p in enumerate(layers)]
+        every = cfg.shared_attention_every if cfg.arch_type == "hybrid" else 0
+        out = []
+        for i, p in enumerate(layers):
+            if every and i % every == 0:
+                out.append(("attn", params["shared_attn"], i // every))
+            out.append(("mamba", p, i))
+        return out
 
     # ----- entry points -----
 
@@ -344,29 +378,32 @@ class Model:
         ``unembed_table(params)``, made here if not given. The SSM family
         builds no ring and ignores ``cache_len``, as the reference does.
         Returns (last_logits [B, V] fp32, caches)."""
-        cfg = self.cfg
         tokens = batch["tokens"].long()
         b, s = tokens.shape
         h = L.embed(tokens, params["embed"], self.compute_dtype)
-        if cfg.arch_type == "ssm":
-            caches = self.init_cache(b, cache_len)
-            h = self._mamba_layers(params, h, caches, mode="prefill")
-            return self._logits(params, h[:, -1:], unembed)[:, 0], caches
         positions = torch.arange(s, device=self.device)
-        w = self.cache_window(cache_len)
         caches = self.init_cache(b, cache_len)
-        # Ring slot g holds position p0 + (g - p0) mod w, p0 = max(0, s - w):
-        # the last w positions; slots past the prompt stay empty (-1, zeros).
-        p0 = max(0, s - w)
-        src = p0 + torch.remainder(torch.arange(w, device=self.device) - p0, w)
-        valid = src < s
-        slots, src = valid.nonzero()[:, 0], src[valid]
-        caches["slot_pos"][:, slots] = src.to(torch.int32)
-        for i, p in enumerate(self._layer_params(params)):
+        if "k" in caches:
+            # Ring slot g holds position p0 + (g - p0) mod w, p0 = max(0,
+            # s - w): the last w positions; slots past the prompt stay
+            # empty (-1, zeros).
+            w = self.cache_window(cache_len)
+            p0 = max(0, s - w)
+            src = p0 + torch.remainder(
+                torch.arange(w, device=self.device) - p0, w)
+            valid = src < s
+            slots, src = valid.nonzero()[:, 0], src[valid]
+            caches["slot_pos"][:, slots] = src.to(torch.int32)
+        for kind, p, i in self._schedule(params):
+            if kind == "mamba":
+                h = self.mamba_sublayer(p, h, _views(caches, SSM_CACHE, i),
+                                        mode="prefill")
+                continue
             h, k, v = self._attention(p, h, positions)
             caches["k"][i][:, slots] = k[:, src]
             caches["v"][i][:, slots] = v[:, src]
-            h = self._mlp(p, h)
+            if "mlp_norm" in p:
+                h = self._mlp(p, h)
         return self._logits(params, h[:, -1:], unembed)[:, 0], caches
 
     def decode_step(self, params: dict, tokens: torch.Tensor, caches: dict,
@@ -378,24 +415,25 @@ class Model:
         (logits [B, V] fp32, caches)."""
         cfg = self.cfg
         h = L.embed(tokens.long(), params["embed"], self.compute_dtype)
-        if cfg.arch_type == "ssm":
-            h = self._mamba_layers(params, h, caches, mode="decode")
-            return self._logits(params, h, unembed)[:, 0], caches
         b = h.shape[0]
         positions = torch.tensor([pos], device=self.device)
-        for i, p in enumerate(self._layer_params(params)):
+        for kind, p, i in self._schedule(params):
+            if kind == "mamba":
+                h = self.mamba_sublayer(p, h, _views(caches, SSM_CACHE, i),
+                                        mode="decode")
+                continue
             a = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
             q, k, v = self._qkv(p, a)
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
-            layer_cache = {name: caches[name][i]
-                           for name in ("k", "v", "slot_pos")}
+            layer_cache = _views(caches, KV_CACHE, i)
             attn.cache_append(layer_cache, k, v, pos)
             out = attn.decode_attention(
                 q, layer_cache["k"], layer_cache["v"],
                 layer_cache["slot_pos"], pos, window=cfg.sliding_window)
             h = h + out.reshape(b, 1, -1) @ p["wo"].to(h.dtype)
-            h = self._mlp(p, h)
+            if "mlp_norm" in p:
+                h = self._mlp(p, h)
         return self._logits(params, h, unembed)[:, 0], caches
 
     # ----- training -----
@@ -413,20 +451,22 @@ class Model:
     def apply_layers(self, params: dict, h: torch.Tensor, *, mode: str,
                      positions: torch.Tensor):
         """The layer stack over a whole sequence without caches, as the
-        reference's ``apply_layers(mode="train")``, with each layer
-        checkpointed when ``remat``. Returns (h, aux_mean): aux is 0 for
-        the families without MoE. ``prefill`` and ``decode_step`` run their
-        own loops, which write the caches."""
+        reference's ``apply_layers(mode="train")``, with each entry of
+        ``_schedule`` (a layer; for the hybrid family each shared-attention
+        call and each Mamba2 layer apart, as the reference's
+        ``_apply_hybrid``) checkpointed when ``remat``. Returns (h,
+        aux_mean): aux is 0 for the families without MoE. ``prefill`` and
+        ``decode_step`` run their own loops, which write the caches."""
         if mode != "train":
             raise ValueError(f"apply_layers: mode {mode!r}; only 'train' runs "
                              "here (prefill and decode_step have their own "
                              "loops)")
-        for p in self._layer_params(params):
+        for kind, p, _ in self._schedule(params):
             if self.remat:
-                h = checkpoint(self._train_layer, p, h, positions,
+                h = checkpoint(self._train_layer, kind, p, h, positions,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                h = self._train_layer(p, h, positions)
+                h = self._train_layer(kind, p, h, positions)
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
     def train_loss(self, params: dict, batch: dict):
@@ -435,8 +475,8 @@ class Model:
         fp32 logits of the whole sequence, as the reference's
         ``train_loss``. The masters are cast to the compute dtype where
         they are used, inside each (checkpointed) layer, so remat keeps no
-        copies of them. The dense and SSM families without MoE (the
-        constructor refuses the others), on every device."""
+        copies of them. The dense, SSM and hybrid families without MoE
+        (the constructor refuses the others), on every device."""
         tokens = batch["tokens"].long()
         labels = batch["labels"].long()
         h = L.embed(tokens, params["embed"], self.compute_dtype)
@@ -457,34 +497,46 @@ class Model:
         return sw if sw and sw < cache_len else cache_len
 
     def cache_shapes(self, batch: int, cache_len: int) -> dict:
+        """One flat dict: the SSM and conv states stacked over the layers
+        (SSM and hybrid families), and the ring's k, v and slot positions
+        stacked over the attention calls (a layer each in the dense family,
+        the ceil(L / every) shared-attention calls in the hybrid). The
+        hybrid's dict holds the reference's tuple ``(mamba_caches,
+        attn_caches)``: its first dict's entries, then its second's."""
         cfg = self.cfg
-        if cfg.arch_type == "ssm":
+        shapes = {}
+        if cfg.arch_type in ("ssm", "hybrid"):
             s = cfg.ssm
             di = s.expand * cfg.d_model
             gn = s.ngroups * s.state_dim
             conv = (cfg.num_layers, batch, s.conv_width - 1)
-            return {"ssm": (cfg.num_layers, batch, di // s.head_dim,
-                            s.head_dim, s.state_dim),
-                    "conv_x": conv + (di,), "conv_B": conv + (gn,),
-                    "conv_C": conv + (gn,)}
-        w = self.cache_window(cache_len)
-        kv = (cfg.num_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": kv, "v": kv, "slot_pos": (cfg.num_layers, w)}
+            shapes.update(ssm=(cfg.num_layers, batch, di // s.head_dim,
+                               s.head_dim, s.state_dim),
+                          conv_x=conv + (di,), conv_B=conv + (gn,),
+                          conv_C=conv + (gn,))
+        if cfg.arch_type in ("dense", "hybrid"):
+            calls = (cfg.num_layers if cfg.arch_type == "dense"
+                     else -(-cfg.num_layers // cfg.shared_attention_every))
+            w = self.cache_window(cache_len)
+            kv = (calls, batch, w, cfg.num_kv_heads, cfg.head_dim)
+            shapes.update(k=kv, v=kv, slot_pos=(calls, w))
+        return shapes
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         """Zero caches (slot_pos -1); the SSM state is fp32, every other
         state or k/v leaf is in the compute dtype."""
-        shapes = self.cache_shapes(batch, cache_len)
-        if self.cfg.arch_type == "ssm":
-            return {name: torch.zeros(
-                shape, device=self.device,
-                dtype=torch.float32 if name == "ssm" else self.compute_dtype)
-                for name, shape in shapes.items()}
-        return {
-            "k": torch.zeros(shapes["k"], dtype=self.compute_dtype,
-                             device=self.device),
-            "v": torch.zeros(shapes["v"], dtype=self.compute_dtype,
-                             device=self.device),
-            "slot_pos": torch.full(shapes["slot_pos"], -1, dtype=torch.int32,
-                                   device=self.device),
-        }
+        def make(name, shape):
+            if name == "slot_pos":
+                return torch.full(shape, -1, dtype=torch.int32,
+                                  device=self.device)
+            return torch.zeros(shape, device=self.device,
+                               dtype=torch.float32 if name == "ssm"
+                               else self.compute_dtype)
+
+        return {name: make(name, shape) for name, shape in
+                self.cache_shapes(batch, cache_len).items()}
+
+
+def _views(caches: dict, names: tuple[str, ...], i: int) -> dict:
+    """Entry i of the stacked caches ``names``: views, written in place."""
+    return {name: caches[name][i] for name in names}

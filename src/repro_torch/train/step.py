@@ -38,11 +38,20 @@ def _leaf_view(t: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     return view
 
 
+def _leaf_views(tree, grads):
+    """``_leaf_view`` over a tree of dicts: a block used more than once
+    (the hybrid family's ``shared_attn``) adds every use's gradient into
+    the one buffer."""
+    if isinstance(tree, dict):
+        return {name: _leaf_views(t, grads[name]) for name, t in tree.items()}
+    return _leaf_view(tree, grads)
+
+
 def loss_and_grads(model: Model, params: dict, batch: dict, grads: dict):
     """``model.train_loss(params, batch)`` and its gradient, accumulated
     into ``grads`` (a zeroed tree shaped like ``params``) in place. Returns
     (loss, metrics), detached."""
-    views = {name: _leaf_view(t, grads[name])
+    views = {name: _leaf_views(t, grads[name])
              for name, t in params.items() if name != "layers"}
     stacked, stacked_grads = params["layers"], grads["layers"]
     views["layers"] = [

@@ -31,7 +31,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs import get_tiny
+from repro_torch.configs import get_config, get_tiny, reduced
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
     KEY_TILE, flash_attention, flash_attention_bwd,
@@ -636,3 +636,46 @@ def test_tiny_mamba_trains_through_the_kernels_on_card(cuda):
         for name, ref in g_cpu["layers"].items():
             err = (g_gpu["layers"][name].cpu() - ref).norm() / ref.norm()
             assert err.item() <= 5e-2, name
+
+
+@pytest.mark.gpu
+def test_tiny_zamba_serves_and_trains_through_the_kernels_on_card(cuda):
+    """Tiny zamba2-1.2b with five layers (the shared block before layers
+    0, 2 and 4, its window of 64 below the 100 positions), bf16 compute
+    over fp32 masters: a prefill launches the flash forward once per call
+    and the SSD forward once per layer, and its logits agree with the
+    CPU's plain path; a training step with remat launches each forward
+    twice and each backward once, and the loss and every gradient, the
+    shared block's among them, agree with the CPU's (5e-2 by each leaf's
+    relative L2 error, as for the other families)."""
+    cfg = reduced(get_config("zamba2-1.2b"), num_layers=5)
+    cpu = Model(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 101), generator=gen)
+    gpu = Model(cfg, device=cuda)
+    counters = (flash_attention, ssd_chunked_kernel, flash_attention_bwd,
+                ssd_chunked_bwd_kernel)
+    before = [fn.launches for fn in counters]
+    with torch.no_grad():
+        logits, _ = gpu.prefill(p_gpu, {"tokens": toks[:, :-1].to(cuda)},
+                                cache_len=128)
+        ref, _ = cpu.prefill(p_cpu, {"tokens": toks[:, :-1]}, cache_len=128)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [3, 5, 0, 0]
+    assert row_rel_err(logits.cpu(), ref) <= 3e-2
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    g_cpu = tree_map(torch.zeros_like, p_cpu)
+    loss_cpu, _ = loss_and_grads(cpu, p_cpu, batch, g_cpu)
+    g_gpu = tree_map(torch.zeros_like, p_gpu)
+    before = [fn.launches for fn in counters]
+    loss, _ = loss_and_grads(gpu, p_gpu,
+                             tree_map(lambda t: t.to(cuda), batch), g_gpu)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [6, 10, 3, 5]
+    assert abs(loss.item() - loss_cpu.item()) <= 5e-2 * loss_cpu.item()
+    for part in ("layers", "shared_attn"):
+        for name, ref in g_cpu[part].items():
+            err = (g_gpu[part][name].cpu() - ref).norm() / ref.norm()
+            assert err.item() <= 5e-2, (part, name)

@@ -171,13 +171,14 @@ def test_params_from_numpy_rejects_a_wrong_layout(fp32_pair):
         params_from_numpy(tree, m.cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "musicgen-large"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-370m",
+                                  "zamba2-1.2b"])
 def test_ported_families_are_accepted(arch):
     cfg = get_config(arch)
     assert Model(cfg, device="cpu").cfg.arch_type == cfg.arch_type

@@ -141,7 +141,8 @@ def test_engine_defaults_to_the_card(engines):
         ServeEngine(teng.model, teng.params, batch=3, cache_len=24)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2.5-3b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2.5-3b",
+                                  "zamba2-1.2b"])
 def test_serve_cli_on_cpu(capsys, arch):
     serve_cli.main(["--device", "cpu", "--arch", arch, "--requests", "3",
                     "--new-tokens", "4", "--batch", "2", "--cache-len", "32"])

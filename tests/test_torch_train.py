@@ -282,7 +282,7 @@ def test_fp32_masters_serve_like_cast_parameters(jax_rules):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x22b",
+@pytest.mark.parametrize("arch", ["musicgen-large", "mixtral-8x22b",
                                   "dense+moe"])
 def test_train_loss_refuses_what_is_not_ported(arch):
     if arch == "dense+moe":
