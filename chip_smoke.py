@@ -10,7 +10,8 @@ Phases, one line or more each; any failure exits non-zero:
   3. kernels: each kernel (flash attention, the SSD scan) against its plain
      PyTorch version at the serving paths' shapes and their edges (and
      zamba2-1.2b's: the flash kernels at 32 heads of 64 with a window of
-     4096, the SSD at 64 heads with N = 64), then its time (at each
+     4096, the SSD at 64 heads with N = 64; moonshot-v1-16b-a3b's: the
+     flash kernels at 16 heads of 128, MHA), then its time (at each
      model's shape) and achieved TFLOP/s beside the plain version's time, the
      library call's (SDPA; none for SSD) and its bound on the card; for the
      flash backward also the difference between two calls on the same
@@ -19,20 +20,31 @@ Phases, one line or more each; any failure exits non-zero:
      across two calls. The SSD backward: all six gradients against
      autograd of the plain version at the training shape and its edges,
      two calls bit-equal, its workspace, time and bound.
-  4. reference: tiny qwen2.5-3b, mamba2-370m and zamba2-1.2b (five
-     layers: three calls of its shared block, whose window of 64 the
-     prompts of 100 pass) in bf16 on the card against the plain CPU path.
+     moe: moonshot-v1-16b-a3b's MoE block (PyTorch, no kernel of its own)
+     at its training shape: two forward + backward calls bit-equal under
+     deterministic algorithms; its time and its scopes' split.
+  4. reference: tiny qwen2.5-3b, mamba2-370m, zamba2-1.2b (five layers:
+     three calls of its shared block, whose window of 64 the prompts of
+     100 pass), moonshot-v1-16b-a3b and mixtral-8x22b (4 experts, top 2)
+     in bf16 on the card against the plain CPU path; for the MoE ones the
+     routing decisions first: a token may take other experts on the card
+     only at a near-tie (FLIP_MARGIN), and its rows leave the row gate.
   5. serve, once per model: qwen2.5-3b (36 layers), mamba2-370m (48
-     layers) and zamba2-1.2b (38 Mamba2 layers, 7 shared-block calls), at
-     full width, bf16, random weights from a seed, each answer 8 requests
-     through ServeEngine; the kernels' launch counts prove the prefill ran
-     through its kernels (a flash launch per attention call, an SSD launch
-     per Mamba2 layer, nothing else); prefill(S) is held against
-     prefill(S-1) + decode_step; torch.profiler splits one prefill and
-     four decode steps into device busy and idle time.
+     layers), zamba2-1.2b (38 Mamba2 layers, 7 shared-block calls) and
+     moonshot-v1-16b-a3b (48 layers, 64 experts, top 6), at full width,
+     bf16, random weights from a seed (Model.init's peak within 1 GB of
+     the tree), each answer 8 requests through ServeEngine; the kernels'
+     launch counts prove the prefill ran through its kernels (a flash
+     launch per attention call, an SSD launch per Mamba2 layer, nothing
+     else); the MoE model's dropped assignments are counted; prefill(S)
+     is held against prefill(S-1) + decode_step (for the MoE model at a
+     capacity factor that drops nothing); torch.profiler splits one
+     prefill and four decode steps into device busy and idle time, and
+     the MoE block into its scopes.
   6. reference train: one AdamW step of each tiny model of phase 4 (bf16
      over fp32 masters) on the card against the plain CPU path: loss,
-     gradient norm and every gradient leaf.
+     gradient norm and every gradient leaf (the MoE ones with the card
+     routed as the CPU was, after their routing is compared).
   7. train: qwen2.5-3b at full width (fp32 masters, bf16 compute, remat)
      takes 8 AdamW steps on the synthetic stream at B = 2, S = 2048; the
      loss must fall, every step must launch the forward flash kernel 72
@@ -43,7 +55,10 @@ Phases, one line or more each; any failure exits non-zero:
      layers, forward and recompute) and 48 backward, no flash launch. Then
      zamba2-1.2b at B = 8, S = 2048: 14 flash forward and 7 backward, 76
      SSD forward and 38 backward launches a step; its MFU counts the
-     shared block once per call.
+     shared block once per call. Then moonshot-v1-16b-a3b at full width,
+     5 of its 48 layers (TRAIN_LAYERS), B = 2, S = 2048: 10 flash forward
+     and 5 backward launches a step, peak under 80 GB; its MFU counts the
+     k active experts.
   8. resume, under torch.use_deterministic_algorithms(True): qwen2.5-3b at
      full width trains 6 steps (run A), then anew 3 steps, saves a striped
      checkpoint of params and AdamW state (40.84 GB) into build/, frees the
@@ -157,12 +172,31 @@ TRAIN_GRAD_ROW_RTOL = 5e-2
 TRAIN_LOSS_RTOL = 1e-2
 
 QWEN, MAMBA, ZAMBA = "qwen2.5-3b", "mamba2-370m", "zamba2-1.2b"
+MOON, MIXTRAL = "moonshot-v1-16b-a3b", "mixtral-8x22b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 8, 3e-4
 # each arch's training batch at TRAIN_SEQ: qwen2.5-3b's fits 80 GB at 2
-TRAIN_BATCHES = {QWEN: TRAIN_BATCH, MAMBA: 8, ZAMBA: 8}
+TRAIN_BATCHES = {QWEN: TRAIN_BATCH, MAMBA: 8, ZAMBA: 8, MOON: TRAIN_BATCH}
+# the training cells' depth cuts: moonshot-v1-16b-a3b keeps 16 B a
+# parameter of fp32 masters, gradients and AdamW mu / nu, 0.671 B +
+# 0.5706 B a layer: five layers take 56.3 GB, and the logits and
+# activations of B = 2 x S = 2048 ~10 GB more (six would leave < 8 GB free)
+TRAIN_LAYERS = {MOON: 5}
 # the card-vs-CPU checks' tiny configs: reduced(), with five layers for
-# zamba2-1.2b, so that its shared block runs three times (layers 0, 2, 4)
+# zamba2-1.2b, so that its shared block runs three times (layers 0, 2, 4);
+# the MoE ones keep reduced()'s 4 experts, top 2 (mixtral-8x22b: its
+# window of 64, which the prompts of 100 pass)
 TINY_OVERRIDES = {ZAMBA: {"num_layers": 5}}
+# A token whose expert set differs between the card and the CPU must sit
+# at a near-tie: its k-th and (k+1)-th CPU router probabilities within 1e-2
+# of the k-th. bf16 rounds the hidden state the router sees to 2^-8 of its
+# size, in other places on the two devices (the card's flash kernel also
+# rounds P to bf16), which moves a router logit by ~1e-3 of its size and a
+# probability by as much of itself: rounding alone can swap two experts
+# only within a few times that. A token that flipped at an earlier layer
+# may flip again at any margin (its state moved by O(1)). Rows of flipped
+# tokens move by O(1), not by rounding, and are not held to the row gates;
+# the gradients are compared with the card routed as the CPU was.
+FLIP_MARGIN = 1e-2
 CARD_BYTES = 80e9
 BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
 PROMPT_LENS = (256, 1024)
@@ -254,10 +288,12 @@ BWD_CASES = [("train", TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128, 0, True),
              ("noncausal", 2, 1000, 16, 2, 128, 0, False),
              ("group1", 2, 512, 4, 4, 128, 0, True),
              ("zamba2", TRAIN_BATCHES[ZAMBA], TRAIN_SEQ, 32, 32, 64, 4096,
+              True),
+             ("moonshot", TRAIN_BATCHES[MOON], TRAIN_SEQ, 16, 16, 128, 0,
               True)]
 # the timed shapes of the flash backward: the training paths' (qwen2.5-3b's
 # first, whose time the kernels line carries)
-BWD_TIMED = ("train", "zamba2")
+BWD_TIMED = ("train", "zamba2", "moonshot")
 # (name, B, S, H, P, G, N) of the SSD backward's checks: mamba2-370m's
 # training shape, then a ragged S, two groups, P = 32 with N = 16, N = 64,
 # zamba2-1.2b's training shape (H = 64, N = 64), all under the model's
@@ -434,13 +470,14 @@ def phase_kernels(card: str) -> dict:
     # variants; non-causal at S = 1000, where only the `kpos < Sk` mask
     # hides the zero keys past Sk in the last 128-key tile; then
     # zamba2-1.2b's shared block at the same prefill (32 heads of 64, MHA,
-    # its window of 4096)
+    # its window of 4096), moonshot-v1-16b-a3b's (16 heads of 128, MHA)
     cases = [("main", BATCH, PROMPT_LENS[1], 16, 2, 128, 0, True),
              ("ragged", BATCH, 1000, 16, 2, 128, 0, True),
              ("window", BATCH, 1024, 16, 2, 128, 256, True),
              ("d64", 4, 512, 8, 2, 64, 0, True),
              ("noncausal", 2, 1000, 16, 2, 128, 0, False),
-             ("zamba2", BATCH, PROMPT_LENS[1], 32, 32, 64, 4096, True)]
+             ("zamba2", BATCH, PROMPT_LENS[1], 32, 32, 64, 4096, True),
+             ("moonshot", BATCH, PROMPT_LENS[1], 16, 16, 128, 0, True)]
     worst, failed = 0.0, []
     for name, b, s, hq, hkv, d, window, causal in cases:
         q, k, v = qkv(b, s, hq, hkv, d)
@@ -465,7 +502,7 @@ def phase_kernels(card: str) -> dict:
         fail("kernels", f"flash_attention disagrees with plain: {failed}")
 
     timed = {}
-    for name in ("main", "zamba2"):
+    for name in ("main", "zamba2", "moonshot"):
         _, b, s, hq, hkv, d, window, _ = next(c for c in cases
                                               if c[0] == name)
         # a window past S is plain causal attention, as SDPA's is_causal
@@ -868,16 +905,72 @@ def launch_counters() -> dict:
             "ssd_bwd": ssd_chunked_bwd_kernel}
 
 
+class Routes:
+    """Within ``with``: every MoE router call's (probs, expert ids), copied
+    to the CPU, by wrapping ``repro_torch.models.moe.router_topk``. With
+    ``force``, expert ids [T, k] per layer, each call is routed to them
+    instead, the gates renormalised from its own probabilities: a training
+    forward and backward under remat calls the router once per layer,
+    then once per layer last first."""
+
+    def __init__(self, force=None):
+        self.force, self.calls = force, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.mod, inner = moe, moe.router_topk
+        n = len(self.force or ())
+
+        def wrapped(x32, router_w, k):
+            probs, gate, idx = inner(x32, router_w, k)
+            if self.force:
+                c = len(self.calls) % (2 * n)
+                idx = self.force[c if c < n else 2 * n - 1 - c].to(
+                    probs.device)
+                gate = probs.gather(1, idx)
+                gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            self.calls.append((probs.detach().float().cpu(), idx.cpu()))
+            return probs, gate, idx
+
+        self.inner, moe.router_topk = inner, wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.router_topk = self.inner
+
+
+def flipped_tokens(ref_calls, calls, k: int):
+    """The tokens of one step (its layers' router calls) whose expert set
+    differs from the reference's, [T] bool, and the first flips' margins
+    (p_k - p_(k+1)) / p_k on the reference's side; fails if a first flip
+    lies past FLIP_MARGIN."""
+    import torch
+    flipped, margins = None, []
+    for (rp, ri), (_, gi) in zip(ref_calls, calls, strict=True):
+        diff = (ri.sort(-1).values != gi.sort(-1).values).any(-1)
+        flipped = torch.zeros_like(diff) if flipped is None else flipped
+        top = rp.sort(-1, descending=True).values
+        margin = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        first = diff & ~flipped
+        margins += margin[first].tolist()
+        flipped |= diff
+    if any(m > FLIP_MARGIN for m in margins):
+        fail("reference", f"a token took other experts on the card at a "
+             f"margin past {FLIP_MARGIN}: margins {margins}")
+    return flipped, margins
+
+
 def prefill_launches(cfg) -> dict:
     """Each forward kernel's launches in one prefill (or one training
     forward) of ``cfg``: the flash forward once per attention call (a
-    layer each in the dense family, the ceil(L / every) calls of the
-    hybrid's shared block), the SSD forward once per Mamba2 layer."""
+    layer each in the dense and MoE families, the ceil(L / every) calls of
+    the hybrid's shared block), the SSD forward once per Mamba2 layer."""
     every = cfg.shared_attention_every
-    calls = {"dense": cfg.num_layers, "ssm": 0,
+    calls = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
              "hybrid": -(-cfg.num_layers // max(every, 1))}[cfg.arch_type]
     return {"flash_attention": calls,
-            "ssd": 0 if cfg.arch_type == "dense" else cfg.num_layers}
+            "ssd": cfg.num_layers if cfg.ssm else 0}
 
 
 def tiny_config(arch: str):
@@ -890,21 +983,34 @@ def tiny_config(arch: str):
 def phase_serve(card: str, arch: str) -> dict:
     """Serves ``arch`` at full width; returns every kernel's launches over
     the main path, which must be one prefill's (``prefill_launches``) and
-    nothing else."""
+    nothing else. ``Model.init``'s peak memory must stay within 1 GB of the
+    tree (it draws in parts). An MoE config's prefill and decode drop what
+    their capacity does not keep (counted here), so its prefill-vs-decode
+    check runs on a copy whose capacity factor E/k keeps every token."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models import moe
     from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.serve.engine import Request, ServeEngine
 
+    free_card()
     cfg = get_config(arch)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
+    tree = sum(t.nbytes for t in tree_leaves(params))
+    init_extra = torch.cuda.max_memory_allocated() - tree
     say("serve", f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{model.count_params() / 1e9:.3f} B params in {cfg.dtype}, init "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{model.count_params() / 1e9:.3f} B params in {cfg.dtype} "
+        f"({tree / 1e9:.2f} GB), init {time.perf_counter() - t0:.1f} s, "
+        f"init's peak {init_extra / 1e9:.3f} GB above the tree (tol 1 GB)")
+    if not init_extra <= 1e9:
+        fail("serve", f"Model.init's peak is {init_extra / 1e9:.2f} GB above "
+             "its tree")
     engine = ServeEngine(model, params, batch=BATCH, cache_len=CACHE_LEN,
                          device="cuda")
 
@@ -999,24 +1105,56 @@ def phase_serve(card: str, arch: str) -> dict:
     say("serve", f"{arch} prefill B={BATCH} S={plen}: {prefill_ms:.2f} ms; decode: "
         f"{decode_ms:.2f} ms/step ({BATCH * 1e3 / decode_ms:.1f} tok/s); "
         f"all logits finite, on {card}")
+    del cache
+
+    check_model, check_toks = model, toks
+    if cfg.moe:
+        # what the capacity drops: one prefill and one decode step, routed
+        with torch.no_grad(), Routes() as routes:
+            _, cache = model.prefill(params, {"tokens": toks},
+                                     cache_len=CACHE_LEN, unembed=unembed)
+            model.decode_step(params, nxt, cache, plen + NEW_TOKENS,
+                              unembed=unembed)
+        del cache
+        e, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+        for what, calls in (("prefill", routes.calls[:cfg.num_layers]),
+                            ("decode step", routes.calls[cfg.num_layers:])):
+            t = calls[0][1].shape[0]
+            cap = moe.capacity_for(t, cfg.moe)
+            dropped = sum(int((~moe._dispatch_indices(idx, t, e, cap)[4])
+                              .sum()) for _, idx in calls)
+            say("serve", f"{arch} {what}: {t} tokens a layer (padding "
+                f"included), capacity {cap}: {dropped} of "
+                f"{t * k * len(calls)} assignments dropped over "
+                f"{len(calls)} layers ({100 * dropped / (t * k * len(calls)):.1f}%)")
+        check_model = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=e / k)), device="cuda")
+        check_toks = toks[:2]
 
     # prefill(S) == prefill(S-1) + decode_step(token S-1)
     with torch.no_grad():
-        full, _ = model.prefill(params, {"tokens": toks}, cache_len=CACHE_LEN,
-                                unembed=unembed)
-        _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
-                                 cache_len=CACHE_LEN, unembed=unembed)
-        step, _ = model.decode_step(params, toks[:, -1:], cache, plen - 1,
-                                    unembed=unembed)
+        full, _ = check_model.prefill(params, {"tokens": check_toks},
+                                      cache_len=CACHE_LEN, unembed=unembed)
+        _, cache = check_model.prefill(params, {"tokens": check_toks[:, :-1]},
+                                       cache_len=CACHE_LEN, unembed=unembed)
+        step, _ = check_model.decode_step(params, check_toks[:, -1:], cache,
+                                          plen - 1, unembed=unembed)
+    del cache
     rel = ((step - full).norm() / full.norm()).item()
     max_abs = (step - full).abs().max().item()
     ok = math.isfinite(rel) and rel <= CONSISTENCY_RTOL
-    say("serve", f"{arch} prefill(S) vs prefill(S-1)+decode: relative L2 {rel:.3e} "
-        f"(tol {CONSISTENCY_RTOL}), max abs {max_abs:.3e}, max |logit| "
-        f"{full.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
+    nodrop = (f" (B={check_toks.shape[0]}, capacity factor "
+              f"{check_model.cfg.moe.capacity_factor:.3f}: nothing dropped)"
+              if cfg.moe else "")
+    say("serve", f"{arch} prefill(S) vs prefill(S-1)+decode{nodrop}: relative "
+        f"L2 {rel:.3e} (tol {CONSISTENCY_RTOL}), max abs {max_abs:.3e}, max "
+        f"|logit| {full.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("serve", "prefill and decode disagree")
 
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": toks},
+                                 cache_len=CACHE_LEN, unembed=unembed)
     for name, fn in (
             ("prefill", lambda: model.prefill(params, {"tokens": toks},
                                               cache_len=CACHE_LEN,
@@ -1025,17 +1163,24 @@ def phase_serve(card: str, arch: str) -> dict:
                                                      cache, plen + i,
                                                      unembed=unembed)
                                    for i in range(4)])):
-        profile_window(f"{arch} {name}", fn, card)
+        profile_window(f"{arch} {name}", fn, card,
+                       scopes=MOE_SCOPES if cfg.moe else ())
     return counts
 
 
+MOE_SCOPES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
+
+
 def profile_window(name: str, fn, card: str, *, grad: bool = False,
-                   share_of: str | tuple = (), top: int = 6) -> None:
+                   share_of: str | tuple = (), top: int = 6,
+                   scopes: tuple = ()) -> None:
     """Device busy share and the ``top`` kernels of one call, from
     torch.profiler: kernel time summed over the window's wall time; with
     ``share_of`` (a name or several), also the share of the kernels whose
     name holds it, and
-    each of them."""
+    each of them; with ``scopes`` (``record_function`` names), the device
+    time of the kernels launched inside each (the forward's and remat's
+    recomputation; a backward's kernels are launched outside them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1046,9 +1191,11 @@ def profile_window(name: str, fn, card: str, *, grad: bool = False,
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    # device-side events only: host ops also carry their kernels' time
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # device-side events only (host ops also carry their kernels' time),
+    # without the scopes' own spans on the device's timeline
+    events = prof.key_averages()
+    rows = [(e.self_device_time_total, e.count, e.key) for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in scopes]
     busy_us = sum(r[0] for r in rows)
     say("profile", f"{name}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), idle "
@@ -1068,14 +1215,28 @@ def profile_window(name: str, fn, card: str, *, grad: bool = False,
         for us, count, k in sorted(mine, reverse=True):
             say("profile", f"  {name}: *{key}* {us / 1e3:8.3f} ms x{count} "
                 f"{k[:90]}")
+    inside = 0.0
+    for scope in scopes:
+        host = [e for e in events if e.key == scope
+                and e.device_type != DeviceType.CUDA]
+        us = sum(e.device_time_total for e in host)
+        inside += us
+        say("profile", f"  {name}: scope {scope}: kernels inside "
+            f"{us / 1e3:.3f} ms ({100 * us / max(busy_us, 1e-9):.1f}% of "
+            f"device busy), x{sum(e.count for e in host)}")
+    if scopes:
+        say("profile", f"  {name}: the MoE scopes together {inside / 1e3:.3f}"
+            f" ms ({100 * inside / max(busy_us, 1e-9):.1f}% of device busy)")
 
 
 def phase_small_reference(card: str, arch: str) -> None:
     """The card against the plain CPU path (which the CPU tests hold
     against the JAX package) on tiny ``arch`` (``tiny_config``) in bf16,
     same weights: prefill of 100 tokens into a ring of 128 (which the
-    hybrid's window of 64 bounds and wraps) and three decode steps, to
-    REFERENCE_ROW_RTOL."""
+    hybrid's and mixtral's window of 64 bounds and wraps) and three decode
+    steps, to REFERENCE_ROW_RTOL. An MoE config's routing decisions are
+    compared first (``flipped_tokens``), and a sequence's row of logits is
+    left out from the step its token took other experts on."""
     import numpy as np
     import torch
     from repro_torch.kernels.ref import row_rel_err
@@ -1086,24 +1247,53 @@ def phase_small_reference(card: str, arch: str) -> None:
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
     p_cpu = cpu.init(torch.Generator().manual_seed(0))
     p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    b, s = 4, 100
     toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (4, 100)).astype(np.int32))
-    worst = 0.0
+        0, cfg.vocab_size, (b, s)).astype(np.int32))
+    bad = torch.zeros((b, s + 3), dtype=torch.bool)
+    worst, left_out, margins, calls = 0.0, 0, [], 0
+
+    def step(run_cpu, run_gpu, pos, rows):
+        nonlocal worst, left_out, calls
+        with Routes() as rc:
+            lc, cc = run_cpu()
+        with Routes() as rg:
+            lg, cg = run_gpu()
+        calls += len(rc.calls)
+        if cfg.moe:
+            flips, m = flipped_tokens(rc.calls, rg.calls,
+                                      cfg.moe.experts_per_token)
+            margins.extend(m)
+            bad[rows] |= flips.reshape(b, -1)
+        keep = ~bad[:, pos]
+        left_out += int((~keep).sum())
+        worst = max(worst, row_rel_err(lg.cpu()[keep], lc[keep]))
+        return lc, cc, cg
+
     with torch.no_grad():
-        lc, cc = cpu.prefill(p_cpu, {"tokens": toks}, cache_len=128)
-        lg, cg = gpu.prefill(p_gpu, {"tokens": toks.cuda()}, cache_len=128)
-        worst = max(worst, row_rel_err(lg.cpu(), lc))
+        lc, cc, cg = step(
+            lambda: cpu.prefill(p_cpu, {"tokens": toks}, cache_len=128),
+            lambda: gpu.prefill(p_gpu, {"tokens": toks.cuda()},
+                                cache_len=128), s - 1, np.s_[:, :s])
         for i in range(3):
             nxt = lc.argmax(-1, keepdim=True)
-            lc, cc = cpu.decode_step(p_cpu, nxt, cc, 100 + i)
-            lg, cg = gpu.decode_step(p_gpu, nxt.cuda(), cg, 100 + i)
-            worst = max(worst, row_rel_err(lg.cpu(), lc))
+            lc, cc, cg = step(
+                lambda: cpu.decode_step(p_cpu, nxt, cc, s + i),
+                lambda: gpu.decode_step(p_gpu, nxt.cuda(), cg, s + i),
+                s + i, np.s_[:, s + i:s + i + 1])
     ok = math.isfinite(worst) and worst <= REFERENCE_ROW_RTOL
+    routing = ""
+    if cfg.moe:
+        routing = (f"; routing: {calls} router calls, {int(bad.sum())} of "
+                   f"{b * (s + 3)} tokens took other experts on the card "
+                   f"(first flips' margins {[f'{m:.2e}' for m in margins]}, "
+                   f"all within {FLIP_MARGIN}), {left_out} of {4 * b} logit "
+                   "rows left out")
     say("reference", f"{cfg.name} ({cfg.num_layers} layers) bf16, card vs "
         f"CPU plain path: prefill + 3 "
         f"decode steps, worst row rel L2 logit err {worst:.3e} (tol "
-        f"{REFERENCE_ROW_RTOL}) {'ok' if ok else 'FAIL'} on {card}")
-    if not ok:
+        f"{REFERENCE_ROW_RTOL}){routing} {'ok' if ok else 'FAIL'} on {card}")
+    if not ok or left_out > 2 * b:
         fail("reference", "the card disagrees with the CPU path")
 
 
@@ -1119,11 +1309,18 @@ def phase_small_train_reference(card: str, arch: str) -> None:
     tiny configs; bf16's own error grows with depth (the CPU's bf16 path
     against its fp32 path, no kernel involved, errs up to 0.16 in a row
     of tiny zamba2-1.2b's dt_proj at five layers, 0.12 at a five-layer
-    mamba2-370m, 0.07 at two layers). So a deeper config
-    (TINY_OVERRIDES) holds each leaf's worst row to the larger of the gate
-    and twice that leaf's bf16-vs-fp32 worst row on the CPU: two bf16
-    paths that round independently differ by ~sqrt(2) times one's error,
-    and the worst of many rows spreads more."""
+    mamba2-370m, 0.07 at two layers), and an MoE router's gradient, which
+    subtracts near-equal terms (p (dp - sum p dp)), errs by 0.095 in a row
+    of tiny moonshot-v1-16b-a3b's and 0.165 of tiny mixtral-8x22b's at two
+    layers, routed alike. So a deeper config (TINY_OVERRIDES) or an MoE
+    config holds each leaf's worst row to the larger of the gate and twice
+    that leaf's bf16-vs-fp32 worst row on the CPU: two bf16 paths that
+    round independently differ by ~sqrt(2) times one's error, and the
+    worst of many rows spreads more. An MoE config's routing
+    decisions on the card are held to the CPU's (``flipped_tokens``), and
+    its gradients compared with the card routed as the CPU was: a token
+    that took other experts moves the leaves that sum few tokens by O(1)
+    over their count."""
     import torch
     from repro_torch.data.loader import Loader
     from repro_torch.data.synthetic import SyntheticStream
@@ -1138,21 +1335,43 @@ def phase_small_train_reference(card: str, arch: str) -> None:
     p_cpu = models["cpu"].init(torch.Generator().manual_seed(0),
                                dtype=torch.float32)
     stream = SyntheticStream(cfg.vocab_size, 0)
-    out = {}
-    for dev, model in models.items():
+
+    def run(dev, force=None):
+        model = models[dev]
         params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
         batch = Loader(stream, 4, 128, dev)(0)
         grads = tree_map(torch.zeros_like, params)
-        loss_and_grads(model, params, batch, grads)
-        _, _, metrics = make_train_step(model, AdamWConfig())(
-            params, adamw_init(params), batch)
-        out[dev] = (grads, {k: float(v) for k, v in metrics.items()})
-    (g_cpu, m_cpu), (g_gpu, m_gpu) = out["cpu"], out["cuda"]
+        with Routes(force) as routes:
+            loss_and_grads(model, params, batch, grads)
+            _, _, metrics = make_train_step(model, AdamWConfig())(
+                params, adamw_init(params), batch)
+        return grads, {k: float(v) for k, v in metrics.items()}, routes.calls
+
+    g_cpu, m_cpu, cpu_calls = run("cpu")
+    g_gpu, m_gpu, gpu_calls = run("cuda")
+    routing = ""
+    if cfg.moe:
+        n = cfg.num_layers
+        flips, margins = flipped_tokens(cpu_calls[:n], gpu_calls[:n],
+                                        cfg.moe.experts_per_token)
+        free = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+                for k in ("loss", "aux")}
+        g_gpu, m_gpu, _ = run("cuda", force=[idx for _, idx in cpu_calls[:n]])
+        routing = (f"; routing: {int(flips.sum())} of {flips.numel()} tokens"
+                   f" took other experts on the card (margins "
+                   f"{[f'{m:.2e}' for m in margins]}), as routed loss rel "
+                   f"{free['loss']:.2e} and aux rel {free['aux']:.2e}; the "
+                   "gradients with the card routed as the CPU's")
+        if not free["loss"] <= TRAIN_LOSS_RTOL:
+            fail("reference", f"the card's loss as routed: {routing}")
     tols = [TRAIN_GRAD_ROW_RTOL] * len(tree_leaves(g_cpu))
-    if arch in TINY_OVERRIDES:
+    if arch in TINY_OVERRIDES or cfg.moe:
         fp32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cpu")
         g_fp32 = tree_map(torch.zeros_like, p_cpu)
-        loss_and_grads(fp32, p_cpu, Loader(stream, 4, 128, "cpu")(0), g_fp32)
+        n = cfg.num_layers
+        with Routes([idx for _, idx in cpu_calls[:n]] if cfg.moe else None):
+            loss_and_grads(fp32, p_cpu, Loader(stream, 4, 128, "cpu")(0),
+                           g_fp32)
         tols = [max(t, 2 * row_rel_err(a, b, floor=GRAD_ROW_FLOOR))
                 for t, a, b in zip(tols, tree_leaves(g_cpu),
                                    tree_leaves(g_fp32))]
@@ -1180,14 +1399,15 @@ def phase_small_train_reference(card: str, arch: str) -> None:
         f"{TRAIN_GRAD_ROW_RTOL}); worst gradient row rel L2 err against its "
         f"tol {worst:.3e} in {where} (tol {tol:.3e}; leaves whose row tol is"
         f" twice the CPU's own bf16 error, above {TRAIN_GRAD_ROW_RTOL}: "
-        f"{sum(t > TRAIN_GRAD_ROW_RTOL for t in tols)} of {len(tols)}) "
-        f"{'ok' if ok else 'FAIL'} on {card}")
+        f"{sum(t > TRAIN_GRAD_ROW_RTOL for t in tols)} of {len(tols)})"
+        f"{routing} {'ok' if ok else 'FAIL'} on {card}")
     if not ok:
         fail("reference", "the card's train step disagrees with the CPU path")
 
 
 def phase_train(card: str, arch: str) -> dict:
-    """``arch`` at full width takes TRAIN_STEPS AdamW steps at
+    """``arch`` at full width (at TRAIN_LAYERS[arch] layers where its
+    state does not fit the card) takes TRAIN_STEPS AdamW steps at
     TRAIN_BATCHES[arch] x TRAIN_SEQ; returns every kernel's launches over
     the run."""
     import torch
@@ -1201,6 +1421,10 @@ def phase_train(card: str, arch: str) -> dict:
     free_card()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(arch)
+    cut = ""
+    if arch in TRAIN_LAYERS:
+        cut = f" (of {cfg.num_layers}: depth cut to fit the card)"
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS[arch])
     batch_size = TRAIN_BATCHES[arch]
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda")
@@ -1208,7 +1432,7 @@ def phase_train(card: str, arch: str) -> dict:
     params, opt = state.params, state.opt
     torch.cuda.synchronize()
     n_params = model.count_params()
-    say("train", f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    say("train", f"{arch}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params, fp32 masters + AdamW mu/nu "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, compute {cfg.dtype}, "
         f"remat {model.remat}; init {time.perf_counter() - t0:.1f} s")
@@ -1257,9 +1481,15 @@ def phase_train(card: str, arch: str) -> dict:
     step_s = statistics.median(times[2:])
     tokens = batch_size * TRAIN_SEQ
     # N: every parameter outside the embedding, once per use: the hybrid's
-    # shared block once per call
+    # shared block once per call; of an MoE layer's experts the k a token
+    # is routed to (the capacity's padding rows not counted)
     n_matmul = n_params - cfg.vocab_size * cfg.d_model
     calls, per_call = fwd["flash_attention"], ""
+    if cfg.moe:
+        n_matmul = cfg.active_param_count() - cfg.vocab_size * cfg.d_model
+        per_call = (f", active: {cfg.moe.experts_per_token} of "
+                    f"{cfg.moe.num_experts} experts, capacity padding not "
+                    "counted")
     if cfg.arch_type == "hybrid":
         n_matmul += (calls - 1) * sum(t.numel()
                                       for t in params["shared_attn"].values())
@@ -1284,14 +1514,74 @@ def phase_train(card: str, arch: str) -> dict:
         f"N = {n_matmul / 1e9:.3f} B outside the embedding{per_call}; "
         f"{'; '.join(extra)}; remat's recompute not counted) = "
         f"{100 * model_flops / step_s / PEAK_BF16_FLOPS:.1f}% MFU of 989 "
-        f"TFLOP/s; peak memory {peak / 1e9:.2f} GB; launches over the run "
-        f"{total}, on {card}")
+        f"TFLOP/s; peak memory {peak / 1e9:.2f} GB ({(CARD_BYTES - peak) / 1e9:.2f}"
+        f" GB of 80 free); launches over the run {total}, on {card}")
     profile_window(f"{arch} train step", lambda: step_fn(params, opt,
                                                          loader(TRAIN_STEPS)),
-                   card, grad=True, share_of=share_of, top=14)
+                   card, grad=True, share_of=share_of, top=14,
+                   scopes=MOE_SCOPES if cfg.moe else ())
     del params, opt, state, step_fn
     free_card()
     return total
+
+
+def phase_moe_block(card: str) -> None:
+    """moonshot-v1-16b-a3b's MoE block at its training shape (B = 2 x S =
+    2048 tokens, D = 2048, 64 experts, top 6, F = 1408; bf16 activations,
+    fp32 weights as the training masters): a forward and backward twice
+    under deterministic algorithms, every output and gradient bit-equal;
+    the same without them; the block's time and its scopes' split."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(MOON)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    b, s = TRAIN_BATCHES[MOON], TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(std)
+
+    x, dy = (randn(b, s, d).bfloat16() for _ in range(2))
+    weights = (randn(d, e, std=0.02), randn(e, d, f, std=0.02),
+               randn(e, d, f, std=0.02), randn(e, f, d, std=0.002))
+
+    def run():
+        leaves = [t.detach().requires_grad_() for t in (x,) + weights]
+        y, aux = moe.moe_block(*leaves, moe=cfg.moe)
+        torch.autograd.backward([y, aux], [dy, torch.ones_like(aux)])
+        return [y.detach(), aux.detach()] + [t.grad for t in leaves]
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = [run(), run()]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    free = [run(), run()]
+    torch.cuda.synchronize()
+    names = ["y", "aux", "dx", "drouter", "dw_gate", "dw_up", "dw_down"]
+    det_equal = [n for n, u, v in zip(names, *det) if not torch.equal(u, v)]
+    free_equal = [n for n, u, v in zip(names, *free) if not torch.equal(u, v)]
+    finite = all(bool(torch.isfinite(t).all()) for t in det[0])
+    fwd_ms = cuda_ms(lambda: moe.moe_block(x, *weights, moe=cfg.moe),
+                     iters=10)
+    step_ms = cuda_ms(run, iters=5)
+    cap = moe.capacity_for(b * s, cfg.moe)
+    flops = 3 * 2 * e * cap * d * f
+    ok = not det_equal and finite
+    say("moe", f"{MOON} block, {b * s} tokens, {e} experts top "
+        f"{cfg.moe.experts_per_token}, capacity {cap}: two forward + backward"
+        f" calls under deterministic algorithms bit-equal in every output "
+        f"and gradient: {not det_equal} {det_equal or ''}; without them: "
+        f"{not free_equal} {free_equal or ''}; finite {finite}; forward "
+        f"{fwd_ms:.3f} ms (its expert products {flops / 1e12:.3f} TFLOP at "
+        f"{flops / fwd_ms / 1e9:.1f} TFLOP/s over the whole block), forward"
+        f" + backward {step_ms:.3f} ms, on {card} {'ok' if ok else 'FAIL'}")
+    profile_window(f"{MOON} moe block forward + backward", run, card,
+                   grad=True, top=10, scopes=MOE_SCOPES)
+    if not ok:
+        fail("moe", "the MoE block is not bit-equal from call to call")
 
 
 def fingerprints(*trees) -> list[tuple[str, int, int]]:
@@ -1695,8 +1985,9 @@ def main() -> int:
     ssd_bwd = timed("kernels ssd_bwd", phase_ssd_bwd_kernels, card)
     flash_bwd, flash_bwd_det = timed("kernels flash_bwd",
                                      phase_flash_bwd_kernels, card)
-    archs = (QWEN, MAMBA, ZAMBA)
-    for arch in archs:
+    archs = (QWEN, MAMBA, ZAMBA, MOON)
+    timed("moe block", phase_moe_block, card)
+    for arch in archs + (MIXTRAL,):
         timed(f"reference {arch}", phase_small_reference, card, arch)
     # the forward kernels' launches over the serving paths, the backward
     # kernels' over the training paths
@@ -1704,7 +1995,7 @@ def main() -> int:
               for arch in archs]
     for entry in (flash, ssd):
         entry["launches"] = sum(c[entry["name"]] for c in served)
-    for arch in archs:
+    for arch in archs + (MIXTRAL,):
         timed(f"reference train {arch}", phase_small_train_reference, card,
               arch)
     trained = [timed(f"train {arch}", phase_train, card, arch)

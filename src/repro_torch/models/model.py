@@ -1,6 +1,7 @@
-"""The decoder-only LM in PyTorch, dense, SSM (Mamba2) and hybrid
+"""The decoder-only LM in PyTorch, dense, MoE, SSM (Mamba2) and hybrid
 (Zamba2) families: the counterpart of those paths of the JAX package's
-``models/model.py``.
+``models/model.py``. The MoE family is the dense one with each layer's
+MLP a mixture-of-experts block (``models/moe.py``), on one device.
 
 Parameters keep the reference's names, shapes and ``x @ W`` orientation:
 stacked ``[L, ...]`` leaves under ``params["layers"]`` (``wq`` is
@@ -44,13 +45,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import attention_op, ssd_op
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
 # init is ("normal", std), ("ones",), ("zeros",), ("a_log",) or
 # ("dt_bias",); fp32: kept in fp32 whatever the compute dtype
 Leaf = namedtuple("Leaf", ["shape", "init", "fp32"], defaults=(False,))
 
-PORTED_ARCH_TYPES = ("dense", "ssm", "hybrid")
+PORTED_ARCH_TYPES = ("dense", "moe", "ssm", "hybrid")
+# the most elements Model.init draws in fp32 at once (0.5 GB)
+_INIT_PART = 1 << 27
+# the families whose layers are attention + MLP (or MoE), as _dense_leaves
+TRANSFORMER_ARCH_TYPES = ("dense", "moe")
 # the per-layer cache entries of a Mamba2 layer and of an attention call
 SSM_CACHE = ("ssm", "conv_x", "conv_B", "conv_C")
 KV_CACHE = ("k", "v", "slot_pos")
@@ -104,7 +110,7 @@ def param_schema(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         schema["lm_head"] = Leaf((cfg.d_model, cfg.vocab_size),
                                  ("normal", 0.02))
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in TRANSFORMER_ARCH_TYPES:
         schema["layers"] = _dense_leaves(cfg)
     else:
         schema["layers"] = _ssm_leaves(cfg)
@@ -137,17 +143,28 @@ def _attn_leaves(cfg: ModelConfig, *, stacked: bool = True) -> dict:
 
 
 def _dense_leaves(cfg: ModelConfig) -> dict:
-    """The reference's stacked ``_attn_leaves`` and dense ``_mlp_leaves``."""
+    """The reference's stacked ``_attn_leaves`` and ``_mlp_leaves``: a
+    SwiGLU MLP, or with ``cfg.moe`` the router [L, D, E] and E experts'
+    SwiGLU weights [L, E, D, F] / [L, E, F, D]."""
     d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
     s_in = ("normal", 0.02)
     s_out = ("normal", 0.02 / math.sqrt(2 * n))
     layers = _attn_leaves(cfg)
-    layers.update({
-        "mlp_norm": Leaf((n, d), ("ones",)),
-        "w_gate": Leaf((n, d, f), s_in),
-        "w_up": Leaf((n, d, f), s_in),
-        "w_down": Leaf((n, f, d), s_out),
-    })
+    layers["mlp_norm"] = Leaf((n, d), ("ones",))
+    if cfg.moe:
+        e = cfg.moe.num_experts
+        layers.update({
+            "router": Leaf((n, d, e), s_in),
+            "w_gate": Leaf((n, e, d, f), s_in),
+            "w_up": Leaf((n, e, d, f), s_in),
+            "w_down": Leaf((n, e, f, d), s_out),
+        })
+    else:
+        layers.update({
+            "w_gate": Leaf((n, d, f), s_in),
+            "w_up": Leaf((n, d, f), s_in),
+            "w_down": Leaf((n, f, d), s_out),
+        })
     return layers
 
 
@@ -167,12 +184,11 @@ class Model:
         """``remat``: recompute each layer in ``train_loss``'s backward
         pass instead of keeping its activations (the reference's
         ``Rules.remat``, on by default); the gradients are the same."""
-        if cfg.arch_type not in PORTED_ARCH_TYPES or cfg.moe:
+        if cfg.arch_type not in PORTED_ARCH_TYPES:
             raise NotImplementedError(
-                f"{cfg.name}: arch_type {cfg.arch_type!r}"
-                f"{' with MoE' if cfg.moe else ''} is not ported yet; the "
-                f"port serves and trains {PORTED_ARCH_TYPES} without MoE "
-                "only (ROADMAP.md A.5 MoE, A.6 frontends)")
+                f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
+                f"the port serves and trains {PORTED_ARCH_TYPES} only "
+                "(ROADMAP.md A.6 frontends)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.dtype)
@@ -186,29 +202,40 @@ class Model:
         serving; ``torch.float32`` for training's masters), ``Leaf.fp32``
         ones in fp32, drawn on the model's device from ``generator`` (which
         must live there too): the reference's distributions, not its
-        numbers."""
+        numbers. Each leaf is made in its own dtype and filled in fp32 one
+        part of its first dimension at a time (``_INIT_PART`` elements, or
+        one row if a row is larger: one layer of a stacked [L, ...] leaf),
+        so the peak is the tree and one part in fp32 (0.74 GB for a layer of
+        moonshot-v1-16b-a3b's [48, 64, 2048, 1408] ``w_gate``), not the tree
+        and the whole leaf in fp32 (35.4 GB)."""
         dtype = dtype or self.compute_dtype
+
         def uniform(shape, lo, hi):
             return lo + (hi - lo) * torch.rand(shape, generator=generator,
                                                device=self.device)
 
-        def make(leaf: Leaf) -> torch.Tensor:
-            kind = leaf.init[0]
+        def draw(init: tuple, shape) -> torch.Tensor:
+            kind = init[0]
             if kind == "ones":
-                t = torch.ones(leaf.shape, device=self.device)
-            elif kind == "zeros":
-                t = torch.zeros(leaf.shape, device=self.device)
-            elif kind == "a_log":  # A uniform in [1, 16] (Mamba2 default)
-                t = torch.log(uniform(leaf.shape, 1.0, 16.0))
-            elif kind == "dt_bias":
+                return torch.ones(shape, device=self.device)
+            if kind == "zeros":
+                return torch.zeros(shape, device=self.device)
+            if kind == "a_log":  # A uniform in [1, 16] (Mamba2 default)
+                return torch.log(uniform(shape, 1.0, 16.0))
+            if kind == "dt_bias":
                 # dt log-uniform in [1e-3, 1e-1], stored as inverse softplus
-                dt = torch.exp(uniform(leaf.shape, math.log(1e-3),
-                                       math.log(1e-1)))
-                t = dt + torch.log(-torch.expm1(-dt))
-            else:
-                t = torch.randn(leaf.shape, generator=generator,
-                                device=self.device) * leaf.init[1]
-            return t if leaf.fp32 else t.to(dtype)
+                dt = torch.exp(uniform(shape, math.log(1e-3), math.log(1e-1)))
+                return dt + torch.log(-torch.expm1(-dt))
+            return torch.randn(shape, generator=generator,
+                               device=self.device).mul_(init[1])
+
+        def make(leaf: Leaf) -> torch.Tensor:
+            out = torch.empty(leaf.shape, device=self.device,
+                              dtype=torch.float32 if leaf.fp32 else dtype)
+            rows = max(1, _INIT_PART * leaf.shape[0] // out.numel())
+            for part in out.split(rows):
+                part.copy_(draw(leaf.init, part.shape))
+            return out
 
         return map_schema(make, param_schema(self.cfg))
 
@@ -270,16 +297,23 @@ class Model:
         return h + out.reshape(b, s, -1) @ p["wo"].to(h.dtype), k, v
 
     def _train_layer(self, kind: str, p: dict, h: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
-        """One entry of ``_schedule`` over a whole sequence, no caches."""
+                     positions: torch.Tensor):
+        """One entry of ``_schedule`` over a whole sequence, no caches.
+        Returns (h, the MoE block's aux, or None without one)."""
         if kind == "mamba":
-            return self.mamba_sublayer(p, h, None, mode="train")
+            return self.mamba_sublayer(p, h, None, mode="train"), None
         h = self._attention(p, h, positions)[0]
-        return self._mlp(p, h) if "mlp_norm" in p else h
+        return self._mlp(p, h) if "mlp_norm" in p else (h, None)
 
-    def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, p: dict, h: torch.Tensor):
+        """The MLP sublayer, SwiGLU or, with ``cfg.moe``, the MoE block
+        over every token of the call. Returns (h, aux or None)."""
         m = L.rms_norm(h, p["mlp_norm"], self.cfg.norm_eps)
-        return h + L.swiglu(m, p["w_gate"], p["w_up"], p["w_down"])
+        if self.cfg.moe:
+            y, aux = moe_lib.moe_block(m, p["router"], p["w_gate"], p["w_up"],
+                                       p["w_down"], moe=self.cfg.moe)
+            return h + y, aux
+        return h + L.swiglu(m, p["w_gate"], p["w_up"], p["w_down"]), None
 
     def _logits(self, params: dict, h: torch.Tensor,
                 unembed: torch.Tensor | None) -> torch.Tensor:
@@ -353,14 +387,15 @@ class Model:
 
     def _schedule(self, params: dict) -> list[tuple[str, dict, int]]:
         """The layer stack in order, as (kind, parameters, cache index):
-        "attn" is an attention sublayer (with its MLP after it when the
-        parameters have one, the dense family's), "mamba" a Mamba2 layer.
+        "attn" is an attention sublayer (with its MLP or MoE block after
+        it when the parameters have one, the dense and MoE families'),
+        "mamba" a Mamba2 layer.
         The hybrid family runs ``params["shared_attn"]`` before every
         ``shared_attention_every``-th Mamba2 layer, as the reference's
         ``_apply_hybrid``; call j has cache index j."""
         cfg = self.cfg
         layers = self._layer_params(params)
-        if cfg.arch_type == "dense":
+        if cfg.arch_type in TRANSFORMER_ARCH_TYPES:
             return [("attn", p, i) for i, p in enumerate(layers)]
         every = cfg.shared_attention_every if cfg.arch_type == "hybrid" else 0
         out = []
@@ -403,7 +438,7 @@ class Model:
             caches["k"][i][:, slots] = k[:, src]
             caches["v"][i][:, slots] = v[:, src]
             if "mlp_norm" in p:
-                h = self._mlp(p, h)
+                h = self._mlp(p, h)[0]
         return self._logits(params, h[:, -1:], unembed)[:, 0], caches
 
     def decode_step(self, params: dict, tokens: torch.Tensor, caches: dict,
@@ -433,7 +468,7 @@ class Model:
                 layer_cache["slot_pos"], pos, window=cfg.sliding_window)
             h = h + out.reshape(b, 1, -1) @ p["wo"].to(h.dtype)
             if "mlp_norm" in p:
-                h = self._mlp(p, h)
+                h = self._mlp(p, h)[0]
         return self._logits(params, h, unembed)[:, 0], caches
 
     # ----- training -----
@@ -455,28 +490,34 @@ class Model:
         ``_schedule`` (a layer; for the hybrid family each shared-attention
         call and each Mamba2 layer apart, as the reference's
         ``_apply_hybrid``) checkpointed when ``remat``. Returns (h,
-        aux_mean): aux is 0 for the families without MoE. ``prefill`` and
-        ``decode_step`` run their own loops, which write the caches."""
+        aux_mean): the MoE blocks' aux summed over the layers and divided
+        by their number, as the reference's scan does; 0 for the families
+        without MoE. ``prefill`` and ``decode_step`` run their own loops,
+        which write the caches."""
         if mode != "train":
             raise ValueError(f"apply_layers: mode {mode!r}; only 'train' runs "
                              "here (prefill and decode_step have their own "
                              "loops)")
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for kind, p, _ in self._schedule(params):
             if self.remat:
-                h = checkpoint(self._train_layer, kind, p, h, positions,
-                               use_reentrant=False, preserve_rng_state=False)
+                h, aux_i = checkpoint(self._train_layer, kind, p, h,
+                                      positions, use_reentrant=False,
+                                      preserve_rng_state=False)
             else:
-                h = self._train_layer(kind, p, h, positions)
-        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+                h, aux_i = self._train_layer(kind, p, h, positions)
+            if aux_i is not None:
+                aux = aux + aux_i
+        return h, aux / self.cfg.num_layers
 
     def train_loss(self, params: dict, batch: dict):
         """batch: tokens and labels [B, S]. Returns (loss, {"ce", "aux"}):
-        the mean over positions of logsumexp(logits) - logits[label] on
-        fp32 logits of the whole sequence, as the reference's
-        ``train_loss``. The masters are cast to the compute dtype where
-        they are used, inside each (checkpointed) layer, so remat keeps no
-        copies of them. The dense, SSM and hybrid families without MoE
-        (the constructor refuses the others), on every device."""
+        ce, the mean over positions of logsumexp(logits) - logits[label]
+        on fp32 logits of the whole sequence, plus, with ``cfg.moe``,
+        ``router_aux_weight`` times the layers' mean load-balance aux, as
+        the reference's ``train_loss``. The masters are cast to the
+        compute dtype where they are used, inside each (checkpointed)
+        layer, so remat keeps no copies of them."""
         tokens = batch["tokens"].long()
         labels = batch["labels"].long()
         h = L.embed(tokens, params["embed"], self.compute_dtype)
@@ -487,7 +528,10 @@ class Model:
         lse = torch.logsumexp(logits, dim=-1)
         label_logit = logits.gather(-1, labels[..., None])[..., 0]
         ce = (lse - label_logit).mean()
-        return ce, {"ce": ce, "aux": aux}
+        loss = ce
+        if self.cfg.moe:
+            loss = ce + self.cfg.moe.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
 
     # ----- caches -----
 
@@ -499,8 +543,9 @@ class Model:
     def cache_shapes(self, batch: int, cache_len: int) -> dict:
         """One flat dict: the SSM and conv states stacked over the layers
         (SSM and hybrid families), and the ring's k, v and slot positions
-        stacked over the attention calls (a layer each in the dense family,
-        the ceil(L / every) shared-attention calls in the hybrid). The
+        stacked over the attention calls (a layer each in the dense and MoE
+        families, the ceil(L / every) shared-attention calls in the
+        hybrid). The
         hybrid's dict holds the reference's tuple ``(mamba_caches,
         attn_caches)``: its first dict's entries, then its second's."""
         cfg = self.cfg
@@ -514,8 +559,8 @@ class Model:
                                s.head_dim, s.state_dim),
                           conv_x=conv + (di,), conv_B=conv + (gn,),
                           conv_C=conv + (gn,))
-        if cfg.arch_type in ("dense", "hybrid"):
-            calls = (cfg.num_layers if cfg.arch_type == "dense"
+        if cfg.arch_type != "ssm":
+            calls = (cfg.num_layers if cfg.arch_type != "hybrid"
                      else -(-cfg.num_layers // cfg.shared_attention_every))
             w = self.cache_window(cache_len)
             kv = (calls, batch, w, cfg.num_kv_heads, cfg.head_dim)

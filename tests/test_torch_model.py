@@ -171,7 +171,7 @@ def test_params_from_numpy_rejects_a_wrong_layout(fp32_pair):
         params_from_numpy(tree, m.cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-large"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch), device="cpu")
