@@ -11,7 +11,9 @@ Phases, one line or more each; any failure exits non-zero:
      PyTorch version at the serving paths' shapes and their edges (and
      zamba2-1.2b's: the flash kernels at 32 heads of 64 with a window of
      4096, the SSD at 64 heads with N = 64; moonshot-v1-16b-a3b's: the
-     flash kernels at 16 heads of 128, MHA), then its time (at each
+     flash kernels at 16 heads of 128, MHA; musicgen-large's: 32 heads of
+     64, MHA, no window; qwen2-vl-72b's: 64 / 8 heads of 128), then its
+     time (at each
      model's shape) and achieved TFLOP/s beside the plain version's time, the
      library call's (SDPA; none for SSD) and its bound on the card; for the
      flash backward also the difference between two calls on the same
@@ -25,26 +27,36 @@ Phases, one line or more each; any failure exits non-zero:
      deterministic algorithms; its time and its scopes' split.
   4. reference: tiny qwen2.5-3b, mamba2-370m, zamba2-1.2b (five layers:
      three calls of its shared block, whose window of 64 the prompts of
-     100 pass), moonshot-v1-16b-a3b and mixtral-8x22b (4 experts, top 2)
-     in bf16 on the card against the plain CPU path; for the MoE ones the
+     100 pass), moonshot-v1-16b-a3b, musicgen-large, qwen2-vl-72b and
+     mixtral-8x22b (4 experts, top 2) in bf16 on the card against the
+     plain CPU path (the frontend families prefill from stand-in
+     embeddings, qwen2-vl with vision-grid M-RoPE positions, then decode
+     four tokens); for the MoE ones the
      routing decisions first: a token may take other experts on the card
      only at a near-tie (FLIP_MARGIN), and its rows leave the row gate.
   5. serve, once per model: qwen2.5-3b (36 layers), mamba2-370m (48
-     layers), zamba2-1.2b (38 Mamba2 layers, 7 shared-block calls) and
-     moonshot-v1-16b-a3b (48 layers, 64 experts, top 6), at full width,
-     bf16, random weights from a seed (Model.init's peak within 1 GB of
-     the tree), each answer 8 requests through ServeEngine; the kernels'
+     layers), zamba2-1.2b (38 Mamba2 layers, 7 shared-block calls),
+     moonshot-v1-16b-a3b (48 layers, 64 experts, top 6), musicgen-large
+     (48 layers) and qwen2-vl-72b (32 of its 80 layers: SERVE_LAYERS), at
+     full width, bf16, random weights from a seed (Model.init's peak
+     within 1 GB of the tree), each answer 8 requests of token prompts
+     through ServeEngine; the kernels'
      launch counts prove the prefill ran through its kernels (a flash
      launch per attention call, an SSD launch per Mamba2 layer, nothing
      else); the MoE model's dropped assignments are counted; prefill(S)
      is held against prefill(S-1) + decode_step (for the MoE model at a
      capacity factor that drops nothing); torch.profiler splits one
      prefill and four decode steps into device busy and idle time, and
-     the MoE block into its scopes.
+     the MoE block into its scopes. qwen2-vl-72b also prefills from its
+     tokens' embeddings with text-like M-RoPE positions, bit-equal to the
+     prefill from the tokens, and from stand-in embeddings with
+     vision-grid positions, then decodes four tokens.
   6. reference train: one AdamW step of each tiny model of phase 4 (bf16
      over fp32 masters) on the card against the plain CPU path: loss,
      gradient norm and every gradient leaf (the MoE ones with the card
-     routed as the CPU was, after their routing is compared).
+     routed as the CPU was, after their routing is compared; the frontend
+     families from stand-in embeddings, their embed leaf's gradient
+     exactly zero on both devices).
   7. train: qwen2.5-3b at full width (fp32 masters, bf16 compute, remat)
      takes 8 AdamW steps on the synthetic stream at B = 2, S = 2048; the
      loss must fall, every step must launch the forward flash kernel 72
@@ -58,7 +70,11 @@ Phases, one line or more each; any failure exits non-zero:
      shared block once per call. Then moonshot-v1-16b-a3b at full width,
      5 of its 48 layers (TRAIN_LAYERS), B = 2, S = 2048: 10 flash forward
      and 5 backward launches a step, peak under 80 GB; its MFU counts the
-     k active experts.
+     k active experts. Then musicgen-large at full width, B = 8, S = 2048,
+     and qwen2-vl-72b at full width, 1 of its 80 layers (TRAIN_LAYERS), B
+     = 2, S = 2048, both on stand-in embeddings (qwen2-vl with vision-grid
+     M-RoPE positions) and the stream's labels: 96 / 48 and 2 / 1 flash
+     launches a step, and the flash backward's share of musicgen's step.
   8. resume, under torch.use_deterministic_algorithms(True): qwen2.5-3b at
      full width trains 6 steps (run A), then anew 3 steps, saves a striped
      checkpoint of params and AdamW state (40.84 GB) into build/, frees the
@@ -173,14 +189,39 @@ TRAIN_LOSS_RTOL = 1e-2
 
 QWEN, MAMBA, ZAMBA = "qwen2.5-3b", "mamba2-370m", "zamba2-1.2b"
 MOON, MIXTRAL = "moonshot-v1-16b-a3b", "mixtral-8x22b"
+AUDIO, VLM = "musicgen-large", "qwen2-vl-72b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 8, 3e-4
 # each arch's training batch at TRAIN_SEQ: qwen2.5-3b's fits 80 GB at 2
-TRAIN_BATCHES = {QWEN: TRAIN_BATCH, MAMBA: 8, ZAMBA: 8, MOON: TRAIN_BATCH}
-# the training cells' depth cuts: moonshot-v1-16b-a3b keeps 16 B a
-# parameter of fp32 masters, gradients and AdamW mu / nu, 0.671 B +
+TRAIN_BATCHES = {QWEN: TRAIN_BATCH, MAMBA: 8, ZAMBA: 8, MOON: TRAIN_BATCH,
+                 AUDIO: 8, VLM: TRAIN_BATCH}
+# the training cells' depth cuts, each keeping 16 B a parameter of fp32
+# masters, gradients and AdamW mu / nu: moonshot-v1-16b-a3b, 0.671 B +
 # 0.5706 B a layer: five layers take 56.3 GB, and the logits and
-# activations of B = 2 x S = 2048 ~10 GB more (six would leave < 8 GB free)
-TRAIN_LAYERS = {MOON: 5}
+# activations of B = 2 x S = 2048 ~10 GB more (six would leave < 8 GB
+# free); qwen2-vl-72b, 2.491 B (embed and lm_head) + 0.8777 B a layer:
+# one layer takes 53.91 GB, and the fp32 logits of B = 2 x S = 2048
+# (2 x 2048 x 152064, 2.49 GB), their gradient and the fp32 unembedding
+# table (4.98 GB) come on top (two layers would hold 67.95 GB of state
+# before any activation). musicgen-large is not cut: 3.230 B x 16 B =
+# 51.68 GB, and B = 8 x S = 2048 saves 48 layer inputs of 67 MB.
+TRAIN_LAYERS = {MOON: 5, VLM: 1}
+# the training cells' learning rate where TRAIN_LR's is too high. On N(0,
+# 1) stand-in embeddings, which say nothing of the labels, musicgen-large
+# (no warmup) spikes by its third or fourth step at every rate tried and
+# at 3e-4 does not recover (8.04 -> 12.10 over 8 steps; 1e-4: -> 6.01
+# through 14.60; 5e-5: -> 5.90 through 9.29; 3e-5: -> 6.13 through 10.38);
+# qwen2-vl-72b's one layer went 13.61 -> 12.34 at 3e-4, its last step up,
+# and falls at every step at 1e-4 (-> 12.97)
+TRAIN_LRS = {AUDIO: 5e-5, VLM: 1e-4}
+# the serving cells' depth cuts: qwen2-vl-72b in bf16, 2 x 0.8777 B =
+# 1.755 GB a layer: 32 of its 80 layers and embed + lm_head are 61.15 GB
+# of weights, with the fp32 unembedding table (4.98 GB) and the ring
+# caches (8 x 2048 tokens x 8 heads x 128 x k, v x 32 layers, 2.15 GB)
+# 68.3 GB before activations (28 layers if the peak passed 76 GB)
+SERVE_LAYERS = {VLM: 32}
+# qwen2-vl's image stand-ins: (frames, height, width) patches of an image
+# between text, at full width and in the tiny checks (vision_grid_pos)
+VISION_GRID, TINY_VISION_GRID = (2, 16, 16), (2, 4, 4)
 # the card-vs-CPU checks' tiny configs: reduced(), with five layers for
 # zamba2-1.2b, so that its shared block runs three times (layers 0, 2, 4);
 # the MoE ones keep reduced()'s 4 experts, top 2 (mixtral-8x22b: its
@@ -290,10 +331,13 @@ BWD_CASES = [("train", TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128, 0, True),
              ("zamba2", TRAIN_BATCHES[ZAMBA], TRAIN_SEQ, 32, 32, 64, 4096,
               True),
              ("moonshot", TRAIN_BATCHES[MOON], TRAIN_SEQ, 16, 16, 128, 0,
-              True)]
+              True),
+             ("musicgen", TRAIN_BATCHES[AUDIO], TRAIN_SEQ, 32, 32, 64, 0,
+              True),
+             ("qwen2vl", TRAIN_BATCHES[VLM], TRAIN_SEQ, 64, 8, 128, 0, True)]
 # the timed shapes of the flash backward: the training paths' (qwen2.5-3b's
 # first, whose time the kernels line carries)
-BWD_TIMED = ("train", "zamba2", "moonshot")
+BWD_TIMED = ("train", "zamba2", "moonshot", "musicgen", "qwen2vl")
 # (name, B, S, H, P, G, N) of the SSD backward's checks: mamba2-370m's
 # training shape, then a ragged S, two groups, P = 32 with N = 16, N = 64,
 # zamba2-1.2b's training shape (H = 64, N = 64), all under the model's
@@ -470,14 +514,18 @@ def phase_kernels(card: str) -> dict:
     # variants; non-causal at S = 1000, where only the `kpos < Sk` mask
     # hides the zero keys past Sk in the last 128-key tile; then
     # zamba2-1.2b's shared block at the same prefill (32 heads of 64, MHA,
-    # its window of 4096), moonshot-v1-16b-a3b's (16 heads of 128, MHA)
+    # its window of 4096), moonshot-v1-16b-a3b's (16 heads of 128, MHA),
+    # musicgen-large's (32 heads of 64, MHA, no window) and qwen2-vl-72b's
+    # (64 / 8 heads of 128)
     cases = [("main", BATCH, PROMPT_LENS[1], 16, 2, 128, 0, True),
              ("ragged", BATCH, 1000, 16, 2, 128, 0, True),
              ("window", BATCH, 1024, 16, 2, 128, 256, True),
              ("d64", 4, 512, 8, 2, 64, 0, True),
              ("noncausal", 2, 1000, 16, 2, 128, 0, False),
              ("zamba2", BATCH, PROMPT_LENS[1], 32, 32, 64, 4096, True),
-             ("moonshot", BATCH, PROMPT_LENS[1], 16, 16, 128, 0, True)]
+             ("moonshot", BATCH, PROMPT_LENS[1], 16, 16, 128, 0, True),
+             ("musicgen", BATCH, PROMPT_LENS[1], 32, 32, 64, 0, True),
+             ("qwen2vl", BATCH, PROMPT_LENS[1], 64, 8, 128, 0, True)]
     worst, failed = 0.0, []
     for name, b, s, hq, hkv, d, window, causal in cases:
         q, k, v = qkv(b, s, hq, hkv, d)
@@ -502,7 +550,7 @@ def phase_kernels(card: str) -> dict:
         fail("kernels", f"flash_attention disagrees with plain: {failed}")
 
     timed = {}
-    for name in ("main", "zamba2", "moonshot"):
+    for name in ("main", "zamba2", "moonshot", "musicgen", "qwen2vl"):
         _, b, s, hq, hkv, d, window, _ = next(c for c in cases
                                               if c[0] == name)
         # a window past S is plain causal attention, as SDPA's is_causal
@@ -964,13 +1012,46 @@ def flipped_tokens(ref_calls, calls, k: int):
 def prefill_launches(cfg) -> dict:
     """Each forward kernel's launches in one prefill (or one training
     forward) of ``cfg``: the flash forward once per attention call (a
-    layer each in the dense and MoE families, the ceil(L / every) calls of
-    the hybrid's shared block), the SSD forward once per Mamba2 layer."""
-    every = cfg.shared_attention_every
-    calls = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
-             "hybrid": -(-cfg.num_layers // max(every, 1))}[cfg.arch_type]
+    layer each in the dense, MoE and frontend families, the ceil(L /
+    every) calls of the hybrid's shared block), the SSD forward once per
+    Mamba2 layer."""
+    from repro_torch.models.model import TRANSFORMER_ARCH_TYPES
+    calls = 0
+    if cfg.arch_type in TRANSFORMER_ARCH_TYPES:
+        calls = cfg.num_layers
+    elif cfg.arch_type == "hybrid":
+        calls = -(-cfg.num_layers // cfg.shared_attention_every)
     return {"flash_attention": calls,
             "ssd": cfg.num_layers if cfg.ssm else 0}
+
+
+def vision_grid_pos(b: int, s: int, grid: tuple, device, start: int = 4):
+    """[b, s, 3] int32 M-RoPE positions as Qwen2-VL lays out an image in
+    text: ``start`` text tokens (all three streams the token index), the
+    image's t x h x w patches at (start + t, start + h, start + w), then
+    text going on from the largest position + 1 on all three streams. t,
+    h and w differ across the image, so a wrong section split shows."""
+    import torch
+    n = math.prod(grid)
+    tt, hh, ww = torch.meshgrid(*(torch.arange(k) for k in grid),
+                                indexing="ij")
+    image = start + torch.stack([tt, hh, ww], -1).reshape(n, 3)
+    text = torch.arange(start)[:, None].expand(start, 3)
+    after = (start + max(grid) + torch.arange(s - start - n))[:, None]
+    pos = torch.cat([text, image, after.expand(-1, 3)]).to(torch.int32)
+    return pos.expand(b, s, 3).to(device)
+
+
+def frontend_batch(cfg, b: int, s: int, grid: tuple, generator, device):
+    """A frontend family's stand-in inputs: fp32 frame or patch
+    embeddings from ``generator`` (on its own device), and with M-RoPE the
+    vision-grid positions of an image of ``grid`` patches; on ``device``."""
+    from repro_torch.models import frontend
+    batch = {"embeddings": frontend.fake_embeddings(
+        cfg, b, s, generator, generator.device).to(device)}
+    if cfg.mrope:
+        batch["mrope_pos"] = vision_grid_pos(b, s, grid, device)
+    return batch
 
 
 def tiny_config(arch: str):
@@ -981,12 +1062,15 @@ def tiny_config(arch: str):
 
 
 def phase_serve(card: str, arch: str) -> dict:
-    """Serves ``arch`` at full width; returns every kernel's launches over
-    the main path, which must be one prefill's (``prefill_launches``) and
-    nothing else. ``Model.init``'s peak memory must stay within 1 GB of the
-    tree (it draws in parts). An MoE config's prefill and decode drop what
-    their capacity does not keep (counted here), so its prefill-vs-decode
-    check runs on a copy whose capacity factor E/k keeps every token."""
+    """Serves ``arch`` at full width (at SERVE_LAYERS[arch] layers where
+    its weights do not fit the card) from token prompts; returns every
+    kernel's launches over the main path, which must be one prefill's
+    (``prefill_launches``) and nothing else. ``Model.init``'s peak memory
+    must stay within 1 GB of the tree (it draws in parts). An MoE config's
+    prefill and decode drop what their capacity does not keep (counted
+    here), so its prefill-vs-decode check runs on a copy whose capacity
+    factor E/k keeps every token. A config with M-RoPE then runs its
+    embeddings path (``serve_vision``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -997,6 +1081,10 @@ def phase_serve(card: str, arch: str) -> dict:
 
     free_card()
     cfg = get_config(arch)
+    cut = ""
+    if arch in SERVE_LAYERS:
+        cut = f" (of {cfg.num_layers}: depth cut to fit the card)"
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS[arch])
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -1004,7 +1092,7 @@ def phase_serve(card: str, arch: str) -> dict:
     torch.cuda.synchronize()
     tree = sum(t.nbytes for t in tree_leaves(params))
     init_extra = torch.cuda.max_memory_allocated() - tree
-    say("serve", f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    say("serve", f"{arch}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
         f"{model.count_params() / 1e9:.3f} B params in {cfg.dtype} "
         f"({tree / 1e9:.2f} GB), init {time.perf_counter() - t0:.1f} s, "
         f"init's peak {init_extra / 1e9:.3f} GB above the tree (tol 1 GB)")
@@ -1165,7 +1253,74 @@ def phase_serve(card: str, arch: str) -> dict:
                                    for i in range(4)])):
         profile_window(f"{arch} {name}", fn, card,
                        scopes=MOE_SCOPES if cfg.moe else ())
+    del cache
+    if cfg.mrope:
+        serve_vision(card, arch, model, params, toks, unembed)
     return counts
+
+
+def serve_vision(card: str, arch: str, model, params, toks, unembed) -> None:
+    """The M-RoPE path at full width, through ``Model.prefill`` with
+    embeddings: (a) the embeddings of the batch's own tokens (fp32) with
+    text-like positions must prefill bit-equal to the tokens (M-RoPE with
+    equal streams is RoPE, and the embeddings are cast before the first
+    layer); (b) stand-in embeddings with vision-grid positions
+    (VISION_GRID), then four decode steps from tokens: finite logits, a
+    flash launch per layer in the prefill and none else; its prefill's
+    time."""
+    import torch
+    from repro_torch.models import frontend
+
+    cfg = model.cfg
+    b, s = toks.shape
+    with torch.no_grad():
+        own = {"embeddings": params["embed"][toks.long()].float(),
+               "mrope_pos": frontend.fake_mrope_pos(cfg, b, s, "cuda")}
+        from_embeddings, _ = model.prefill(params, own, cache_len=CACHE_LEN,
+                                           unembed=unembed)
+        from_tokens, _ = model.prefill(params, {"tokens": toks},
+                                       cache_len=CACHE_LEN, unembed=unembed)
+    equal = torch.equal(from_embeddings, from_tokens)
+    say("serve", f"{arch} prefill B={b} S={s} from the tokens' embeddings "
+        f"(fp32) with text-like M-RoPE positions bit-equal to the prefill "
+        f"from the tokens: {equal} {'ok' if equal else 'FAIL'}")
+    if not equal:
+        fail("serve", "text-like M-RoPE does not reduce to RoPE on the card")
+    del own, from_embeddings, from_tokens
+
+    vision = frontend_batch(cfg, b, s, VISION_GRID,
+                            torch.Generator(device="cuda").manual_seed(3),
+                            "cuda")
+    counters = launch_counters()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        logits, cache = model.prefill(params, vision, cache_len=CACHE_LEN,
+                                      unembed=unembed)
+        finite = [torch.isfinite(logits).all()]
+        for i in range(4):
+            nxt = logits.argmax(-1, keepdim=True)
+            logits, cache = model.decode_step(params, nxt, cache, s + i,
+                                              unembed=unembed)
+            finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        del cache
+        prefill_ms = cuda_ms(lambda: model.prefill(
+            params, vision, cache_len=CACHE_LEN, unembed=unembed),
+            iters=2, warmup=1)
+    want = dict.fromkeys(counters, 0)
+    want.update(prefill_launches(cfg))
+    ok = counts == want and all(bool(f) for f in finite)
+    say("serve", f"{arch} prefill B={b} S={s} from stand-in embeddings with "
+        f"vision-grid M-RoPE positions (an image of {VISION_GRID} patches "
+        f"after 4 text tokens): {prefill_ms:.2f} ms; then 4 decode steps; "
+        f"launches {({k: n for k, n in counts.items() if n})} (expected "
+        f"{({k: n for k, n in want.items() if n})}), logits finite "
+        f"{all(bool(f) for f in finite)}, on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("serve", f"{arch}: the vision-grid prefill and decode")
 
 
 MOE_SCOPES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
@@ -1173,14 +1328,16 @@ MOE_SCOPES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
 
 def profile_window(name: str, fn, card: str, *, grad: bool = False,
                    share_of: str | tuple = (), top: int = 6,
-                   scopes: tuple = ()) -> None:
+                   scopes: tuple = ()) -> dict:
     """Device busy share and the ``top`` kernels of one call, from
     torch.profiler: kernel time summed over the window's wall time; with
     ``share_of`` (a name or several), also the share of the kernels whose
     name holds it, and
     each of them; with ``scopes`` (``record_function`` names), the device
     time of the kernels launched inside each (the forward's and remat's
-    recomputation; a backward's kernels are launched outside them)."""
+    recomputation; a backward's kernels are launched outside them).
+    Returns the window's wall and busy ms and, by ``share_of`` name, the ms
+    and launches of its kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1204,11 +1361,13 @@ def profile_window(name: str, fn, card: str, *, grad: bool = False,
     for us, count, key in sorted(rows, reverse=True)[:top]:
         say("profile", f"  {name}: {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f}%"
             f" x{count} {key[:90]}")
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3, "shares": {}}
     for key in ([share_of] if isinstance(share_of, str) else share_of):
         if not busy_us:
             break
         mine = [r for r in rows if key in r[2]]
         us = sum(r[0] for r in mine)
+        out["shares"][key] = (us / 1e3, sum(r[1] for r in mine))
         say("profile", f"  {name}: kernels named *{key}*: {us / 1e3:.3f} "
             f"ms, {100 * us / busy_us:.1f}% of device busy, "
             f"x{sum(r[1] for r in mine)}")
@@ -1227,6 +1386,7 @@ def profile_window(name: str, fn, card: str, *, grad: bool = False,
     if scopes:
         say("profile", f"  {name}: the MoE scopes together {inside / 1e3:.3f}"
             f" ms ({100 * inside / max(busy_us, 1e-9):.1f}% of device busy)")
+    return out
 
 
 def phase_small_reference(card: str, arch: str) -> None:
@@ -1234,12 +1394,16 @@ def phase_small_reference(card: str, arch: str) -> None:
     against the JAX package) on tiny ``arch`` (``tiny_config``) in bf16,
     same weights: prefill of 100 tokens into a ring of 128 (which the
     hybrid's and mixtral's window of 64 bounds and wraps) and three decode
-    steps, to REFERENCE_ROW_RTOL. An MoE config's routing decisions are
-    compared first (``flipped_tokens``), and a sequence's row of logits is
-    left out from the step its token took other experts on."""
+    steps, to REFERENCE_ROW_RTOL; a frontend family's prefill is from
+    stand-in embeddings (with M-RoPE, vision-grid positions of an image of
+    TINY_VISION_GRID patches), then four decode steps from tokens. An MoE
+    config's routing decisions are compared first (``flipped_tokens``),
+    and a sequence's row of logits is left out from the step its token
+    took other experts on."""
     import numpy as np
     import torch
     from repro_torch.kernels.ref import row_rel_err
+    from repro_torch.models import frontend
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import tree_map
 
@@ -1248,9 +1412,15 @@ def phase_small_reference(card: str, arch: str) -> None:
     p_cpu = cpu.init(torch.Generator().manual_seed(0))
     p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
     b, s = 4, 100
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (b, s)).astype(np.int32))
-    bad = torch.zeros((b, s + 3), dtype=torch.bool)
+    if frontend.needs_embeddings(cfg):
+        first = frontend_batch(cfg, b, s, TINY_VISION_GRID,
+                               torch.Generator().manual_seed(1), "cpu")
+        steps, inputs = 4, ", ".join(first)
+    else:
+        first = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (b, s)).astype(np.int32))}
+        steps, inputs = 3, "tokens"
+    bad = torch.zeros((b, s + steps), dtype=torch.bool)
     worst, left_out, margins, calls = 0.0, 0, [], 0
 
     def step(run_cpu, run_gpu, pos, rows):
@@ -1272,10 +1442,10 @@ def phase_small_reference(card: str, arch: str) -> None:
 
     with torch.no_grad():
         lc, cc, cg = step(
-            lambda: cpu.prefill(p_cpu, {"tokens": toks}, cache_len=128),
-            lambda: gpu.prefill(p_gpu, {"tokens": toks.cuda()},
+            lambda: cpu.prefill(p_cpu, first, cache_len=128),
+            lambda: gpu.prefill(p_gpu, {k: t.cuda() for k, t in first.items()},
                                 cache_len=128), s - 1, np.s_[:, :s])
-        for i in range(3):
+        for i in range(steps):
             nxt = lc.argmax(-1, keepdim=True)
             lc, cc, cg = step(
                 lambda: cpu.decode_step(p_cpu, nxt, cc, s + i),
@@ -1287,10 +1457,10 @@ def phase_small_reference(card: str, arch: str) -> None:
         routing = (f"; routing: {calls} router calls, {int(bad.sum())} of "
                    f"{b * (s + 3)} tokens took other experts on the card "
                    f"(first flips' margins {[f'{m:.2e}' for m in margins]}, "
-                   f"all within {FLIP_MARGIN}), {left_out} of {4 * b} logit "
-                   "rows left out")
+                   f"all within {FLIP_MARGIN}), {left_out} of "
+                   f"{(1 + steps) * b} logit rows left out")
     say("reference", f"{cfg.name} ({cfg.num_layers} layers) bf16, card vs "
-        f"CPU plain path: prefill + 3 "
+        f"CPU plain path: prefill from {inputs} + {steps} "
         f"decode steps, worst row rel L2 logit err {worst:.3e} (tol "
         f"{REFERENCE_ROW_RTOL}){routing} {'ok' if ok else 'FAIL'} on {card}")
     if not ok or left_out > 2 * b:
@@ -1320,11 +1490,14 @@ def phase_small_train_reference(card: str, arch: str) -> None:
     decisions on the card are held to the CPU's (``flipped_tokens``), and
     its gradients compared with the card routed as the CPU was: a token
     that took other experts moves the leaves that sum few tokens by O(1)
-    over their count."""
+    over their count. A frontend family trains from stand-in embeddings
+    (with M-RoPE, vision-grid positions): its ``embed`` leaf's gradient
+    must be exactly zero on both devices, and is left out of the gates."""
     import torch
     from repro_torch.data.loader import Loader
     from repro_torch.data.synthetic import SyntheticStream
     from repro_torch.kernels.ref import row_rel_err
+    from repro_torch.models import frontend
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import (AdamWConfig, adamw_init, tree_leaves,
                                          tree_map)
@@ -1335,11 +1508,20 @@ def phase_small_train_reference(card: str, arch: str) -> None:
     p_cpu = models["cpu"].init(torch.Generator().manual_seed(0),
                                dtype=torch.float32)
     stream = SyntheticStream(cfg.vocab_size, 0)
+    stand_in = frontend.needs_embeddings(cfg)
+
+    def make_batch(dev):
+        batch = Loader(stream, 4, 128, dev)(0)
+        if stand_in:
+            batch = dict(frontend_batch(cfg, 4, 128, TINY_VISION_GRID,
+                                        torch.Generator().manual_seed(2),
+                                        dev), labels=batch["labels"])
+        return batch
 
     def run(dev, force=None):
         model = models[dev]
         params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
-        batch = Loader(stream, 4, 128, dev)(0)
+        batch = make_batch(dev)
         grads = tree_map(torch.zeros_like, params)
         with Routes(force) as routes:
             loss_and_grads(model, params, batch, grads)
@@ -1370,8 +1552,7 @@ def phase_small_train_reference(card: str, arch: str) -> None:
         g_fp32 = tree_map(torch.zeros_like, p_cpu)
         n = cfg.num_layers
         with Routes([idx for _, idx in cpu_calls[:n]] if cfg.moe else None):
-            loss_and_grads(fp32, p_cpu, Loader(stream, 4, 128, "cpu")(0),
-                           g_fp32)
+            loss_and_grads(fp32, p_cpu, make_batch("cpu"), g_fp32)
         tols = [max(t, 2 * row_rel_err(a, b, floor=GRAD_ROW_FLOOR))
                 for t, a, b in zip(tols, tree_leaves(g_cpu),
                                    tree_leaves(g_fp32))]
@@ -1379,9 +1560,13 @@ def phase_small_train_reference(card: str, arch: str) -> None:
     names = [f"{k}/{n}" if isinstance(v, dict) else k
              for k, v in sorted(g_cpu.items())
              for n in (sorted(v) if isinstance(v, dict) else [None])]
+    zero_embed = None
     for name, ref, got, t in zip(names, tree_leaves(g_cpu),
                                  tree_leaves(g_gpu), tols):
         got = got.cpu()
+        if stand_in and name == "embed":
+            zero_embed = not ref.any() and not got.any()
+            continue
         err = row_rel_err(got, ref, floor=GRAD_ROW_FLOOR)
         leaf_worst = max(leaf_worst, ((got - ref).norm() / ref.norm()).item())
         if not err / t <= worst / tol:
@@ -1390,7 +1575,12 @@ def phase_small_train_reference(card: str, arch: str) -> None:
            for k in ("loss", "grad_norm")}
     ok = (math.isfinite(worst) and worst <= tol
           and leaf_worst <= TRAIN_GRAD_ROW_RTOL
-          and all(r <= TRAIN_LOSS_RTOL for r in rel.values()))
+          and all(r <= TRAIN_LOSS_RTOL for r in rel.values())
+          and zero_embed is not False)
+    if stand_in:
+        routing += (f"; from stand-in embeddings ({', '.join(make_batch('cpu'))}"
+                    f"), the embed leaf's gradient exactly zero on both: "
+                    f"{zero_embed}")
     say("reference", f"{cfg.name} train step, bf16 over fp32 masters, card "
         f"vs CPU plain path: loss {m_gpu['loss']:.5f} vs {m_cpu['loss']:.5f}"
         f" (rel {rel['loss']:.2e}), grad_norm {m_gpu['grad_norm']:.5f} vs "
@@ -1409,11 +1599,14 @@ def phase_train(card: str, arch: str) -> dict:
     """``arch`` at full width (at TRAIN_LAYERS[arch] layers where its
     state does not fit the card) takes TRAIN_STEPS AdamW steps at
     TRAIN_BATCHES[arch] x TRAIN_SEQ; returns every kernel's launches over
-    the run."""
+    the run. A frontend family trains on stand-in embeddings drawn anew
+    each step (with M-RoPE, vision-grid positions of an image of
+    VISION_GRID patches) and the stream's labels."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.loader import Loader
     from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.models import frontend
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import init_train_state, make_train_step
@@ -1436,9 +1629,19 @@ def phase_train(card: str, arch: str) -> dict:
         f"{n_params / 1e9:.3f} B params, fp32 masters + AdamW mu/nu "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, compute {cfg.dtype}, "
         f"remat {model.remat}; init {time.perf_counter() - t0:.1f} s")
-    loader = Loader(SyntheticStream(cfg.vocab_size, 0), batch_size, TRAIN_SEQ,
-                    "cuda")
-    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    tokens_loader = Loader(SyntheticStream(cfg.vocab_size, 0), batch_size,
+                           TRAIN_SEQ, "cuda")
+
+    def loader(step):
+        batch = tokens_loader(step)
+        if not frontend.needs_embeddings(cfg):
+            return batch
+        gen = torch.Generator(device="cuda").manual_seed(100 + step)
+        return dict(frontend_batch(cfg, batch_size, TRAIN_SEQ, VISION_GRID,
+                                   gen, "cuda"), labels=batch["labels"])
+
+    lr = TRAIN_LRS.get(arch, TRAIN_LR)
+    step_fn = make_train_step(model, AdamWConfig(lr=lr))
     counters = launch_counters()
     # each forward kernel twice (forward, remat's recompute), its backward
     # once
@@ -1494,6 +1697,9 @@ def phase_train(card: str, arch: str) -> dict:
         n_matmul += (calls - 1) * sum(t.numel()
                                       for t in params["shared_attn"].values())
         per_call = f", the shared block once per call ({calls})"
+    if frontend.needs_embeddings(cfg):
+        per_call = (f", from stand-in embeddings "
+                    f"({', '.join(loader(0))}): embed unused")
     attn = 3.5 * calls * attention_flops(batch_size, cfg.num_heads,
                                          TRAIN_SEQ, cfg.head_dim)
     model_flops = 6 * n_matmul * tokens + attn
@@ -1506,7 +1712,8 @@ def phase_train(card: str, arch: str) -> dict:
         ssd = fwd["ssd"] * (ssd_flops(*shape) + ssd_bwd_flops(*shape))
         extra.append(f"the SSD's own, forward + backward, in no MFU, "
                      f"{ssd / 1e12:.2f} T")
-    say("train", f"{arch}: {TRAIN_STEPS} steps B={batch_size} S={TRAIN_SEQ}: "
+    say("train", f"{arch}: {TRAIN_STEPS} steps B={batch_size} S={TRAIN_SEQ} "
+        f"lr {lr:g}: "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step (steps 3-"
         f"{TRAIN_STEPS}) {1e3 * step_s:.1f} ms (all: "
         f"{', '.join(f'{1e3 * t:.1f}' for t in times)}), {tokens / step_s:.0f}"
@@ -1516,11 +1723,21 @@ def phase_train(card: str, arch: str) -> dict:
         f"{100 * model_flops / step_s / PEAK_BF16_FLOPS:.1f}% MFU of 989 "
         f"TFLOP/s; peak memory {peak / 1e9:.2f} GB ({(CARD_BYTES - peak) / 1e9:.2f}"
         f" GB of 80 free); launches over the run {total}, on {card}")
-    profile_window(f"{arch} train step", lambda: step_fn(params, opt,
-                                                         loader(TRAIN_STEPS)),
-                   card, grad=True, share_of=share_of, top=14,
-                   scopes=MOE_SCOPES if cfg.moe else ())
-    del params, opt, state, step_fn
+    data = loader(TRAIN_STEPS)
+    prof = profile_window(f"{arch} train step", lambda: step_fn(params, opt,
+                                                                data),
+                          card, grad=True, share_of=share_of, top=14,
+                          scopes=MOE_SCOPES if cfg.moe else ())
+    if "flash_bwd" in prof["shares"]:
+        bwd_ms, n = prof["shares"]["flash_bwd"]
+        say("train", f"{arch}: the flash backward ({n} kernels: "
+            f"{want['flash_attention_bwd']} launches at Hq={cfg.num_heads}, "
+            f"Hkv={cfg.num_kv_heads}, D={cfg.head_dim}) takes {bwd_ms:.3f} ms"
+            f" of the profiled step's {prof['wall_ms']:.2f} ms wall "
+            f"({100 * bwd_ms / prof['wall_ms']:.1f}% of the step, "
+            f"{100 * bwd_ms / prof['busy_ms']:.1f}% of device busy), on "
+            f"{card}")
+    del params, opt, state, step_fn, data
     free_card()
     return total
 
@@ -1985,7 +2202,7 @@ def main() -> int:
     ssd_bwd = timed("kernels ssd_bwd", phase_ssd_bwd_kernels, card)
     flash_bwd, flash_bwd_det = timed("kernels flash_bwd",
                                      phase_flash_bwd_kernels, card)
-    archs = (QWEN, MAMBA, ZAMBA, MOON)
+    archs = (QWEN, MAMBA, ZAMBA, MOON, AUDIO, VLM)
     timed("moe block", phase_moe_block, card)
     for arch in archs + (MIXTRAL,):
         timed(f"reference {arch}", phase_small_reference, card, arch)

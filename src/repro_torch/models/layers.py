@@ -1,6 +1,6 @@
-"""Shared layer primitives: RMSNorm, SwiGLU MLP, rotary embeddings,
-embedding tables. Plain functions over tensors, rounding where the JAX
-package's ``models/layers.py`` rounds."""
+"""Shared layer primitives: RMSNorm, SwiGLU MLP, rotary embeddings (with
+M-RoPE), embedding tables. Plain functions over tensors, rounding where
+the JAX package's ``models/layers.py`` rounds."""
 
 from __future__ import annotations
 
@@ -33,6 +33,18 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate x [B, S, H, Dh] by fp32 angles [B, S, half] (or [1, S,
+    half]): bf16 * fp32 promotes to fp32, as in JAX; one rounding at the
+    end."""
+    cos = torch.cos(ang)[:, :, None, :]  # [B, S, 1, half]
+    sin = torch.sin(ang)[:, :, None, :]
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Standard 1-D RoPE.  x: [B, S, H, Dh]; positions: [S] or [B, S]."""
@@ -40,13 +52,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     ang = positions.float()[..., None] * inv  # [(B,) S, half]
     if ang.dim() == 2:
         ang = ang[None]
-    cos = torch.cos(ang)[:, :, None, :]  # [B, S, 1, half]
-    sin = torch.sin(ang)[:, :, None, :]
+    return _rotate(x, ang)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): 3-D rotary with per-section position streams.
+
+    x: [B, S, H, Dh]; positions: [B, S, 3] int (temporal, height, width).
+    ``sections`` partitions the ``Dh/2`` frequency slots among the three
+    streams: slot j rotates by stream ``sel[j]``'s position times the
+    slot's frequency, the product the reference selects from its
+    [B, S, half, 3] angles. With the three streams equal it is
+    ``apply_rope``'s product, so the result is bit-equal to it."""
     half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    # bf16 * fp32 promotes to fp32, as in JAX; one rounding at the end
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(x.dtype)
+    if sum(sections) != half:
+        raise ValueError(f"apply_mrope: sections {tuple(sections)} do not "
+                         f"sum to head_dim / 2 = {half}")
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    sel = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                  torch.tensor(sections, device=x.device))
+    ang = positions[..., sel].float() * inv  # [B, S, half]
+    return _rotate(x, ang)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor,

@@ -1,7 +1,12 @@
-"""The decoder-only LM in PyTorch, dense, MoE, SSM (Mamba2) and hybrid
-(Zamba2) families: the counterpart of those paths of the JAX package's
-``models/model.py``. The MoE family is the dense one with each layer's
-MLP a mixture-of-experts block (``models/moe.py``), on one device.
+"""The decoder-only LM in PyTorch, dense, MoE, SSM (Mamba2), hybrid
+(Zamba2) and frontend (vlm, audio) families: the counterpart of the JAX
+package's ``models/model.py``. The MoE family is the dense one with each
+layer's MLP a mixture-of-experts block (``models/moe.py``), on one device.
+The frontend families are the dense one fed, in ``prefill`` and
+``train_loss``, with stand-in embeddings (``batch["embeddings"]``, from
+``models/frontend.py``) in place of tokens, and for qwen2-vl with 3-D
+M-RoPE positions (``batch["mrope_pos"]``); from tokens they run as the
+dense family does.
 
 Parameters keep the reference's names, shapes and ``x @ W`` orientation:
 stacked ``[L, ...]`` leaves under ``params["layers"]`` (``wq`` is
@@ -52,11 +57,10 @@ from repro_torch.models import ssm as ssm_lib
 # ("dt_bias",); fp32: kept in fp32 whatever the compute dtype
 Leaf = namedtuple("Leaf", ["shape", "init", "fp32"], defaults=(False,))
 
-PORTED_ARCH_TYPES = ("dense", "moe", "ssm", "hybrid")
 # the most elements Model.init draws in fp32 at once (0.5 GB)
 _INIT_PART = 1 << 27
 # the families whose layers are attention + MLP (or MoE), as _dense_leaves
-TRANSFORMER_ARCH_TYPES = ("dense", "moe")
+TRANSFORMER_ARCH_TYPES = ("dense", "moe", "vlm", "audio")
 # the per-layer cache entries of a Mamba2 layer and of an attention call
 SSM_CACHE = ("ssm", "conv_x", "conv_B", "conv_C")
 KV_CACHE = ("k", "v", "slot_pos")
@@ -184,11 +188,6 @@ class Model:
         """``remat``: recompute each layer in ``train_loss``'s backward
         pass instead of keeping its activations (the reference's
         ``Rules.remat``, on by default); the gradients are the same."""
-        if cfg.arch_type not in PORTED_ARCH_TYPES:
-            raise NotImplementedError(
-                f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
-                f"the port serves and trains {PORTED_ARCH_TYPES} only "
-                "(ROADMAP.md A.6 frontends)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.dtype)
@@ -203,11 +202,13 @@ class Model:
         ones in fp32, drawn on the model's device from ``generator`` (which
         must live there too): the reference's distributions, not its
         numbers. Each leaf is made in its own dtype and filled in fp32 one
-        part of its first dimension at a time (``_INIT_PART`` elements, or
-        one row if a row is larger: one layer of a stacked [L, ...] leaf),
-        so the peak is the tree and one part in fp32 (0.74 GB for a layer of
-        moonshot-v1-16b-a3b's [48, 64, 2048, 1408] ``w_gate``), not the tree
-        and the whole leaf in fp32 (35.4 GB)."""
+        part of its first dimension at a time (``_INIT_PART`` elements; a
+        row larger than that, such as one layer of a stacked [L, ...] leaf,
+        is filled in parts of its own first dimension in turn), so the
+        peak is the tree and one part in fp32 (0.54 GB), not the tree and
+        the whole leaf in fp32 (35.4 GB for moonshot-v1-16b-a3b's [48, 64,
+        2048, 1408] ``w_gate``; 0.97 GB for one layer of qwen2-vl-72b's
+        [L, 8192, 29568] one)."""
         dtype = dtype or self.compute_dtype
 
         def uniform(shape, lo, hi):
@@ -229,12 +230,19 @@ class Model:
             return torch.randn(shape, generator=generator,
                                device=self.device).mul_(init[1])
 
+        def fill(out: torch.Tensor, init: tuple) -> None:
+            rows = _INIT_PART * out.shape[0] // out.numel()
+            if rows:
+                for part in out.split(rows):
+                    part.copy_(draw(init, part.shape))
+                return
+            for row in out:
+                fill(row, init)
+
         def make(leaf: Leaf) -> torch.Tensor:
             out = torch.empty(leaf.shape, device=self.device,
                               dtype=torch.float32 if leaf.fp32 else dtype)
-            rows = max(1, _INIT_PART * leaf.shape[0] // out.numel())
-            for part in out.split(rows):
-                part.copy_(draw(leaf.init, part.shape))
+            fill(out, leaf.init)
             return out
 
         return map_schema(make, param_schema(self.cfg))
@@ -284,25 +292,40 @@ class Model:
                 k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
                 v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
 
-    def _attention(self, p: dict, h: torch.Tensor, positions: torch.Tensor):
+    def _rope(self, x: torch.Tensor, positions: torch.Tensor,
+              mrope_pos: torch.Tensor | None) -> torch.Tensor:
+        """M-RoPE over ``mrope_pos`` [B, S, 3] when the config has it and
+        it is given, else RoPE over ``positions``: the reference's
+        ``_rope``."""
+        cfg = self.cfg
+        if cfg.mrope and mrope_pos is not None:
+            return L.apply_mrope(x, mrope_pos, cfg.rope_theta,
+                                 cfg.mrope_sections)
+        return L.apply_rope(x, positions, cfg.rope_theta)
+
+    def _attention(self, p: dict, h: torch.Tensor, positions: torch.Tensor,
+                   mrope_pos: torch.Tensor | None = None):
         """The attention sublayer over a whole sequence (prefill, train):
-        returns (h + attention, k, v), k/v after RoPE for the cache."""
+        returns (h + attention, k, v), k/v after RoPE for the cache. The
+        causal mask is the kernel's, over the 1-D ``positions``, whatever
+        ``mrope_pos`` rotates by, as in the reference."""
         cfg = self.cfg
         b, s, _ = h.shape
         a = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
         q, k, v = self._qkv(p, a)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        q = self._rope(q, positions, mrope_pos)
+        k = self._rope(k, positions, mrope_pos)
         out = attention_op(q, k, v, causal=True, window=cfg.sliding_window)
         return h + out.reshape(b, s, -1) @ p["wo"].to(h.dtype), k, v
 
     def _train_layer(self, kind: str, p: dict, h: torch.Tensor,
-                     positions: torch.Tensor):
+                     positions: torch.Tensor,
+                     mrope_pos: torch.Tensor | None = None):
         """One entry of ``_schedule`` over a whole sequence, no caches.
         Returns (h, the MoE block's aux, or None without one)."""
         if kind == "mamba":
             return self.mamba_sublayer(p, h, None, mode="train"), None
-        h = self._attention(p, h, positions)[0]
+        h = self._attention(p, h, positions, mrope_pos)[0]
         return self._mlp(p, h) if "mlp_norm" in p else (h, None)
 
     def _mlp(self, p: dict, h: torch.Tensor):
@@ -314,6 +337,16 @@ class Model:
                                        p["w_down"], moe=self.cfg.moe)
             return h + y, aux
         return h + L.swiglu(m, p["w_gate"], p["w_up"], p["w_down"]), None
+
+    def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
+        """The first layer's input: ``batch["embeddings"]`` [B, S, D] (a
+        frontend's output, fp32) cast to the compute dtype before any
+        layer, as the reference casts it, or else the embedding rows of
+        ``batch["tokens"]`` [B, S]."""
+        if "embeddings" in batch:
+            return batch["embeddings"].to(self.compute_dtype)
+        return L.embed(batch["tokens"].long(), params["embed"],
+                       self.compute_dtype)
 
     def _logits(self, params: dict, h: torch.Tensor,
                 unembed: torch.Tensor | None) -> torch.Tensor:
@@ -409,13 +442,14 @@ class Model:
 
     def prefill(self, params: dict, batch: dict, *, cache_len: int,
                 unembed: torch.Tensor | None = None):
-        """Fill caches for ``batch["tokens"]`` [B, S]; ``unembed`` is
+        """Fill caches for ``batch``: ``tokens`` [B, S], or ``embeddings``
+        [B, S, D] with, for M-RoPE, ``mrope_pos`` [B, S, 3]; ``unembed`` is
         ``unembed_table(params)``, made here if not given. The SSM family
         builds no ring and ignores ``cache_len``, as the reference does.
         Returns (last_logits [B, V] fp32, caches)."""
-        tokens = batch["tokens"].long()
-        b, s = tokens.shape
-        h = L.embed(tokens, params["embed"], self.compute_dtype)
+        h = self._embed_inputs(params, batch)
+        b, s = h.shape[:2]
+        mrope_pos = batch.get("mrope_pos")
         positions = torch.arange(s, device=self.device)
         caches = self.init_cache(b, cache_len)
         if "k" in caches:
@@ -434,7 +468,7 @@ class Model:
                 h = self.mamba_sublayer(p, h, _views(caches, SSM_CACHE, i),
                                         mode="prefill")
                 continue
-            h, k, v = self._attention(p, h, positions)
+            h, k, v = self._attention(p, h, positions, mrope_pos)
             caches["k"][i][:, slots] = k[:, src]
             caches["v"][i][:, slots] = v[:, src]
             if "mlp_norm" in p:
@@ -444,7 +478,9 @@ class Model:
     def decode_step(self, params: dict, tokens: torch.Tensor, caches: dict,
                     pos: int, *, unembed: torch.Tensor | None = None):
         """One token: tokens [B, 1]; pos, the absolute position; ``unembed``
-        as in ``prefill``.
+        as in ``prefill``. With M-RoPE the token takes ``pos`` on all three
+        streams, as the reference's ``decode_step`` does (after a vision
+        prefill, Qwen2-VL itself would go on from the largest position + 1).
         Writes the token's k/v (or SSM and conv states) into ``caches`` in
         place (the reference donates the cache buffer) and returns
         (logits [B, V] fp32, caches)."""
@@ -452,6 +488,8 @@ class Model:
         h = L.embed(tokens.long(), params["embed"], self.compute_dtype)
         b = h.shape[0]
         positions = torch.tensor([pos], device=self.device)
+        mrope_pos = (torch.full((b, 1, 3), pos, dtype=torch.int32,
+                                device=self.device) if cfg.mrope else None)
         for kind, p, i in self._schedule(params):
             if kind == "mamba":
                 h = self.mamba_sublayer(p, h, _views(caches, SSM_CACHE, i),
@@ -459,8 +497,8 @@ class Model:
                 continue
             a = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
             q, k, v = self._qkv(p, a)
-            q = L.apply_rope(q, positions, cfg.rope_theta)
-            k = L.apply_rope(k, positions, cfg.rope_theta)
+            q = self._rope(q, positions, mrope_pos)
+            k = self._rope(k, positions, mrope_pos)
             layer_cache = _views(caches, KV_CACHE, i)
             attn.cache_append(layer_cache, k, v, pos)
             out = attn.decode_attention(
@@ -484,7 +522,8 @@ class Model:
                 for i in range(self.cfg.num_layers)]
 
     def apply_layers(self, params: dict, h: torch.Tensor, *, mode: str,
-                     positions: torch.Tensor):
+                     positions: torch.Tensor,
+                     mrope_pos: torch.Tensor | None = None):
         """The layer stack over a whole sequence without caches, as the
         reference's ``apply_layers(mode="train")``, with each entry of
         ``_schedule`` (a layer; for the hybrid family each shared-attention
@@ -492,8 +531,9 @@ class Model:
         ``_apply_hybrid``) checkpointed when ``remat``. Returns (h,
         aux_mean): the MoE blocks' aux summed over the layers and divided
         by their number, as the reference's scan does; 0 for the families
-        without MoE. ``prefill`` and ``decode_step`` run their own loops,
-        which write the caches."""
+        without MoE. ``mrope_pos`` is an argument of each checkpointed call,
+        so remat recomputes with the same positions. ``prefill`` and
+        ``decode_step`` run their own loops, which write the caches."""
         if mode != "train":
             raise ValueError(f"apply_layers: mode {mode!r}; only 'train' runs "
                              "here (prefill and decode_step have their own "
@@ -502,28 +542,32 @@ class Model:
         for kind, p, _ in self._schedule(params):
             if self.remat:
                 h, aux_i = checkpoint(self._train_layer, kind, p, h,
-                                      positions, use_reentrant=False,
+                                      positions, mrope_pos,
+                                      use_reentrant=False,
                                       preserve_rng_state=False)
             else:
-                h, aux_i = self._train_layer(kind, p, h, positions)
+                h, aux_i = self._train_layer(kind, p, h, positions,
+                                             mrope_pos)
             if aux_i is not None:
                 aux = aux + aux_i
         return h, aux / self.cfg.num_layers
 
     def train_loss(self, params: dict, batch: dict):
-        """batch: tokens and labels [B, S]. Returns (loss, {"ce", "aux"}):
+        """batch: tokens [B, S] or embeddings [B, S, D] (fp32; the
+        ``embed`` leaf then takes no gradient), optional mrope_pos
+        [B, S, 3], and labels [B, S]. Returns (loss, {"ce", "aux"}):
         ce, the mean over positions of logsumexp(logits) - logits[label]
         on fp32 logits of the whole sequence, plus, with ``cfg.moe``,
         ``router_aux_weight`` times the layers' mean load-balance aux, as
         the reference's ``train_loss``. The masters are cast to the
         compute dtype where they are used, inside each (checkpointed)
         layer, so remat keeps no copies of them."""
-        tokens = batch["tokens"].long()
         labels = batch["labels"].long()
-        h = L.embed(tokens, params["embed"], self.compute_dtype)
-        positions = torch.arange(tokens.shape[1], device=h.device)
+        h = self._embed_inputs(params, batch)
+        positions = torch.arange(h.shape[1], device=h.device)
         h, aux = self.apply_layers(params, h, mode="train",
-                                   positions=positions)
+                                   positions=positions,
+                                   mrope_pos=batch.get("mrope_pos"))
         logits = self._logits(params, h, None)
         lse = torch.logsumexp(logits, dim=-1)
         label_logit = logits.gather(-1, labels[..., None])[..., 0]

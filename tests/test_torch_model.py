@@ -23,7 +23,7 @@ from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
 from repro.models.model import Model as JModel
 from repro.sharding.rules import make_rules
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import Model
 
@@ -171,15 +171,10 @@ def test_params_from_numpy_rejects_a_wrong_layout(fp32_pair):
         params_from_numpy(tree, m.cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-large"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config(arch), device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-370m",
-                                  "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_ported_families_are_accepted(arch):
+    """Every family the JAX package runs: dense, MoE, SSM, hybrid and the
+    frontend families (vlm, audio)."""
     cfg = get_config(arch)
     assert Model(cfg, device="cpu").cfg.arch_type == cfg.arch_type
 

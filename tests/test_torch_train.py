@@ -41,6 +41,7 @@ from repro_torch.data.loader import Loader
 from repro_torch.data.synthetic import SyntheticStream
 from repro_torch.kernels.ops import attention_op
 from repro_torch.launch import train as train_cli
+from repro_torch.models import frontend
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw, schedule
@@ -284,17 +285,29 @@ def test_fp32_masters_serve_like_cast_parameters(jax_rules):
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-72b",
                                   "audio+moe"])
-def test_train_loss_refuses_what_is_not_ported(arch):
+def test_train_loss_runs_the_frontend_families(arch):
+    """A train step's loss and gradients of each frontend family, from
+    stand-in embeddings (with text-like M-RoPE positions for qwen2-vl):
+    finite, and the unused ``embed`` leaf's gradient zero. Their parity
+    with the reference is in tests/test_torch_frontend_train.py."""
     if arch == "audio+moe":
         cfg = reduced(get_config("musicgen-large"),
                       moe=MoEConfig(num_experts=4, experts_per_token=2))
     else:
         cfg = get_tiny(arch)
-    with pytest.raises(NotImplementedError):
-        m = Model(cfg, device="cpu")
-        toks = torch.zeros((1, 8), dtype=torch.int32)
-        m.train_loss(m.init(torch.Generator().manual_seed(0)),
-                     {"tokens": toks, "labels": toks})
+    m = Model(cfg, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"embeddings": frontend.fake_embeddings(cfg, 2, 8, gen, "cpu"),
+             "labels": torch.zeros((2, 8), dtype=torch.int32)}
+    if cfg.mrope:
+        batch["mrope_pos"] = frontend.fake_mrope_pos(cfg, 2, 8, "cpu")
+    loss, metrics, grads = _port_grads(m, params, batch)
+    assert torch.isfinite(loss) and torch.isfinite(metrics["aux"])
+    assert (metrics["aux"].item() > 0) == (arch == "audio+moe")
+    assert torch.count_nonzero(grads["embed"]) == 0
+    assert all(torch.isfinite(t).all() for t in adamw.tree_leaves(grads))
+    assert torch.count_nonzero(grads["layers"]["wq"]) > 0
 
 
 def test_apply_layers_runs_train_mode_only(fp32_pair):
