@@ -25,6 +25,20 @@ Phases, one line or more each; any failure exits non-zero:
      moe: moonshot-v1-16b-a3b's MoE block (PyTorch, no kernel of its own)
      at its training shape: two forward + backward calls bit-equal under
      deterministic algorithms; its time and its scopes' split.
+     tune kernels: every compiled launch config of the two forward kernels
+     (flash: (128, 64), the default, and (64, 64) at D = 64 and 128,
+     (128, 128) at D = 64; the SSD: tiles of 32, the default, and 16) at
+     the main paths' forward shapes (TUNE_FLASH_SHAPES, TUNE_SSD_SHAPES),
+     each held to its plain version by the row gates above, then timed
+     beside its bound, ptxas's registers and spills (a spill fails), its
+     shared memory, the roofline's predicted rank and, for flash, SDPA.
+     tune boot: two boots of a one-node job through
+     BootseerRuntime(tune=True) with those shapes as its tune workloads:
+     the cold boot sweeps the compiled configs on the card and publishes
+     the profile, the warm one fetches the same digest with 0 sweeps; the
+     winners beside the defaults. musicgen-large and zamba2-1.2b then
+     prefill under the profile in phase 5, held to their default-config
+     prefill, and musicgen-large trains under it in phase 7.
   4. reference: tiny qwen2.5-3b, mamba2-370m, zamba2-1.2b (five layers:
      three calls of its shared block, whose window of 64 the prompts of
      100 pass), moonshot-v1-16b-a3b, musicgen-large, qwen2-vl-72b and
@@ -75,7 +89,8 @@ Phases, one line or more each; any failure exits non-zero:
      = 2, S = 2048, both on stand-in embeddings (qwen2-vl with vision-grid
      M-RoPE positions) and the stream's labels: 96 / 48 and 2 / 1 flash
      launches a step, and the flash backward's share of musicgen's step.
-  8. resume, under torch.use_deterministic_algorithms(True): qwen2.5-3b at
+  8. resume, with no tuning profile active and under
+     torch.use_deterministic_algorithms(True): qwen2.5-3b at
      full width trains 6 steps (run A), then anew 3 steps, saves a striped
      checkpoint of params and AdamW state (40.84 GB) into build/, frees the
      card and resumes a fresh model from it for 3 more (run B); every
@@ -97,8 +112,9 @@ Phases, one line or more each; any failure exits non-zero:
      the launch to the first step or the first token; and, against a
      fresh process that resumes the same checkpoint without the runtime,
      what the runtime's own reads of the checkpoint cost the warm boot.
-The line before the last lists the kernels as JSON; the last line is the
-result as JSON. Exits non-zero without a CUDA card.
+The line before the last lists the kernels as JSON (the forward kernels
+with their launches on the main path by launch config); the last line is
+the result as JSON. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -108,6 +124,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -122,10 +139,13 @@ sys.path.insert(0, str(ROOT / "src"))
 # first call: the resume phase runs under torch.use_deterministic_algorithms
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12   # CUDA cores, outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) and the
+# kernels' bounds: one source with the autotuner's pruning
+from repro_torch.roofline.analysis import (  # noqa: E402
+    PEAK_FLOPS as PEAK_BF16_FLOPS, PEAK_FP32_FLOPS)
+from repro_torch.roofline.kernel_cost import (  # noqa: E402
+    attention_bound, attention_bwd_bound, attention_flops, ssd_bound,
+    ssd_bwd_bound, ssd_bwd_flops, ssd_flops, unmasked_pairs)
 
 # A kernel against its plain version in bf16: the largest relative L2
 # error of one output row (kernels/ref.py::row_rel_err; an absolute limit
@@ -355,6 +375,24 @@ SSD_BWD_CASES = [("train", TRAIN_BATCHES[MAMBA], TRAIN_SEQ, 32, 64, 1, 128),
 # line's)
 SSD_BWD_TIMED = ("train", "zamba2")
 SSD_BWD_JAX_CASES = [("jaxdt", 2, 512, 8, 64, 1, 128)]
+# [tune kernels] and [tune boot]: the forward kernels' shapes on the main
+# paths, the serving prefills (8 prompts padded to 1024) and musicgen-large's
+# training step; (name, B, S, Hq, Hkv, D, window) for flash, (name, B, S, H,
+# P, G, N) for the SSD
+TUNE_FLASH_SHAPES = [
+    (QWEN, BATCH, PROMPT_LENS[1], 16, 2, 128, 0),
+    (ZAMBA, BATCH, PROMPT_LENS[1], 32, 32, 64, 4096),
+    (AUDIO, BATCH, PROMPT_LENS[1], 32, 32, 64, 0),
+    (MOON, BATCH, PROMPT_LENS[1], 16, 16, 128, 0),
+    (VLM, BATCH, PROMPT_LENS[1], 64, 8, 128, 0),
+    (f"{AUDIO} train", TRAIN_BATCHES[AUDIO], TRAIN_SEQ, 32, 32, 64, 0)]
+TUNE_SSD_SHAPES = [(MAMBA, BATCH, PROMPT_LENS[1], 32, 64, 1, 128),
+                   (ZAMBA, BATCH, PROMPT_LENS[1], 64, 64, 1, 64)]
+# the boot's sweep: timed rounds (of autotune.INNER calls) a config
+TUNE_REPEATS = 3
+# the serving cells that prefill under the tuned profile beside the
+# defaults; musicgen-large also takes training steps under it
+TUNED_SERVE = (AUDIO, ZAMBA)
 
 
 def say(phase: str, msg: str) -> None:
@@ -378,98 +416,6 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def attention_flops(b: int, hq: int, s: int, d: int) -> int:
-    """Causal attention's work: 4*d FLOPs per unmasked (q, k) pair."""
-    return 4 * d * (s * (s + 1) // 2) * b * hq
-
-
-def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(q, k) pairs one head attends: k < Sk, k <= q if causal, k > q -
-    window if windowed."""
-    import numpy as np
-    r = np.arange(sq)
-    hi = np.minimum(r, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(r - window + 1, 0) if window else np.zeros(sq, int)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
-def attention_bwd_bound(b: int, hq: int, hkv: int, s: int, d: int,
-                        pairs: int) -> tuple[float, str]:
-    """Least time (ms) for the attention backward: 10*d FLOPs per unmasked
-    pair (S recomputed, dV, dP, dK, dQ) over the bf16 peak, or one read of
-    q, k, v, dO and the fp32 LSE and one write of dq, dk, dv over the
-    memory rate; and which of the two sets it."""
-    ops_ms = 1e3 * 10 * d * pairs * b * hq / PEAK_BF16_FLOPS
-    nbytes = 2 * b * s * d * (3 * hq + 4 * hkv) + 4 * b * hq * s
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
-
-
-def attention_bound(b: int, hq: int, hkv: int, s: int,
-                    d: int) -> tuple[float, str]:
-    """Least time (ms) for causal attention on these shapes, and what sets
-    it: its FLOPs over the bf16 peak, or one read of q, k, v and one write
-    of o over the memory rate."""
-    ops_ms = 1e3 * attention_flops(b, hq, s, d) / PEAK_BF16_FLOPS
-    bytes_ms = 1e3 * 2 * b * s * d * (2 * hq + 2 * hkv) / PEAK_BYTES_PER_S
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
-
-
-def ssd_flops(b: int, s: int, h: int, p: int, g: int, n: int) -> int:
-    """The SSD scan's least work at the kernel's tile L: per (batch, group,
-    tile) the lower triangle of C . B^T, 2 N FLOPs per (i >= j) pair; per
-    (batch, head, tile) the triangle of M @ x, 2 P per pair; per token and
-    head the inter-chunk term and the state update, 2 N P each. Decays and
-    dt weights are O(S H) and left out."""
-    from repro_torch.kernels.ssd import TILE
-    tiles = -(-s // TILE)
-    pairs = TILE * (TILE + 1) // 2
-    return (b * g * tiles * pairs * 2 * n + b * h * tiles * pairs * 2 * p
-            + b * h * s * 4 * n * p)
-
-
-def ssd_bound(b: int, s: int, h: int, p: int, g: int, n: int, *,
-              peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
-    """Least time (ms) for the SSD scan on these shapes at ``peak_flops``
-    (the kernel's products run on bf16 tensor cores), and what sets it:
-    ``ssd_flops``, or one read of x, dt, B, C and one write of y (bf16
-    except dt) and of the fp32 final state."""
-    nbytes = (2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * g * n
-              + 4 * b * h * p * n)
-    ops_ms = 1e3 * ssd_flops(b, s, h, p, g, n) / peak_flops
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
-
-
-def ssd_bwd_flops(b: int, s: int, h: int, p: int, g: int, n: int) -> int:
-    """The SSD backward's least work, reckoned as ``ssd_flops``: per
-    (batch, group, tile) the triangle of C . B^T (recomputed), 2 N per
-    pair; per (batch, head, tile) the triangles of dy . x^T and M^T dy (2 P
-    per pair each) and of the dB and dC sums (2 N each); per token and head
-    five [P, N] products, 2 N P each: the state recomputed, S_in^T dy,
-    dS_out B, dS_out^T x and the state gradient's update."""
-    from repro_torch.kernels.ssd import TILE
-    tiles = -(-s // TILE)
-    pairs = TILE * (TILE + 1) // 2
-    return (b * g * tiles * pairs * 2 * n
-            + b * h * tiles * pairs * (4 * p + 4 * n) + b * h * s * 10 * n * p)
-
-
-def ssd_bwd_bound(b: int, s: int, h: int, p: int, g: int, n: int, *,
-                  peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
-    """Least time (ms) for the SSD backward at ``peak_flops``, and what
-    sets it: ``ssd_bwd_flops``, or one read of x, dy, B, C, dt and one
-    write of dx, dB, dC, ddt (bf16 except dt and ddt; dA, dD are [H])."""
-    nbytes = 3 * 2 * b * s * h * p + 4 * 2 * b * s * g * n + 2 * 4 * b * s * h
-    ops_ms = 1e3 * ssd_bwd_flops(b, s, h, p, g, n) / peak_flops
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
 
 
 def phase_device():
@@ -941,6 +887,319 @@ def phase_ssd_bwd_kernels(card: str) -> dict:
             "max_abs_err": worst, **timed[SSD_BWD_TIMED[0]]}
 
 
+def ptxas_entries(log: str) -> dict:
+    """ptxas's report by kernel entry (mangled name): [registers, bytes of
+    spill stores]."""
+    out, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+            out[name] = [None, None]
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name is not None and spill:
+            out[name][1] = int(spill.group(1))
+        if name is not None and regs:
+            out[name][0] = int(regs.group(1))
+    return out
+
+
+def instance_ptxas(entries: dict, pattern: str) -> tuple:
+    """(registers, spill bytes) of the one entry whose name matches."""
+    found = [v for k, v in entries.items() if re.search(pattern, k)]
+    if len(found) != 1:
+        fail("tune kernels", f"{len(found)} ptxas entries match {pattern}")
+    return tuple(found[0])
+
+
+def phase_tune_kernels(card: str) -> None:
+    """Every compiled launch config of the two forward kernels at the main
+    paths' shapes (TUNE_FLASH_SHAPES, TUNE_SSD_SHAPES), each held to its
+    plain version by [kernels]' row gates before it is timed; beside its
+    time its share of the bound, ptxas's registers and spills (a spilling
+    instance fails), its shared memory, the roofline's predicted time and
+    rank among the shape's instances (repro_torch/tune/prune.py) and, for
+    flash, SDPA's time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ssd
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels.ref import (attention_reference, row_rel_err,
+                                         ssd_chunked_reference)
+    from repro_torch.tune import prune
+
+    entries = ptxas_entries(build.build().ptxas_log)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    failed = []
+
+    def ranks(kernel, configs, shape):
+        pred = {c: prune.predict_seconds(kernel, dict(c), **shape)
+                for c in configs}
+        order = sorted(pred, key=pred.get)
+        return {c: (1e3 * pred[c], order.index(c) + 1) for c in pred}
+
+    def report(what, cfg, default, gate, ms, bound, ptx, smem, pred, extra):
+        ok = gate[0] and ptx[1] == 0
+        if not ok:
+            failed.append(f"{what} {cfg}")
+        say("tune kernels", f"{what} {cfg}{' (default)' if default else ''}: "
+            f"{gate[1]}; {ms:.4f} ms ({100 * bound[0] / ms:.1f}% of the "
+            f"{bound[0]:.4f} ms bound, {bound[1]}){extra}; ptxas {ptx[0]} "
+            f"registers, {ptx[1]} bytes spilled; {smem} bytes of shared "
+            f"memory a block; predicted {pred[0]:.4f} ms, rank {pred[1]} of "
+            f"the shape's instances; {'ok' if ok else 'FAIL'}, on {card}")
+
+    for name, b, s, hq, hkv, d, window in TUNE_FLASH_SHAPES:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ref = attention_reference(qt, kt, vt, causal=True,
+                                  window=window).transpose(1, 2)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+        configs = [dict(block_q=bq, block_k=bk) for bq, bk in flash.CONFIGS[d]]
+        pred = ranks("flash_attention", [tuple(c.items()) for c in configs],
+                     dict(b=b, hq=hq, hkv=hkv, sq=s, sk=s, d=d, window=window))
+        bound = attention_bound(b, hq, hkv, s, d)
+        for cfg in configs:
+            run = lambda: flash.flash_attention(q, k, v, causal=True,  # noqa: E731
+                                                window=window, **cfg)
+            row = row_rel_err(run(), ref)
+            ok = math.isfinite(row) and row <= KERNEL_ROW_RTOL
+            ms = cuda_ms(run, iters=20) if ok else math.nan
+            kname = "flash_fwd_kernel" if cfg["block_q"] == 128 else \
+                "flash_fwd_q64_kernel"
+            report(f"flash_attention {name} B={b} S={s} Hq={hq} Hkv={hkv} "
+                   f"D={d} window={window}", (cfg["block_q"], cfg["block_k"]),
+                   (cfg["block_q"], cfg["block_k"]) == flash.DEFAULT_CONFIG,
+                   (ok, f"worst row rel L2 err {row:.3e} (tol "
+                    f"{KERNEL_ROW_RTOL})"), ms, bound,
+                   instance_ptxas(entries, f"{kname}ILi{d}ELi{cfg['block_k']}EE"),
+                   flash.shared_memory_bytes(d, cfg["block_q"], cfg["block_k"]),
+                   pred[tuple(cfg.items())],
+                   f", {attention_flops(b, hq, s, d) / ms / 1e9:.1f} TFLOP/s, "
+                   f"SDPA {sdpa_ms:.4f} ms")
+        del q, k, v, qt, kt, vt, ref
+    for name, b, s, h, p, g, n in TUNE_SSD_SHAPES:
+        args = ssd_inputs(gen, b, s, h, p, g, n)
+        y_ref, st_ref = ssd_chunked_reference(*args, chunk=256)
+        pred = ranks("ssd", [(("chunk", c),) for c in ssd.CONFIGS[n]],
+                     dict(b=b, s=s, h=h, p=p, g=g, n=n))
+        bound = ssd_bound(b, s, h, p, g, n)
+        for chunk in ssd.CONFIGS[n]:
+            run = lambda: ssd.ssd_chunked_kernel(*args, chunk=chunk)  # noqa: E731
+            y, st = run()
+            y_row, st_row = row_rel_err(y, y_ref), row_rel_err(st, st_ref)
+            ok = (math.isfinite(y_row) and y_row <= SSD_Y_ROW_RTOL
+                  and math.isfinite(st_row) and st_row <= SSD_STATE_ROW_RTOL)
+            ms = cuda_ms(run, iters=20) if ok else math.nan
+            report(f"ssd {name} B={b} S={s} H={h} P={p} G={g} N={n}", chunk,
+                   chunk == ssd.TILE,
+                   (ok, f"y worst row rel L2 err {y_row:.3e} (tol "
+                    f"{SSD_Y_ROW_RTOL}), final state {st_row:.3e} (tol "
+                    f"{SSD_STATE_ROW_RTOL})"), ms, bound,
+                   instance_ptxas(entries, f"ssd_fwd_kernelILi{p}ELi{n}ELi"
+                                           f"{chunk}EE"),
+                   ssd.shared_memory_bytes(p, n, chunk),
+                   pred[(("chunk", chunk),)],
+                   f", {ssd_flops(b, s, h, p, g, n, tile=chunk) / ms / 1e9:.1f}"
+                   " TFLOP/s, no library call")
+        del args, y_ref, st_ref
+    if failed:
+        fail("tune kernels", f"instances that disagree with plain or spill: "
+             f"{failed}")
+
+
+def tune_workloads() -> list:
+    """The boot's sweep: every TUNE_*_SHAPES shape, bf16 on the card."""
+    return ([{"kernel": "flash_attention", "b": b, "hq": hq, "hkv": hkv,
+              "sq": s, "d": d, "window": window, "repeats": TUNE_REPEATS}
+             for _, b, s, hq, hkv, d, window in TUNE_FLASH_SHAPES]
+            + [{"kernel": "ssd", "b": b, "s": s, "h": h, "p": p, "g": g,
+                "n": n, "repeats": TUNE_REPEATS}
+               for _, b, s, h, p, g, n in TUNE_SSD_SHAPES])
+
+
+def phase_tune_boot(card: str):
+    """Two boots of a one-node job through BootseerRuntime(tune=True) with
+    the production shapes as its tune workloads, in build/tune-boot-*
+    (deleted after): the first sweeps the compiled configs on the card and
+    publishes the profile, the second fetches it with no sweep. Returns the
+    profile; no profile stays active afterwards."""
+    import numpy as np
+    from repro_torch.blockstore.image import build_image
+    from repro_torch.blockstore.registry import Registry
+    from repro_torch.core.bootseer import BootseerRuntime, JobSpec
+    from repro_torch.dfs.hdfs import HdfsCluster
+    from repro_torch.tune.profile import set_active_profile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="tune-boot-", dir=ROOT / "build"))
+    try:
+        (work / "src" / "bin").mkdir(parents=True)
+        (work / "src" / "bin" / "start").write_bytes(
+            np.random.default_rng(0).integers(0, 256, 1 << 16,
+                                              dtype=np.uint8).tobytes())
+        reg = Registry(work / "reg")
+        build_image(work / "src", reg, "img", block_size=1 << 16)
+        spec = JobSpec(job_id="tune", image="img", num_nodes=1,
+                       job_params={"deps": ["kernels"]},
+                       startup_reads=[("bin/start", 0, -1)],
+                       env_setup=lambda target, rank:
+                           (target / "dep.py").write_text("x = 1"))
+        runs = []
+        with BootseerRuntime(registry=reg, hdfs=HdfsCluster(
+                work / "hdfs", num_groups=4, block_size=1 << 20),
+                workdir=work / "rt", tune=True,
+                tune_workloads=tune_workloads()) as rt:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                notes = rt.run_startup(spec).notes
+                rt.drain_deferred()
+                runs.append((notes, time.perf_counter() - t0))
+            profile = rt.tune_store.fetch()
+            publishes = rt.tune_store.stats["publishes"]
+    finally:
+        # later phases run the defaults unless they name the profile
+        set_active_profile(None)
+        shutil.rmtree(work, ignore_errors=True)
+    for boot, (notes, wall) in zip(("cold", "warm"), runs):
+        say("tune boot", f"{boot} boot: tune_cache_hit "
+            f"{notes.get('tune_cache_hit')}, tune_invocations "
+            f"{notes.get('tune_invocations')}, digest "
+            f"{notes.get('tune_profile_digest', '')[:16]}, tune_error "
+            f"{notes.get('tune_error')}; {wall:.1f} s with the join")
+    (cold, _), (warm, _) = runs
+    n_wl = len(tune_workloads())
+    if (cold.get("tune_cache_hit") is not False
+            or cold.get("tune_invocations") != n_wl or "tune_error" in cold):
+        fail("tune boot", f"the cold boot did not sweep its {n_wl} "
+             "workloads cleanly")
+    if (warm.get("tune_cache_hit") is not True
+            or warm.get("tune_invocations") != 0 or "tune_error" in warm
+            or warm.get("tune_profile_digest")
+            != cold.get("tune_profile_digest") or publishes != 1
+            or profile is None or profile.digest()
+            != cold.get("tune_profile_digest")):
+        fail("tune boot", "the warm boot did not fetch the cold boot's "
+             "profile with 0 invocations")
+    say("tune boot", f"the warm boot fetched the profile with 0 invocations "
+        f"({publishes} publish); backend {profile.backend}")
+    for key, entry in sorted(profile.entries.items()):
+        say("tune boot", f"{key}: winner {entry['config']}, "
+            f"{1e3 * entry['measured_s']:.4f} ms against the default's "
+            f"{1e3 * entry['default_s']:.4f} ms "
+            f"({entry['default_s'] / entry['measured_s']:.3f}x), "
+            f"{entry['measured']} of {entry['candidates']} candidates "
+            f"measured, on {card}")
+    return profile
+
+
+def config_launches() -> dict:
+    """The forward kernels' launches by launch config, as the kernels line
+    names them."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd_chunked_kernel
+    return {"flash_attention": {f"{bq}x{bk}": n for (bq, bk), n in sorted(
+                flash_attention.config_launches.items())},
+            "ssd": {str(c): n for c, n in sorted(
+                ssd_chunked_kernel.config_launches.items())}}
+
+
+def reset_launches() -> dict:
+    """Every kernel wrapper's counts set to 0; returns the wrappers."""
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    for name in ("flash_attention", "ssd"):
+        counters[name].config_launches = {}
+    return counters
+
+
+def tuned_configs(cfg, profile, s: int) -> dict:
+    """The configs, as config_launches names them, that the profile gives
+    ``cfg``'s forward kernels at sequence length ``s`` (the default where
+    it has no entry, or with no profile)."""
+    from repro_torch.kernels.ops import card_backend
+    from repro_torch.tune import autotune
+    from repro_torch.tune.profile import attention_key, ssd_key
+    entries = {} if profile is None else profile.entries
+    out = {}
+    if cfg.num_heads:
+        key = attention_key(sq=s, sk=s, d=cfg.head_dim,
+                            g=cfg.num_heads // cfg.num_kv_heads,
+                            dtype="bfloat16", causal=True,
+                            window=cfg.sliding_window or 0,
+                            backend=card_backend())
+        c = entries.get(key, {}).get(
+            "config", autotune.DEFAULT_CARD_ATTENTION)
+        out["flash_attention"] = f"{c['block_q']}x{c['block_k']}"
+    if cfg.ssm:
+        heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        key = ssd_key(s=s, h=heads, p=cfg.ssm.head_dim, g=cfg.ssm.ngroups,
+                      n=cfg.ssm.state_dim, dtype="bfloat16",
+                      backend=card_backend())
+        out["ssd"] = str(entries.get(key, {}).get(
+            "config", autotune.DEFAULT_CARD_SSD)["chunk"])
+    return out
+
+
+def serve_tuned(card: str, arch: str, model, params, toks, unembed,
+                profile) -> None:
+    """One prefill under the tuned profile against one on the default
+    configs: the launch counts exact in both (a launch per attention call
+    and Mamba2 layer, each at the profile's config for the shape), the
+    logits held to the default run's by the logits' row gate
+    (REFERENCE_ROW_RTOL), and the prefill's time both ways, timed in turns
+    (default, tuned, tuned, default)."""
+    import torch
+    from repro_torch.kernels.ref import row_rel_err
+    from repro_torch.tune.profile import use_profile
+
+    def prefill():
+        return model.prefill(params, {"tokens": toks}, cache_len=CACHE_LEN,
+                             unembed=unembed)[0]
+
+    want = dict.fromkeys(launch_counters(), 0)
+    want.update(prefill_launches(model.cfg))
+    runs, ms = {}, {"default": [], "tuned": []}
+    for way, prof in (("default", None), ("tuned", profile)):
+        with use_profile(prof), torch.no_grad():
+            counters = reset_launches()
+            logits = prefill().float()
+            torch.cuda.synchronize()
+            counts = {name: fn.launches for name, fn in counters.items()}
+            by_config = config_launches()
+        if counts != want:
+            fail("serve", f"{arch} {way}: kernel launches {counts}, expected "
+                 f"{want}")
+        runs[way] = logits, by_config
+    for way in ("default", "tuned", "tuned", "default"):
+        with use_profile(profile if way == "tuned" else None), \
+                torch.no_grad():
+            ms[way].append(cuda_ms(prefill, iters=3, warmup=1))
+    b, s = toks.shape
+    picked = tuned_configs(model.cfg, profile, s)
+    expect = {k: ({picked[k]: n} if n else {})
+              for k, n in (("flash_attention", want["flash_attention"]),
+                           ("ssd", want["ssd"]))}
+    row = row_rel_err(runs["tuned"][0], runs["default"][0])
+    ok = (math.isfinite(row) and row <= REFERENCE_ROW_RTOL
+          and runs["tuned"][1] == expect)
+    say("serve", f"{arch} prefill B={b} S={s} under the tuned profile: "
+        f"launches by config {runs['tuned'][1]} (the profile's {picked}; "
+        f"default run {runs['default'][1]}); logits' worst row rel L2 err "
+        f"against the default configs {row:.3e} (tol {REFERENCE_ROW_RTOL}); "
+        f"prefill {', '.join(f'{t:.2f}' for t in ms['tuned'])} ms tuned, "
+        f"{', '.join(f'{t:.2f}' for t in ms['default'])} ms default (in "
+        f"turns: default, tuned, tuned, default); {'ok' if ok else 'FAIL'}, "
+        f"on {card}")
+    if not ok:
+        fail("serve", f"{arch}: the tuned prefill disagrees with the default")
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper, by the name the kernels line gives it."""
     from repro_torch.kernels.flash_attention import (
@@ -1061,7 +1320,7 @@ def tiny_config(arch: str):
     return reduced(get_config(arch), **TINY_OVERRIDES.get(arch, {}))
 
 
-def phase_serve(card: str, arch: str) -> dict:
+def phase_serve(card: str, arch: str, profile=None) -> dict:
     """Serves ``arch`` at full width (at SERVE_LAYERS[arch] layers where
     its weights do not fit the card) from token prompts; returns every
     kernel's launches over the main path, which must be one prefill's
@@ -1070,7 +1329,10 @@ def phase_serve(card: str, arch: str) -> dict:
     prefill and decode drop what their capacity does not keep (counted
     here), so its prefill-vs-decode check runs on a copy whose capacity
     factor E/k keeps every token. A config with M-RoPE then runs its
-    embeddings path (``serve_vision``)."""
+    embeddings path (``serve_vision``). With a tuning ``profile``, a prefill
+    under it is held to one on the default configs (``serve_tuned``). The
+    counts returned carry the forward kernels' launches by config under
+    "configs"."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1131,14 +1393,13 @@ def phase_serve(card: str, arch: str) -> dict:
     model.prefill, model.decode_step = map(watch, entry_points)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_launches()
     t0 = time.perf_counter()
     engine.generate(requests, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
+    configs = config_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model.prefill, model.decode_step = entry_points
 
@@ -1161,8 +1422,8 @@ def phase_serve(card: str, arch: str) -> dict:
     say("serve", f"{arch} generate: {BATCH} requests, prompts {lens.min()}-"
         f"{lens.max()}, {n_tok} tokens in {wall:.3f} s = "
         f"{n_tok / wall:.1f} tok/s, peak memory {peak_gb:.2f} GB, "
-        f"launches {launches}, logits of all {len(finite)} "
-        f"prefill/decode calls finite, on {card}")
+        f"launches {launches} (by config {configs}), logits of all "
+        f"{len(finite)} prefill/decode calls finite, on {card}")
 
     # The same batch again through the model's entry points, timed apart.
     plen = int(lens.max())
@@ -1256,7 +1517,9 @@ def phase_serve(card: str, arch: str) -> dict:
     del cache
     if cfg.mrope:
         serve_vision(card, arch, model, params, toks, unembed)
-    return counts
+    if profile is not None:
+        serve_tuned(card, arch, model, params, toks, unembed, profile)
+    return dict(counts, configs=configs)
 
 
 def serve_vision(card: str, arch: str, model, params, toks, unembed) -> None:
@@ -1595,13 +1858,15 @@ def phase_small_train_reference(card: str, arch: str) -> None:
         fail("reference", "the card's train step disagrees with the CPU path")
 
 
-def phase_train(card: str, arch: str) -> dict:
+def phase_train(card: str, arch: str, profile=None) -> dict:
     """``arch`` at full width (at TRAIN_LAYERS[arch] layers where its
     state does not fit the card) takes TRAIN_STEPS AdamW steps at
     TRAIN_BATCHES[arch] x TRAIN_SEQ; returns every kernel's launches over
     the run. A frontend family trains on stand-in embeddings drawn anew
     each step (with M-RoPE, vision-grid positions of an image of
-    VISION_GRID patches) and the stream's labels."""
+    VISION_GRID patches) and the stream's labels. With a tuning ``profile``,
+    four more steps in turns, default, tuned, tuned, default configs
+    (``train_tuned``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.loader import Loader
@@ -1737,9 +2002,50 @@ def phase_train(card: str, arch: str) -> dict:
             f"({100 * bwd_ms / prof['wall_ms']:.1f}% of the step, "
             f"{100 * bwd_ms / prof['busy_ms']:.1f}% of device busy), on "
             f"{card}")
+    if profile is not None:
+        params, opt = train_tuned(card, arch, cfg, step_fn, params, opt,
+                                  loader, want, profile)
     del params, opt, state, step_fn, data
     free_card()
     return total
+
+
+def train_tuned(card: str, arch: str, cfg, step_fn, params, opt, loader,
+                want: dict, profile):
+    """Training steps in turns on the default configs and under the tuned
+    profile (default, tuned, tuned, default), each with its launches
+    exact and, under the profile, every forward launch at the profile's
+    config for the step's shape; the step's time both ways. Returns the
+    params and optimizer state."""
+    import torch
+    from repro_torch.tune.profile import use_profile
+    picked = {way: tuned_configs(cfg, prof, TRAIN_SEQ)
+              for way, prof in (("tuned", profile), ("default", None))}
+    times = {"default": [], "tuned": []}
+    for i, way in enumerate(("default", "tuned", "tuned", "default")):
+        batch = loader(TRAIN_STEPS + 1 + i)
+        with use_profile(profile if way == "tuned" else None):
+            torch.cuda.synchronize()
+            counters = reset_launches()
+            t0 = time.perf_counter()
+            params, opt, _ = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times[way].append(time.perf_counter() - t0)
+        counts = {name: fn.launches for name, fn in counters.items()}
+        by_config = config_launches()
+        expect = {k: {picked[way][k]: want[k]} if want[k] else {}
+                  for k in ("flash_attention", "ssd")}
+        if counts != want or by_config != expect:
+            fail("train", f"{arch} {way} step: launches {counts} by config "
+                 f"{by_config}, expected {want} by config {expect}")
+    say("train", f"{arch} steps under the tuned profile (its {picked['tuned']} at "
+        f"B={TRAIN_BATCHES[arch]} S={TRAIN_SEQ}; launches per step exact, "
+        f"{want['flash_attention']} forward flash launches at that config): "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times['tuned'])} ms tuned, "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times['default'])} ms on the "
+        f"default configs (in turns: default, tuned, tuned, default), on "
+        f"{card}")
+    return params, opt
 
 
 def phase_moe_block(card: str) -> None:
@@ -1845,6 +2151,12 @@ def phase_resume(card: str) -> int:
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.train.loop import train_loop
 
+    from repro_torch.tune.profile import get_active_profile
+
+    if get_active_profile() is not None:
+        fail("resume", "a tuning profile is active")
+    say("resume", "no tuning profile is active: every kernel runs its "
+        "default launch config, and the bit-equality gate is unchanged")
     cfg = get_config(QWEN)
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
@@ -2202,20 +2514,29 @@ def main() -> int:
     ssd_bwd = timed("kernels ssd_bwd", phase_ssd_bwd_kernels, card)
     flash_bwd, flash_bwd_det = timed("kernels flash_bwd",
                                      phase_flash_bwd_kernels, card)
+    timed("tune kernels", phase_tune_kernels, card)
+    profile = timed("tune boot", phase_tune_boot, card)
     archs = (QWEN, MAMBA, ZAMBA, MOON, AUDIO, VLM)
     timed("moe block", phase_moe_block, card)
     for arch in archs + (MIXTRAL,):
         timed(f"reference {arch}", phase_small_reference, card, arch)
     # the forward kernels' launches over the serving paths, the backward
     # kernels' over the training paths
-    served = [timed(f"serve {arch}", phase_serve, card, arch)
+    served = [timed(f"serve {arch}", phase_serve, card, arch,
+                    profile if arch in TUNED_SERVE else None)
               for arch in archs]
     for entry in (flash, ssd):
         entry["launches"] = sum(c[entry["name"]] for c in served)
+        entry["config_launches"] = {}
+        for c in served:
+            for config, n in c["configs"][entry["name"]].items():
+                entry["config_launches"][config] = \
+                    entry["config_launches"].get(config, 0) + n
     for arch in archs + (MIXTRAL,):
         timed(f"reference train {arch}", phase_small_train_reference, card,
               arch)
-    trained = [timed(f"train {arch}", phase_train, card, arch)
+    trained = [timed(f"train {arch}", phase_train, card, arch,
+                     profile if arch == AUDIO else None)
                for arch in archs]
     for entry in (flash_bwd, ssd_bwd):
         entry["launches"] = sum(c[entry["name"]] for c in trained)

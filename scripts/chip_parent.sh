@@ -23,17 +23,17 @@ build . > build/tree_build.log 2>&1 &
 wait
 for side in parent tree; do
   log=build/${side}_build.log
-  echo "== $side: $(grep -A2 "flash_fwd_kernelILi128" "$log" | grep -E "registers|spill" | tr -s ' ' | tr '\n' ' ')"
-  # the SASS of flash_fwd_kernel<128>, from its "Function :" header to the
+  echo "== $side: $(grep -A2 "flash_fwd_kernelILi128E" "$log" | grep -E "registers|spill" | tr -s ' ' | tr '\n' ' ')"
+  # the SASS of flash_fwd_kernel at D = 128 (block_k 64, the one instance there), from its "Function :" header to the
   # next, without the header: the mangled name carries a hash of the source
   # file's name and contents
   $CUOBJDUMP -sass "$(tail -1 "$log")" |
-    awk '/Function :/ {keep = /flash_fwd_kernelILi128/; next} keep' > build/${side}_fwd.sass
+    awk '/Function :/ {keep = /flash_fwd_kernelILi128E/; next} keep' > build/${side}_fwd.sass
 done
 if cmp -s build/parent_fwd.sass build/tree_fwd.sass; then
-  echo "flash_fwd_kernel<128> SASS identical ($(wc -l < build/tree_fwd.sass) lines)"
+  echo "flash_fwd_kernel<128, 64> SASS identical ($(wc -l < build/tree_fwd.sass) lines)"
 else
-  echo "flash_fwd_kernel<128> SASS differs in $(diff build/parent_fwd.sass build/tree_fwd.sass | grep -c '^[<>]') lines:"
+  echo "flash_fwd_kernel<128, 64> SASS differs in $(diff build/parent_fwd.sass build/tree_fwd.sass | grep -c '^[<>]') lines:"
   diff build/parent_fwd.sass build/tree_fwd.sass | grep '^[<>]' | head -10
 fi
 for side in "$other" . . "$other"; do

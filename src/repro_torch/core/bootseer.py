@@ -18,10 +18,11 @@ streams (cold image blocks, the optimizer-state restore wave) can never
 convoy a critical-path read.  ``pipeline=False`` keeps the seed's
 barrier-per-stage schedule over the *same task bodies*.
 
-A copy of the JAX package's ``core/bootseer.py`` with one change: the
-kernel tuning task (``tune=True``) raises until the port has a tuning
-sweep (ROADMAP.md A.8).  The checkpointer it resumes from is the port's
-torch ``Checkpointer``; the DAG reads its bytes (the params wave at
+A copy of the JAX package's ``core/bootseer.py``. The kernel tuning task
+(``tune=True``) sweeps the card's compiled launch configs
+(``repro_torch.tune.autotune``) unless ``tune_backend`` names the CPU,
+whose sweeps run the plain versions.  The checkpointer it resumes from is
+the port's torch ``Checkpointer``; the DAG reads its bytes (the params wave at
 CRITICAL, the optimizer-state wave DEFERRED) and the launcher's
 ``train_loop`` then restores the tensors onto the card.
 """
@@ -47,8 +48,8 @@ from repro_torch.dfs.hdfs import HdfsCluster
 from repro_torch.envcache.snapshot import EnvCache, job_cache_key, snapshot_dir
 from repro_torch.fabric.cache import NodeCache
 from repro_torch.fabric.federation import RegionReplicator
-from repro_torch.tune.launchprofile import (capture_launch_profile,
-                                            profile_drift)
+from repro_torch.tune import (ProfileStore, capture_launch_profile,
+                              profile_drift)
 
 
 @dataclass
@@ -106,11 +107,11 @@ class BootseerRuntime:
                  cache_bytes: Optional[int] = None,
                  cache_policy: str = "lru",
                  env_cache_bytes: Optional[int] = None,
-                 tune: bool = False):
-        if tune:
-            raise NotImplementedError(
-                "BootseerRuntime(tune=True) — the port has no kernel "
-                "tuning sweep or tuning profiles yet (ROADMAP.md A.8)")
+                 tune: bool = False,
+                 tune_workloads: Optional[list] = None,
+                 tune_store: Optional[ProfileStore] = None,
+                 tune_join_timeout_s: float = 300.0,
+                 tune_backend: Optional[str] = None):
         self.registry = registry
         self.hdfs = hdfs
         self.mount = HdfsFuseMount(hdfs)
@@ -169,6 +170,22 @@ class BootseerRuntime:
         # remainder can never queue ahead of a later run's hot prefetch
         self._cold_pool = ThreadPoolExecutor(
             2, thread_name_prefix="bootseer-cold")
+        # kernel autotuning (ROADMAP A.8): tune=True restores the
+        # cluster's TuningProfile from the DFS as a non-gating DEFERRED
+        # task on rank 0 — a warm restart fetches the tuned launch configs
+        # with ZERO re-tuning (notes["tune_cache_hit"]); the first boot
+        # sweeps tune_workloads (default: autotune.tiny_workloads()) once
+        # and publishes.  The sweep runs on the card unless tune_backend
+        # is autotune.CPU_BACKEND.  The store gets the runtime's
+        # scheduler but a sched-less mount: it holds its own "dfs" slot
+        # tokens.
+        self.tune = bool(tune) and optimize
+        self.tune_workloads = tune_workloads
+        self.tune_join_timeout_s = tune_join_timeout_s
+        self.tune_backend = tune_backend
+        self.tune_store = tune_store
+        if self.tune and self.tune_store is None:
+            self.tune_store = ProfileStore(self.mount, sched=self.io_sched)
         # deferred background work (cold image streaming, optimizer-state
         # restore waves) must not fail silently: futures collect here and
         # drain_deferred() re-raises their failures.  All error state is
@@ -428,6 +445,40 @@ class BootseerRuntime:
                                   deps=(StartupTask.CKPT_PARAMS_WAVE,),
                                   stage=Stage.MODEL_INIT, gating=False))
 
+        def tune_restore(deps):
+            # non-gating: the profile fetch (tiny, metered DFS read) —
+            # or, on the first boot, the full autotune sweep — streams
+            # off the startup critical path.  Exceptions stay inside the
+            # returned info dict: a failed sweep must degrade to kernel
+            # defaults, not poison the next run's drain_deferred().
+            info: dict = {"hit": False, "invocations": 0}
+            try:
+                from repro_torch.tune import autotune
+                t0 = autotune.stats["tune_invocations"]
+                prof = self.tune_store.fetch()
+                if prof is None:
+                    wls = self.tune_workloads
+                    if wls is None:
+                        wls = autotune.tiny_workloads()
+                    prof = autotune.build_profile(wls,
+                                                  backend=self.tune_backend)
+                    prof.store = self.tune_store
+                    pub = self.tune_store.publish(prof)
+                    info["digest"] = pub["digest"]
+                else:
+                    info["hit"] = True
+                    info["digest"] = prof.digest()
+                info["invocations"] = \
+                    autotune.stats["tune_invocations"] - t0
+                from repro_torch.tune.profile import set_active_profile
+                set_active_profile(prof)
+            except Exception as exc:  # noqa: BLE001
+                info["error"] = repr(exc)
+            return info
+
+        if self.tune and rank == 0 and self.tune_store is not None:
+            tasks.append(TaskSpec(StartupTask.TUNE_RESTORE, tune_restore,
+                                  stage=Stage.MODEL_INIT, gating=False))
         return tasks
 
     def _run(self, spec: JobSpec, checkpointer, *, include_image: bool,
@@ -475,12 +526,15 @@ class BootseerRuntime:
         # ordinary eviction candidates again) and deferred DAG tasks (cold
         # image remainder, optimizer-state restore waves) stream while
         # training runs
+        tune_future = None
         for res in results:
             prefetch_val = res.values.get(StartupTask.IMAGE_HOT_PREFETCH)
             if isinstance(prefetch_val, dict) and "client" in prefetch_val:
                 prefetch_val["client"].release_pins()
             for _name, thunk in res.deferred:
-                self._submit_deferred(thunk)
+                fut = self._submit_deferred(thunk)
+                if _name == StartupTask.TUNE_RESTORE:
+                    tune_future = fut
 
         # record phase upload (first optimized run)
         if "trace" in trace_holder:
@@ -518,6 +572,26 @@ class BootseerRuntime:
             notes["io_sched"] = self.io_sched.snapshot()
         if not include_image:
             notes["hot_update"] = True
+        if self.tune:
+            # join the profile restore AFTER the TRAINING timestamp was
+            # cut (total = clock() above): the wait shows up nowhere on
+            # the startup critical path, but the notes report the truth
+            # about whether this boot re-tuned or hit the cache
+            notes["tune_cache_hit"] = False
+            notes["tune_invocations"] = 0
+            if tune_future is not None:
+                try:
+                    tinfo = tune_future.result(
+                        timeout=self.tune_join_timeout_s)
+                except Exception as exc:  # noqa: BLE001
+                    notes["tune_error"] = repr(exc)
+                else:
+                    notes["tune_cache_hit"] = bool(tinfo.get("hit"))
+                    notes["tune_invocations"] = tinfo.get("invocations", 0)
+                    if "digest" in tinfo:
+                        notes["tune_profile_digest"] = tinfo["digest"]
+                    if "error" in tinfo:
+                        notes["tune_error"] = tinfo["error"]
         # launch-profile drift: each node's env restore carries the
         # profile the snapshot was CREATED under; compare against the
         # env this boot actually runs with

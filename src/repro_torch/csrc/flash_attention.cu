@@ -14,47 +14,60 @@
 // above the H100's ~295 bf16 FLOPs per byte, so the bound is the tensor
 // cores (~35 us at 989 TFLOP/s), which only `wgmma` reaches.
 //
-// Design. A block of two consumer warpgroups and one producer warpgroup
-// owns one (batch, q head, 128-row q tile); the grid is (ceil(Sq / 128),
+// Design. A block of BQ / 64 consumer warpgroups and one producer warpgroup
+// owns one (batch, q head, BQ-row q tile); the grid is (ceil(Sq / BQ),
 // B * Hq), the longest causal tiles first.
-//   - The producer warpgroup (warps 8-11) gives its registers away
-//     (`setmaxnreg` 40, the consumers take 232) and one thread of it issues
-//     every load: the Q tile once, then (K tile, V tile) pairs of
-//     kBlockK = 64 keys into a ring of kStages = 4 stages, each signalled
-//     by its own `mbarrier` (full per K and per V, empty per stage). The
-//     loads are TMA copies through one 4-D tensor map per operand over
-//     (D, H, S, B) with the caller's strides and the 128-byte swizzle, so
-//     a tile of D columns is D / 64 boxes of 64 columns (128 bytes). Rows
-//     past S arrive as zeros.
-//   - Warpgroups 0 and 1 are the consumers, 64 q rows each. Per tile: S =
-//     Q K^T as D / 16 `wgmma.m64n64k16` with both operands read from
-//     shared memory (K [key][d] is K-major); the online softmax in
-//     registers in the log2 domain, rows reduced across the quad of the
-//     accumulator layout; P rounded to bf16 straight from the S
-//     accumulators into A fragments; O += P V as 4 `wgmma.m64nDk16` with A
-//     from registers and V [key][d], which is MN-major, read with the
-//     transpose bit. Only tiles that touch the diagonal, the window edge or
-//     Sk compute a mask: TMA's zero rows past Sk would score 0, not -inf.
+//   - The producer warpgroup gives its registers away (`setmaxnreg` 40, the
+//     consumers take the rest) and one thread of it issues every load: the
+//     Q tile once, then (K tile, V tile) pairs of BK keys into a ring of
+//     kStages stages, each signalled by its own `mbarrier` (full per K and
+//     per V, empty per stage). The loads are TMA copies through one 4-D
+//     tensor map per operand over (D, H, S, B) with the caller's strides and
+//     the 128-byte swizzle, so a tile of D columns is D / 64 boxes of 64
+//     columns (128 bytes). Rows past S arrive as zeros.
+//   - Each consumer warpgroup owns 64 q rows. Per tile: S = Q K^T as D / 16
+//     `wgmma.m64nBKk16` with both operands read from shared memory (K
+//     [key][d] is K-major); the online softmax in registers in the log2
+//     domain, rows reduced across the quad of the accumulator layout; P
+//     rounded to bf16 straight from the S accumulators into A fragments;
+//     O += P V as BK / 16 `wgmma.m64nDk16` with A from registers and V
+//     [key][d], which is MN-major, read with the transpose bit. Only tiles
+//     that touch the diagonal, the window edge or Sk compute a mask: TMA's
+//     zero rows past Sk would score 0, not -inf.
 //   - The consumer loop is pipelined across two wgmma groups: S of tile i
 //     is issued before P V of tile i - 1, and the softmax of tile i runs
 //     while that P V is on the tensor cores; the output is rescaled and the
 //     stage released once it completes.
-//   - Registers set the tile. The kernel is compiled for 168 registers a
-//     thread (`__maxnreg__`: 384 threads, 3 warps on each of the SM's four
-//     register-file partitions). 128-key tiles need ~190 (S 64 + O 64 +
-//     P 32 + the rest) and spill at every `setmaxnreg` split tried (24/240
-//     to 72/216: ptxas does not budget the consumers' code above the
-//     kernel's count); 64-key tiles need S 32 + O 64 + P 16 and fit. The
-//     `setmaxnreg` pair still pays at 64-key tiles, ~6-8% in one call
+//   - Launch configs (BQ, BK), each a template instance that the C entry
+//     point selects by its arguments; kernels/flash_attention.py's CONFIGS
+//     lists them, and the autotuner (repro_torch/tune/autotune.py) picks one
+//     per shape bucket:
+//       (128, 64) at D = 64 and 128, the default: two consumers, 384
+//         threads, compiled for 168 registers a thread (`__maxnreg__`: 3
+//         warps on each of the SM's four register-file partitions); 160 KB
+//         of shared memory at D = 128, one block per SM.
+//       (64, 64) at D = 64: one consumer, 256 threads, 128 registers a
+//         thread, so that two blocks share an SM (73 KB of shared memory
+//         each). At D = 64 it takes ~13% less time than the default on
+//         the H100 (PERF.md's launch-config table), thought to be two
+//         blocks an SM hiding each other's waits.
+//     Registers decide which configs exist. Not compiled, because ptxas
+//     spills them (chip_smoke.py's [build] and [tune kernels] report):
+//       (64, 64) at D = 128: O 64 + S 32 + P 16 + the rest pass the cap of
+//         128 (144 bytes spilled).
+//       (128, 128) at D = 64: S 64 + O 32 + P 32 + the rest pass 168 (24
+//         bytes spilled); unspilled it was slower than (64, 64) anyway.
+//       (128, 128) at D = 128: ~190 registers, spilling at every
+//         `setmaxnreg` split tried (24/240 to 72/216: ptxas does not budget
+//         the consumers' code above the kernel's count).
+//     The `setmaxnreg` pair still pays at 64-key tiles, ~6-8% in one call
 //     against the same block without it (chip_smoke.py via
 //     scripts/chip_variants.sh).
-//   - Shared memory, 1024-byte aligned: Q (128 x D bf16) + kStages x (K +
-//     V) (2 x 64 x D bf16): 160 KB at D = 128 (164,968 bytes requested
-//     with the alignment slack and barriers), 80 KB at D = 64; one block
-//     of 384 threads per SM.
-// The producer keeps loads up to four tiles ahead, and each consumer's
-// softmax also overlaps the other's wgmma. Left for later: ping-pong
-// ordering of the two consumers and a persistent grid.
+//   - Shared memory, 1024-byte aligned: Q (BQ x D bf16) + kStages x (K + V)
+//     (2 x BK x D bf16) and the barriers.
+// The producer keeps loads up to kStages tiles ahead, and with two
+// consumers each one's softmax also overlaps the other's wgmma. Left for
+// later: ping-pong ordering of the two consumers and a persistent grid.
 //
 // Training. Given a non-null `lse`, the epilogue also writes each row's
 // natural-log sum of exponentials of the scaled scores, logsumexp_j(s_ij *
@@ -72,20 +85,39 @@
 
 namespace {
 
-constexpr int kBlockQ = 128;  // q rows per block: two consumers of 64
-constexpr int kBlockK = 64;   // keys per tile
-constexpr int kStages = 4;
-constexpr int kThreads = 3 * 128;  // two consumer warpgroups, a producer warpgroup
-constexpr int kQBoxBytes = kBlockQ * 128;   // a box of 128 q rows
-constexpr int kKVBoxBytes = kBlockK * 128;  // a box of one key tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// S (+)= Q K^T over one key tile, N = kBlockK.
+// One launch config's constants: BQ q rows a block (BQ / 64 consumer
+// warpgroups of 64 rows), BK keys a tile, at head dim D.
+template <int D, int BQ, int BK>
+struct Tiles {
+  static_assert(BQ == 64 || BQ == 128, "one or two consumer warpgroups");
+  static_assert(BK == 64 || BK == 128, "wgmma N of 64 or 128");
+  static constexpr int kConsumers = BQ / 64;
+  static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer
+  static constexpr int kStages = 4;
+  // registers a consumer thread takes from the producer's (`setmaxnreg`):
+  // the block's total, kernel cap x threads, is unchanged
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 232 : 216;
+  static constexpr int kQBoxBytes = BQ * 128;   // a box of BQ q rows
+  static constexpr int kKVBoxBytes = BK * 128;  // a box of one key tile
+  static constexpr int kQBytes = BQ * D * 2;
+  static constexpr int kTileBytes = BK * D * 2;  // one K or V tile
+  static constexpr int kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 3 * kStages);
+  // one consumer: two blocks share an SM, half its 228 KB each less 1 KB
+  // reserved a block
+  static_assert(kSmemBytes <= (kConsumers == 1 ? 115712 : 232448),
+                "shared memory past the block's share of the SM");
+};
+
+// S (+)= Q K^T over one key tile, N = BK.
+template <int BK>
 __device__ __forceinline__ void wgmma_qk(float* d, uint64_t a, uint64_t b,
                                          int accumulate) {
-  if constexpr (kBlockK == 128) {
+  if constexpr (BK == 128) {
     wgmma_ss_m64n128(d, a, b, accumulate);
   } else {
     wgmma_ss_m64n64(d, a, b, accumulate);
@@ -106,32 +138,33 @@ __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t b
 
 // S = Q K^T for this warpgroup's 64 rows and one key tile, committed as
 // one wgmma group.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sacc)[kBlockK / 2], uint32_t q_rows,
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void issue_qk(float (&sacc)[BK / 2], uint32_t q_rows,
                                          uint32_t k_tile) {
+  using T = Tiles<D, BQ, BK>;
   fence_regs(sacc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_qk(sacc, desc_kmajor(q_rows, kQBoxBytes, kk),
-             desc_kmajor(k_tile, kKVBoxBytes, kk), kk > 0);
+    wgmma_qk<BK>(sacc, desc_kmajor(q_rows, T::kQBoxBytes, kk),
+                 desc_kmajor(k_tile, T::kKVBoxBytes, kk), kk > 0);
   wgmma_commit();
 }
 
 // O += P V for one tile, P in registers, committed as one wgmma group.
-template <int D>
+template <int D, int BQ, int BK>
 __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
-                                         uint32_t (&pa)[kBlockK / 16][4],
+                                         uint32_t (&pa)[BK / 16][4],
                                          uint32_t sV, int stage) {
-  constexpr int kTileBytes = kBlockK * D * 2;
-  const uint32_t v_tile = sV + stage * kTileBytes;
+  using T = Tiles<D, BQ, BK>;
+  const uint32_t v_tile = sV + stage * T::kTileBytes;
 #pragma unroll
-  for (int kk = 0; kk < kBlockK / 16; ++kk) fence_regs(pa[kk]);
+  for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
   fence_regs(oacc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBlockK / 16; ++kk)
-    wgmma_pv<D>(oacc, pa[kk], desc_mnmajor(v_tile, kKVBoxBytes, kk), 1);
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_pv<D>(oacc, pa[kk], desc_mnmajor(v_tile, T::kKVBoxBytes, kk), 1);
   wgmma_commit();
 }
 
@@ -141,14 +174,15 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
 // for the output accumulator. The products are rounded apart from the
 // subtraction, so a row whose every key is masked gets exp2(0), as the
 // plain version's uniform softmax of equal scores does.
-__device__ __forceinline__ void online_softmax(float (&sacc)[kBlockK / 2], float (&m)[2],
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sacc)[BK / 2], float (&m)[2],
                                                float (&l)[2], float (&corr)[2],
                                                bool masked, int row0, int k_lo,
                                                int t, int Sk, int causal,
                                                int window, float scale_log2) {
   if (masked) {
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + (e >> 1) * 8;
@@ -162,7 +196,7 @@ __device__ __forceinline__ void online_softmax(float (&sacc)[kBlockK / 2], float
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int j = 0; j < kBlockK / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
     mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
   }
@@ -177,7 +211,7 @@ __device__ __forceinline__ void online_softmax(float (&sacc)[kBlockK / 2], float
     l[rr] *= corr[rr];
   }
 #pragma unroll
-  for (int j = 0; j < kBlockK / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = exp2f(__fmul_rn(sacc[4 * j + e], scale_log2) - ms[e >> 1]);
@@ -187,27 +221,22 @@ __device__ __forceinline__ void online_softmax(float (&sacc)[kBlockK / 2], float
   }
 }
 
-// P in bf16, straight from the S accumulators into A fragments.
-__device__ __forceinline__ void pack_p(const float (&sacc)[kBlockK / 2],
-                                       uint32_t (&pa)[kBlockK / 16][4]) {
-  pack_a<kBlockK>(sacc, pa);
-}
-
-template <int D>
-__global__ void __maxnreg__(168)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                 const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq,
-                 int Hkv, int Sq, int Sk,
-                 long long o_sb, long long o_ss, long long o_sh,
-                 float scale_log2, int causal, int window) {
-  constexpr int kQBytes = kBlockQ * D * 2;
-  constexpr int kTileBytes = kBlockK * D * 2;  // one K or V tile
+// The kernel's body for one launch config; the __global__ entries below
+// differ only in their register cap.
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void flash_fwd_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv,
+    int Sq, int Sk, long long o_sb, long long o_ss, long long o_sh,
+    float scale_log2, int causal, int window) {
+  using T = Tiles<D, BQ, BK>;
+  constexpr int kStages = T::kStages;
+  constexpr int kTileBytes = T::kTileBytes;
+  constexpr int kProducer = 128 * T::kConsumers;  // the producer's first thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sQ = (raw + 1023) & ~1023u;
-  const uint32_t sK = sQ + kQBytes;               // + stage * kTileBytes
+  const uint32_t sK = sQ + T::kQBytes;            // + stage * kTileBytes
   const uint32_t sV = sK + kStages * kTileBytes;  // + stage * kTileBytes
   const uint32_t bars = sV + kStages * kTileBytes;
   const uint32_t q_full = bars;
@@ -221,12 +250,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.y / Hq;
   const int h = blockIdx.y % Hq;
   const int hk = h / (Hq / Hkv);
-  const int q_lo = q_tile * kBlockQ;
-  int kt_end = (Sk + kBlockK - 1) / kBlockK;
-  if (causal) kt_end = min(kt_end, (q_lo + kBlockQ - 1) / kBlockK + 1);
+  const int q_lo = q_tile * BQ;
+  int kt_end = (Sk + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, (q_lo + BQ - 1) / BK + 1);
   int kt_begin = 0;
   if (window > 0 && q_lo - window + 1 > 0)
-    kt_begin = (q_lo - window + 1) / kBlockK;
+    kt_begin = (q_lo - window + 1) / BK;
   const int n_tiles = max(kt_end - kt_begin, 0);
 
   if (threadIdx.x == 0) {
@@ -234,38 +263,39 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 2 * 128);  // every consumer thread
+      mbar_init(empty + 8 * s, kProducer);  // every consumer thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {
+  if (threadIdx.x >= kProducer) {
     // ---- producer warpgroup: one thread issues, the rest leave -----------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, kQBytes);
+    if (threadIdx.x == kProducer) {
+      mbar_expect_tx(q_full, T::kQBytes);
       for (int c = 0; c < D / kBoxCols; ++c)
-        tma_load_4d(sQ + c * kQBoxBytes, &tm_q, q_full, c * kBoxCols, h, q_lo, b);
+        tma_load_4d(sQ + c * T::kQBoxBytes, tm_q, q_full, c * kBoxCols, h, q_lo, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int stage = i % kStages;
         const uint32_t lap = i / kStages;
         mbar_wait(empty + 8 * stage, (lap & 1) ^ 1);
-        const int k_lo = (kt_begin + i) * kBlockK;
+        const int k_lo = (kt_begin + i) * BK;
         // a ragged last tile still counts whole boxes: TMA writes the zeros
         mbar_expect_tx(k_full + 8 * stage, kTileBytes);
         for (int c = 0; c < D / kBoxCols; ++c)
-          tma_load_4d(sK + stage * kTileBytes + c * kKVBoxBytes, &tm_k,
+          tma_load_4d(sK + stage * kTileBytes + c * T::kKVBoxBytes, tm_k,
                       k_full + 8 * stage, c * kBoxCols, hk, k_lo, b);
         mbar_expect_tx(v_full + 8 * stage, kTileBytes);
         for (int c = 0; c < D / kBoxCols; ++c)
-          tma_load_4d(sV + stage * kTileBytes + c * kKVBoxBytes, &tm_v,
+          tma_load_4d(sV + stage * kTileBytes + c * T::kKVBoxBytes, tm_v,
                       v_full + 8 * stage, c * kBoxCols, hk, k_lo, b);
       }
     }
   } else {
     // ---- consumers -------------------------------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(T::kConsumerRegs)
+                 : "memory");
     const int cw = threadIdx.x / 128;  // rows [64 cw, 64 cw + 64) of the q tile
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
@@ -278,18 +308,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad last
     float corr[2];
-    float sacc[kBlockK / 2];
+    float sacc[BK / 2];
     float oacc[D / 2];
-    uint32_t pa[kBlockK / 16][4];
+    uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kBlockK / 2; ++i) sacc[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
 
     // Only tiles that touch the diagonal, a window edge or Sk need a mask.
     auto needs_mask = [&](int k_lo) {
-      bool masked = k_lo + kBlockK > Sk;
-      masked |= causal && k_lo + kBlockK - 1 > r_lo;
+      bool masked = k_lo + BK > Sk;
+      masked |= causal && k_lo + BK - 1 > r_lo;
       masked |= window > 0 && k_lo <= r_lo + 63 - window;
       return masked;
     };
@@ -298,27 +328,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // i - 1 is still running, and the softmax of tile i overlaps that P V.
     mbar_wait(q_full, 0);
     if (n_tiles > 0) {
-      const int k_lo = kt_begin * kBlockK;
+      const int k_lo = kt_begin * BK;
       mbar_wait(k_full, 0);
-      issue_qk<D>(sacc, q_rows, sK);
+      issue_qk<D, BQ, BK>(sacc, q_rows, sK);
       wgmma_wait<0>();
       fence_regs(sacc);
-      online_softmax(sacc, m, l, corr, needs_mask(k_lo), row0, k_lo, t, Sk,
-                     causal, window, scale_log2);
-      pack_p(sacc, pa);
+      online_softmax<BK>(sacc, m, l, corr, needs_mask(k_lo), row0, k_lo, t, Sk,
+                         causal, window, scale_log2);
+      pack_a<BK>(sacc, pa);  // P in bf16, straight from the S accumulators
     }
     for (int i = 1; i < n_tiles; ++i) {
       const int stage = i % kStages;
       const int prev = (i - 1) % kStages;
-      const int k_lo = (kt_begin + i) * kBlockK;
+      const int k_lo = (kt_begin + i) * BK;
       mbar_wait(k_full + 8 * stage, (i / kStages) & 1);
-      issue_qk<D>(sacc, q_rows, sK + stage * kTileBytes);
+      issue_qk<D, BQ, BK>(sacc, q_rows, sK + stage * kTileBytes);
       mbar_wait(v_full + 8 * prev, ((i - 1) / kStages) & 1);
-      issue_pv<D>(oacc, pa, sV, prev);
+      issue_pv<D, BQ, BK>(oacc, pa, sV, prev);
       wgmma_wait<1>();  // S of tile i is in; P V of tile i - 1 still runs
       fence_regs(sacc);
-      online_softmax(sacc, m, l, corr, needs_mask(k_lo), row0, k_lo, t, Sk,
-                     causal, window, scale_log2);
+      online_softmax<BK>(sacc, m, l, corr, needs_mask(k_lo), row0, k_lo, t, Sk,
+                         causal, window, scale_log2);
       wgmma_wait<0>();
       fence_regs(oacc);
       mbar_arrive(empty + 8 * prev);
@@ -329,12 +359,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         oacc[4 * j + 2] *= corr[1];
         oacc[4 * j + 3] *= corr[1];
       }
-      pack_p(sacc, pa);
+      pack_a<BK>(sacc, pa);
     }
     if (n_tiles > 0) {
       const int last = (n_tiles - 1) % kStages;
       mbar_wait(v_full + 8 * last, ((n_tiles - 1) / kStages) & 1);
-      issue_pv<D>(oacc, pa, sV, last);
+      issue_pv<D, BQ, BK>(oacc, pa, sV, last);
       wgmma_wait<0>();
       fence_regs(oacc);
       mbar_arrive(empty + 8 * last);
@@ -362,61 +392,84 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+#define FLASH_FWD_PARAMS                                                        \
+  const __grid_constant__ CUtensorMap tm_q,                                     \
+      const __grid_constant__ CUtensorMap tm_k,                                 \
+      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,  \
+      float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, long long o_sb, \
+      long long o_ss, long long o_sh, float scale_log2, int causal, int window
+#define FLASH_FWD_ARGS \
+  &tm_q, &tm_k, &tm_v, o, lse, Hq, Hkv, Sq, Sk, o_sb, o_ss, o_sh, scale_log2, causal, window
+
+// Two consumers (BQ = 128): 384 threads, 3 warps on each register-file
+// partition, 168 registers a thread.
+template <int D, int BK>
+__global__ void __maxnreg__(168) flash_fwd_kernel(FLASH_FWD_PARAMS) {
+  flash_fwd_body<D, 128, BK>(FLASH_FWD_ARGS);
+}
+
+// One consumer (BQ = 64): 256 threads at 128 registers a thread, so that
+// two blocks share an SM's 65,536 registers.
+template <int D, int BK>
+__global__ void __maxnreg__(128) flash_fwd_q64_kernel(FLASH_FWD_PARAMS) {
+  flash_fwd_body<D, 64, BK>(FLASH_FWD_ARGS);
+}
+
 // The descriptors rehearsed on one product: S = A K^T for A [64, D] and K
-// [kBlockK, D], then O = bf16(S) V for V [kBlockK, D], both fp32 out,
-// row-major. One consumer warpgroup; the loads are the attention kernel's
-// TMA boxes.
+// [64, D], then O = bf16(S) V for V [64, D], both fp32 out, row-major. One
+// consumer warpgroup; the loads are the default config's TMA boxes.
+constexpr int kProbeQ = 128, kProbeK = 64;
+
 template <int D>
 __global__ void __launch_bounds__(128)
 wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, float* s_out,
                    float* o_out) {
-  constexpr int kQBytes = kBlockQ * D * 2;
-  constexpr int kTileBytes = kBlockK * D * 2;
+  using T = Tiles<D, kProbeQ, kProbeK>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sA = (raw + 1023) & ~1023u;
-  const uint32_t sK = sA + kQBytes;
-  const uint32_t sV = sK + kTileBytes;
-  const uint32_t bar = sV + kTileBytes;
+  const uint32_t sK = sA + T::kQBytes;
+  const uint32_t sV = sK + T::kTileBytes;
+  const uint32_t bar = sV + T::kTileBytes;
   if (threadIdx.x == 0) {
     mbar_init(bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect_tx(bar, kQBytes + 2 * kTileBytes);
+    mbar_expect_tx(bar, T::kQBytes + 2 * T::kTileBytes);
     for (int c = 0; c < D / kBoxCols; ++c) {
-      tma_load_4d(sA + c * kQBoxBytes, &tm_a, bar, c * kBoxCols, 0, 0, 0);
-      tma_load_4d(sK + c * kKVBoxBytes, &tm_k, bar, c * kBoxCols, 0, 0, 0);
-      tma_load_4d(sV + c * kKVBoxBytes, &tm_v, bar, c * kBoxCols, 0, 0, 0);
+      tma_load_4d(sA + c * T::kQBoxBytes, &tm_a, bar, c * kBoxCols, 0, 0, 0);
+      tma_load_4d(sK + c * T::kKVBoxBytes, &tm_k, bar, c * kBoxCols, 0, 0, 0);
+      tma_load_4d(sV + c * T::kKVBoxBytes, &tm_v, bar, c * kBoxCols, 0, 0, 0);
     }
   }
   mbar_wait(bar, 0);
   const int warp = threadIdx.x / 32;
   const int g = (threadIdx.x % 32) >> 2;
   const int t = threadIdx.x & 3;
-  float sacc[kBlockK / 2];
+  float sacc[kProbeK / 2];
   float oacc[D / 2];
-  uint32_t pa[kBlockK / 16][4];
+  uint32_t pa[kProbeK / 16][4];
 #pragma unroll
-  for (int i = 0; i < kBlockK / 2; ++i) sacc[i] = 0.f;
+  for (int i = 0; i < kProbeK / 2; ++i) sacc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
-  issue_qk<D>(sacc, sA, sK);
+  issue_qk<D, kProbeQ, kProbeK>(sacc, sA, sK);
   wgmma_wait<0>();
   fence_regs(sacc);
-  pack_p(sacc, pa);
-  issue_pv<D>(oacc, pa, sV, 0);
+  pack_a<kProbeK>(sacc, pa);
+  issue_pv<D, kProbeQ, kProbeK>(oacc, pa, sV, 0);
   wgmma_wait<0>();
   fence_regs(oacc);
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int r = 16 * warp + g + (e >> 1) * 8;
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j)
-      s_out[r * kBlockK + 8 * j + 2 * t + (e & 1)] = sacc[4 * j + e];
+    for (int j = 0; j < kProbeK / 8; ++j)
+      s_out[r * kProbeK + 8 * j + 2 * t + (e & 1)] = sacc[4 * j + e];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       o_out[r * D + 8 * j + 2 * t + (e & 1)] = oacc[4 * j + e];
@@ -424,28 +477,37 @@ wgmma_probe_kernel(const __grid_constant__ CUtensorMap tm_a,
 }
 
 // ---- host ----------------------------------------------------------------
-template <int D>
-constexpr int flash_smem_bytes() {
-  return 1024 + (kBlockQ + 2 * kStages * kBlockK) * D * 2 + 8 * (1 + 3 * kStages);
+template <int D, int BQ, int BK>
+auto fwd_kernel() {
+  if constexpr (BQ == 128) {
+    return flash_fwd_kernel<D, BK>;
+  } else {
+    return flash_fwd_q64_kernel<D, BK>;
+  }
 }
 
-template <int D>
+template <int D, int BQ, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
            int Hkv, int Sq, int Sk, const long long* qs, const long long* ks,
            const long long* vs, const long long* os, int causal, int window,
            cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, D, Hq, Sq, B, qs, kBlockQ);
-  if (err == 0) err = make_map(&tk, k, D, Hkv, Sk, B, ks, kBlockK);
-  if (err == 0) err = make_map(&tv, v, D, Hkv, Sk, B, vs, kBlockK);
-  if (err != 0) return err;
-  constexpr int bytes = flash_smem_bytes<D>();
+  using T = Tiles<D, BQ, BK>;
+  // A runtime call first: it makes the device's primary context current on
+  // this thread, which cuTensorMapEncodeTiled needs. PyTorch does not bind
+  // one on a thread that has run no CUDA work yet (such as the autotuner's
+  // measurement thread).
+  const auto kernel = fwd_kernel<D, BQ, BK>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * Hq);
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, D, Hq, Sq, B, qs, BQ);
+  if (err == 0) err = make_map(&tk, k, D, Hkv, Sk, B, ks, BK);
+  if (err == 0) err = make_map(&tv, v, D, Hkv, Sk, B, vs, BK);
+  if (err != 0) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv, Sq, Sk, os[0], os[1],
       os[2], scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -454,14 +516,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 template <int D>
 int launch_probe(const void* a, const void* k, const void* v, float* s_out,
                  float* o_out, cudaStream_t stream) {
+  using T = Tiles<D, kProbeQ, kProbeK>;
   const long long a_strides[3] = {64LL * D, D, D};
-  const long long kv_strides[3] = {1LL * kBlockK * D, D, D};
+  const long long kv_strides[3] = {1LL * kProbeK * D, D, D};
   CUtensorMap ta, tk, tv;
-  int err = make_map(&ta, a, D, 1, 64, 1, a_strides, kBlockQ);
-  if (err == 0) err = make_map(&tk, k, D, 1, kBlockK, 1, kv_strides, kBlockK);
-  if (err == 0) err = make_map(&tv, v, D, 1, kBlockK, 1, kv_strides, kBlockK);
+  int err = make_map(&ta, a, D, 1, 64, 1, a_strides, kProbeQ);
+  if (err == 0) err = make_map(&tk, k, D, 1, kProbeK, 1, kv_strides, kProbeK);
+  if (err == 0) err = make_map(&tv, v, D, 1, kProbeK, 1, kv_strides, kProbeK);
   if (err != 0) return err;
-  constexpr int bytes = 1024 + (kBlockQ + 2 * kBlockK) * D * 2 + 8;
+  constexpr int bytes = 1024 + T::kQBytes + 2 * T::kTileBytes + 8;
   cudaError_t e = cudaFuncSetAttribute(
       wgmma_probe_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -471,30 +534,49 @@ int launch_probe(const void* a, const void* k, const void* v, float* s_out,
 
 }  // namespace
 
+// The compiled launch configs, (D, BQ, BK): kernels/flash_attention.py's
+// CONFIGS lists the same.
+#define FLASH_INSTANCES(X) \
+  X(64, 128, 64)           \
+  X(64, 64, 64)            \
+  X(128, 128, 64)
+
 // q: [B, Sq, Hq, D], k/v: [B, Sk, Hkv, D], o: [B, Sq, Hq, D], all bf16 with
 // a unit stride on D, other strides multiples of 8 elements and 16-byte
 // aligned bases. Each *_strides array holds the (batch, seq, head) strides
 // in elements. lse: null, or contiguous fp32 [B, Hq, Sq] for the rows'
-// log-sum-exp. Returns a cudaError_t.
+// log-sum-exp. (block_q, block_k) names the launch config, one of
+// FLASH_INSTANCES at D; any other is cudaErrorInvalidValue. Returns a
+// cudaError_t.
 extern "C" int repro_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int B, int Hq,
     int Hkv, int Sq, int Sk, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
-    const long long* o_strides, int causal, int window, void* stream) {
+    const long long* o_strides, int causal, int window, int block_q, int block_k,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (D == 64)
-    return launch<64>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
-                      v_strides, o_strides, causal, window, s);
-  if (D == 128)
-    return launch<128>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, q_strides, k_strides,
-                       v_strides, o_strides, causal, window, s);
+#define FLASH_LAUNCH(d, bq, bk)                                                  \
+  if (D == d && block_q == bq && block_k == bk)                                  \
+    return launch<d, bq, bk>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, q_strides, k_strides, \
+                             v_strides, o_strides, causal, window, s);
+  FLASH_INSTANCES(FLASH_LAUNCH)
+#undef FLASH_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The descriptor rehearsal: a [64, D], k/v [kBlockK, D] contiguous bf16;
-// s_out [64, kBlockK] and o_out [64, D] contiguous fp32. Returns a
-// cudaError_t.
+// The dynamic shared memory of a launch config's block in bytes, or -1 for a
+// config with no compiled instance.
+extern "C" int repro_flash_attention_fwd_smem_bytes(int D, int block_q, int block_k) {
+#define FLASH_SMEM(d, bq, bk) \
+  if (D == d && block_q == bq && block_k == bk) return Tiles<d, bq, bk>::kSmemBytes;
+  FLASH_INSTANCES(FLASH_SMEM)
+#undef FLASH_SMEM
+  return -1;
+}
+
+// The descriptor rehearsal: a [64, D], k/v [64, D] contiguous bf16; s_out
+// [64, 64] and o_out [64, D] contiguous fp32. Returns a cudaError_t.
 extern "C" int repro_flash_wgmma_probe_bf16(const void* a, const void* k,
                                             const void* v, void* s_out,
                                             void* o_out, int D, void* stream) {

@@ -14,7 +14,9 @@
 // nothing and leave the decay flat; y and final_state equal the unpadded
 // recurrence's. Head h reads B/C group h / (H / G). The TPU kernel's chunk
 // of 256 needs a 256 x 256 fp32 score tile, more than a block's shared
-// memory; this kernel walks the sequence in tiles of kTile = 32, which
+// memory; this kernel walks the sequence in tiles of kTile positions, 32
+// (the default) or 16, a template instance each that the C entry point
+// selects by its `chunk` argument (kernels/ssd.py's CONFIGS); the tile
 // changes the result by rounding only.
 //
 // What bounds it. At the serving shape (B = 8, S = 1024, H = 32, P = 64,
@@ -46,7 +48,9 @@
 //     168 registers a thread, which the state (64 at N = 128), the inter
 //     term's accumulators (16) and the hi/lo fragments fit without a
 //     spill. Tiles of 64 need 8 warps, whose 128-register cap the 32
-//     accumulators of a 64-row inter term overflow.
+//     accumulators of a 64-row inter term overflow: not compiled. Tiles of
+//     16 have one intra warp (5 warps a block at P = 64) and half the
+//     inter term's accumulators, but twice the tiles in the serial chain.
 //   - Shared memory (P = 64, N = 128): 2 x 22,144 bytes of tiles, 8,704 of
 //     inter term, 384 of cs / w / exp(cs): 53,376 bytes; 256 blocks of 192
 //     threads fit the 132 SMs at once.
@@ -65,9 +69,9 @@
 // cannot turn into inf * 0.
 //
 // Cumulative sum: warp 0, lane l holding position l: d_l = dt_l * A
-// rounded, then an inclusive Hillis-Steele scan over the 32 lanes (v_l =
-// v_{l-k} + v_l for k = 1, 2, 4, 8, 16), cs_l = v_l. It restarts at every
-// tile.
+// rounded, then an inclusive Hillis-Steele scan over the kTile lanes (v_l =
+// v_{l-k} + v_l for k = 1, 2, 4, ... < kTile), cs_l = v_l; at kTile = 16
+// lanes 16-31 hold zeros and are not stored. It restarts at every tile.
 //
 // The C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -78,15 +82,16 @@
 
 namespace {
 
-constexpr int kTile = 32;               // positions per tile along S
-constexpr int kIntraWarps = kTile / 16;  // one per 16 rows of the tile
 // hi + lo parts of each fp32 operand of a tensor-core product
 constexpr int kMParts = 2;      // M = (C B^T) exp(cs_i - cs_j) dt_j
 constexpr int kStateParts = 2;  // the state, in C state^T
 constexpr int kXwParts = 2;     // x w, in the state update
 
-template <int P, int N>
+// kTile positions a tile along S; one intra warp per 16 rows of the tile.
+template <int P, int N, int kTile>
 struct Layout {
+  static_assert(kTile == 16 || kTile == 32, "tiles of 16 or 32 positions");
+  static constexpr int kIntraWarps = kTile / 16;
   static constexpr int kThreads = 32 * (kIntraWarps + P / 16);
   static constexpr int kSN = N + 8;  // bf16 row stride of the B and C tiles
   static constexpr int kSP = P + 8;  // bf16 row stride of the x tile
@@ -185,8 +190,8 @@ __device__ __forceinline__ void split_frag(const float* c0, const float* c1,
   split2(c1[2], c1[3], hi[3], lo[3]);
 }
 
-template <int P, int N>
-__global__ void __launch_bounds__(Layout<P, N>::kThreads, 2)
+template <int P, int N, int kTile>
+__global__ void __launch_bounds__(Layout<P, N, kTile>::kThreads, 2)
 ssd_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ dt, const float* __restrict__ A,
                const __nv_bfloat16* __restrict__ Bm,
@@ -198,8 +203,9 @@ ssd_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                long long b_sb, long long b_ss, long long b_sg,
                long long c_sb, long long c_ss, long long c_sg,
                long long y_sb, long long y_ss, long long y_sh) {
-  using L = Layout<P, N>;
+  using L = Layout<P, N, kTile>;
   constexpr int kThreads = L::kThreads;
+  constexpr int kIntraWarps = L::kIntraWarps;
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t sbase = smem_u32(smem);
   float* sY = reinterpret_cast<float*>(smem + L::kY);
@@ -269,19 +275,22 @@ ssd_fwd_kernel(const __nv_bfloat16* __restrict__ x,
           reinterpret_cast<const __nv_bfloat16*>(smem + stage * L::kStage + L::kX);
 
       if (warp == 0) {  // lane l holds position l
-        const float d = __fmul_rn(sDt[lane], a);
+        const float dt_l = lane < kTile ? sDt[lane] : 0.f;
+        const float d = __fmul_rn(dt_l, a);
         const float start = 0.f;  // the decay restarts at every tile
         float v = d;
 #pragma unroll
-        for (int k = 1; k < 32; k *= 2) {
+        for (int k = 1; k < kTile; k *= 2) {
           const float o = __shfl_up_sync(0xffffffffu, v, k);
           if (lane >= k) v = __fadd_rn(o, v);
         }
         const float c = __fadd_rn(start, v);
-        const float last = __shfl_sync(0xffffffffu, c, 31);
-        sCs[lane] = c;
-        sW[lane] = expf(last - c) * sDt[lane];
-        sEcs[lane] = expf(c);
+        const float last = __shfl_sync(0xffffffffu, c, kTile - 1);
+        if (lane < kTile) {
+          sCs[lane] = c;
+          sW[lane] = expf(last - c) * dt_l;
+          sEcs[lane] = expf(c);
+        }
       }
 
       // scores C B^T for this warp's rows, column tiles up to the diagonal
@@ -457,18 +466,19 @@ ssd_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int P, int N>
+template <int P, int N, int kTile>
 int launch(const void* x, const void* dt, const void* A, const void* Bm,
            const void* Cm, const void* D, void* y, void* final_state, int Bsz,
            int S, int H, int G, const long long* xs, const long long* dts,
            const long long* bs, const long long* cs, const long long* ys,
            cudaStream_t stream) {
-  using L = Layout<P, N>;
+  using L = Layout<P, N, kTile>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      ssd_fwd_kernel<P, N, kTile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, Bsz);
-  ssd_fwd_kernel<P, N><<<grid, L::kThreads, L::kBytes, stream>>>(
+  ssd_fwd_kernel<P, N, kTile><<<grid, L::kThreads, L::kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), static_cast<const float*>(D),
@@ -478,7 +488,7 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P>
+template <int P, int kTile>
 int launch_p(int N, const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* D, void* y, void* final_state, int Bsz,
              int S, int H, int G, const long long* xs, const long long* dts,
@@ -486,13 +496,13 @@ int launch_p(int N, const void* x, const void* dt, const void* A, const void* Bm
              cudaStream_t stream) {
   switch (N) {
     case 16:
-      return launch<P, 16>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
+      return launch<P, 16, kTile>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
                            dts, bs, cs, ys, stream);
     case 64:
-      return launch<P, 64>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
+      return launch<P, 64, kTile>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
                            dts, bs, cs, ys, stream);
     case 128:
-      return launch<P, 128>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
+      return launch<P, 128, kTile>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
                             dts, bs, cs, ys, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -501,26 +511,46 @@ int launch_p(int N, const void* x, const void* dt, const void* A, const void* Bm
 
 }  // namespace
 
+// The compiled (P, tile) pairs, each at N in {16, 64, 128}:
+// kernels/ssd.py's CONFIGS lists the tiles.
+#define SSD_TILES(X) X(32, 32) X(64, 32) X(32, 16) X(64, 16)
+
 // x: [B, S, H, P] bf16, dt: [B, S, H] fp32, A, D: [H] fp32 contiguous,
 // B/C: [B, S, G, N] bf16, y: [B, S, H, P] bf16, final_state: [B, H, P, N]
 // fp32 contiguous. x, B, C and y have a unit stride on their last axis,
 // other strides multiples of 8 elements and 16-byte aligned bases; each
 // *_strides array holds the (batch, seq, head or group) strides in
 // elements (dt's third is its head stride). P in {32, 64}, N in
-// {16, 64, 128}, G dividing H. Returns a cudaError_t.
+// {16, 64, 128}, G dividing H; chunk, the tile along S, 32 or 16: any other
+// is cudaErrorInvalidValue. Returns a cudaError_t.
 extern "C" int repro_ssd_chunked_fwd_bf16(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* D, void* y, void* final_state, int Bsz, int S,
     int H, int P, int G, int N, const long long* x_strides,
     const long long* dt_strides, const long long* b_strides,
-    const long long* c_strides, const long long* y_strides, void* stream) {
+    const long long* c_strides, const long long* y_strides, int chunk,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S < 1 || G < 1 || H % G != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (P == 32)
-    return launch_p<32>(N, x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G,
-                        x_strides, dt_strides, b_strides, c_strides, y_strides, s);
-  if (P == 64)
-    return launch_p<64>(N, x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G,
-                        x_strides, dt_strides, b_strides, c_strides, y_strides, s);
+#define SSD_LAUNCH(p, tile)                                                     \
+  if (P == p && chunk == tile)                                                  \
+    return launch_p<p, tile>(N, x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, \
+                             x_strides, dt_strides, b_strides, c_strides, y_strides, s);
+  SSD_TILES(SSD_LAUNCH)
+#undef SSD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory of a block at (P, N, chunk) in bytes, or -1 for
+// a config with no compiled instance.
+extern "C" int repro_ssd_chunked_fwd_smem_bytes(int P, int N, int chunk) {
+#define SSD_SMEM(p, tile)                                      \
+  if (P == p && chunk == tile) {                               \
+    if (N == 16) return Layout<p, 16, tile>::kBytes;           \
+    if (N == 64) return Layout<p, 64, tile>::kBytes;           \
+    if (N == 128) return Layout<p, 128, tile>::kBytes;         \
+  }
+  SSD_TILES(SSD_SMEM)
+#undef SSD_SMEM
+  return -1;
 }

@@ -8,7 +8,10 @@ and what its design does about that. In short: at the prefill shape it is
 bound by the tensor cores, so a producer warpgroup keeps TMA loads of K/V
 tiles in flight while two consumer warpgroups run both products on
 ``wgmma``. With ``return_lse`` (training) it also writes each row's
-log-sum-exp, from which the backward recomputes P.
+log-sum-exp, from which the backward recomputes P. Its launch config,
+(``block_q``, ``block_k``), is one of the template instances compiled into
+the library (``CONFIGS``); ``kernels/ops.py`` resolves it from the tuning
+profile, and any other raises before a launch.
 Its plain version is ``repro_torch.kernels.ref.attention_reference``
 (``attention_lse_reference`` with the LSE).
 
@@ -38,7 +41,12 @@ import torch
 
 from repro_torch.kernels import build
 
-KEY_TILE = 64  # keys per tile: csrc/flash_attention.cu's kBlockK
+# the forward's launch configs compiled into the library, (block_q,
+# block_k) by head dim (csrc/flash_attention.cu's FLASH_INSTANCES; the
+# configs ptxas spills are not compiled), and the default among them
+CONFIGS = {64: ((128, 64), (64, 64)), 128: ((128, 64),)}
+DEFAULT_CONFIG = (128, 64)
+KEY_TILE = 64  # keys per tile of wgmma_probe
 # csrc/flash_attention_bwd.cu's q tile and key tile, to which its fp32
 # scratch is padded
 BWD_Q_TILE, BWD_KEY_TILE = 64, 64
@@ -51,10 +59,11 @@ _s = ctypes.POINTER(ctypes.c_longlong)
 # the C entry points of csrc/flash_attention.cu and their arguments
 _SIGNATURES = {
     "repro_flash_attention_fwd_bf16":
-        [_p] * 5 + [_i] * 6 + [_s] * 4 + [_i, _i, _p],
+        [_p] * 5 + [_i] * 6 + [_s] * 4 + [_i] * 4 + [_p],
     "repro_flash_attention_bwd_bf16":
         [_p] * 12 + [_i] * 6 + [_s] * 7 + [_i, _i, _p],
     "repro_flash_wgmma_probe_bf16": [_p, _p, _p, _p, _p, _i, _p],
+    "repro_flash_attention_fwd_smem_bytes": [_i, _i, _i],
 }
 _bound = {}
 
@@ -109,13 +118,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"grid's {_MAX_GRID_Y}")
 
 
+def check_config(d: int, block_q: int, block_k: int) -> None:
+    """Raises ValueError unless (block_q, block_k) is compiled at head
+    dim ``d`` (a head dim with no instance at all is ``_check``'s to
+    refuse): a config is never replaced by another."""
+    if d in CONFIGS and (block_q, block_k) not in CONFIGS[d]:
+        raise ValueError(f"flash_attention: no compiled instance for block_q "
+                         f"{block_q}, block_k {block_k} at head_dim {d}; "
+                         f"compiled: {CONFIGS}")
+
+
+def shared_memory_bytes(d: int, block_q: int, block_k: int) -> int:
+    """The dynamic shared memory of one forward block at this launch
+    config, in bytes, as the library was compiled (-1: no instance)."""
+    return int(_entry("repro_flash_attention_fwd_smem_bytes")(d, block_q,
+                                                              block_k))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    return_lse: bool = False):
+                    return_lse: bool = False,
+                    block_q: int = DEFAULT_CONFIG[0],
+                    block_k: int = DEFAULT_CONFIG[1]):
     """q: [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D], bf16 on CUDA.
     Returns o [B, Sq, Hq, D] in bf16, and with ``return_lse`` (o, lse):
     lse [B, Hq, Sq] fp32, the logsumexp over each row's visible keys of the
-    scaled scores (natural log), as ``flash_attention_bwd`` takes it."""
+    scaled scores (natural log), as ``flash_attention_bwd`` takes it.
+    (``block_q``, ``block_k``) picks the launch config from ``CONFIGS``."""
+    check_config(q.shape[-1], block_q, block_k)
     _check(q, k, v)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
@@ -131,14 +161,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), 0 if lse is None else lse.data_ptr(),
                        b, hq, hkv, sq, sk, d, *strides, int(causal),
-                       int(window), stream)
+                       int(window), block_q, block_k, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: launch failed, cudaError {err}")
     flash_attention.launches += 1
+    by_config = flash_attention.config_launches
+    by_config[block_q, block_k] = by_config.get((block_q, block_k), 0) + 1
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+# the launches by (block_q, block_k)
+flash_attention.config_launches = {}
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

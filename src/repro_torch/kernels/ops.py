@@ -1,22 +1,131 @@
-"""Kernel entry points in the model's tensor layout.
+"""Kernel entry points in the model's tensor layout, with launch configs
+resolved from the ambient :class:`~repro_torch.tune.profile.TuningProfile`.
 
 A tensor on the CPU goes to the plain version, through which autograd
-differentiates; a CUDA tensor goes to the hand-written kernel, which raises
-on anything it cannot take. No path falls back from the kernel to the
-plain version, and no kernel output that needs a gradient lacks one: on
-the card attention and the SSD scan differentiate through their backward
-kernels. Launch configurations are fixed inside the kernels for now;
-per-shape tuning is a later slice.
+differentiates, and takes no launch config; a CUDA tensor goes to the
+hand-written kernel, which raises on anything it cannot take. No path falls
+back from the kernel to the plain version, and no kernel output that needs
+a gradient lacks one: on the card attention and the SSD scan differentiate
+through their backward kernels.
+
+Config resolution on the card (a port of the JAX package's
+``kernels/ops.py``): caller-supplied kwargs win; otherwise the ambient
+profile (installed at boot by the BootSeer ``tune.restore`` task, or by
+``ServeEngine(tune_profile=)``) is consulted per ``(kernel, shape-bucket,
+dtype, backend)``, the backend naming the card (``card_backend``), so a
+profile tuned on another card misses; otherwise the defaults, the
+kernels' own. A profile with ``tune_on_miss`` set tunes an unseen key once
+on first use and publishes the updated profile back through its store
+(record-on-miss). A config the kernel has no instance of raises in its
+wrapper; it is never replaced by the default.
 """
 
 from __future__ import annotations
 
+import threading
+import warnings
+
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
+    DEFAULT_CONFIG, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_deterministic)
 from repro_torch.kernels.ref import attention_reference, ssd_chunked_reference
-from repro_torch.kernels.ssd import ssd_chunked_bwd_kernel, ssd_chunked_kernel
+from repro_torch.kernels.ssd import (TILE, ssd_chunked_bwd_kernel,
+                                     ssd_chunked_kernel)
+from repro_torch.tune.profile import attention_key, get_active_profile, ssd_key
+
+# the kernels' own launch configs, where neither a caller nor the profile
+# names one
+DEFAULT_ATTENTION = dict(zip(("block_q", "block_k"), DEFAULT_CONFIG))
+DEFAULT_SSD = {"chunk": TILE}
+
+stats = {"profile_hits": 0, "profile_misses": 0, "miss_tunes": 0}
+
+_warn_lock = threading.Lock()
+_warned: set = set()
+
+
+def _warn_once(tag: str, msg: str) -> None:
+    with _warn_lock:
+        if tag in _warned:
+            return
+        _warned.add(tag)
+    warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def card_backend(device=None) -> str:
+    """The profile keys' backend for the card ``device`` (the current one
+    by default): the kernels' target and the card's name."""
+    return f"cuda-sm_90a:{torch.cuda.get_device_name(device)}"
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``, as the profile keys spell it."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _resolve(kernel: str, key: str, supplied: dict, defaults: dict,
+             tune_kwargs: dict) -> dict:
+    """Launch config for ``key``: supplied kwargs > ambient profile >
+    defaults (field-wise: a caller may pin block_q and let the profile
+    pick block_k)."""
+    cfg = dict(defaults)
+    prof = get_active_profile()
+    if prof is not None:
+        hit = prof.resolve(key)
+        if hit is None and prof.tune_on_miss:
+            from repro_torch.tune import autotune
+            stats["miss_tunes"] += 1
+            try:
+                _, entry = autotune.tune_workload(
+                    dict(kernel=kernel, **tune_kwargs),
+                    backend=prof.backend, profile=prof)
+                hit = dict(entry["config"])
+                if prof.store is not None:
+                    prof.store.publish(prof)
+            except Exception as e:  # noqa: BLE001 - tuning must not
+                _warn_once(f"{kernel}.miss_tune",  # break a forward pass
+                           f"{kernel}: record-on-miss tuning failed "
+                           f"({e!r}); using defaults")
+        if hit is None:
+            stats["profile_misses"] += 1
+        else:
+            stats["profile_hits"] += 1
+            cfg.update({k: v for k, v in hit.items() if k in defaults})
+    cfg.update({k: v for k, v in supplied.items() if v is not None})
+    return cfg
+
+
+def attention_config(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                     window: int, block_q: int | None = None,
+                     block_k: int | None = None) -> dict:
+    """The flash forward's launch config for these card tensors (model
+    layout), by ``_resolve``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dtype = dtype_name(q.dtype)
+    key = attention_key(sq=sq, sk=sk, d=d, g=hq // hkv, dtype=dtype,
+                        causal=causal, window=window,
+                        backend=card_backend(q.device))
+    return _resolve(
+        "flash_attention", key, {"block_q": block_q, "block_k": block_k},
+        DEFAULT_ATTENTION,
+        dict(b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d, dtype=dtype,
+             causal=causal, window=window))
+
+
+def ssd_config(x: torch.Tensor, B: torch.Tensor) -> dict:
+    """The SSD forward's launch config (its tile) for these card tensors,
+    by ``_resolve`` from the profile or the default alone: the model's
+    chunk is the plain version's and never reaches it."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    dtype = dtype_name(x.dtype)
+    key = ssd_key(s=s, h=h, p=p, g=g, n=n, dtype=dtype,
+                  backend=card_backend(x.device))
+    return _resolve("ssd", key, {}, DEFAULT_SSD,
+                    dict(b=b, s=s, h=h, p=p, g=g, n=n, dtype=dtype))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -27,9 +136,11 @@ class _FlashAttention(torch.autograd.Function):
     ``jax.grad``'s are."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, block_q: int,
+                block_k: int):
         out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                   return_lse=True)
+                                   return_lse=True, block_q=block_q,
+                                   block_k=block_k)
         ctx.save_for_backward(q, k, v, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -42,20 +153,29 @@ class _FlashAttention(torch.autograd.Function):
                else flash_attention_bwd)
         dq, dk, dv = bwd(q, k, v, lse, dout.contiguous(), causal=ctx.causal,
                          window=ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool = True, window: int = 0) -> torch.Tensor:
+                 causal: bool = True, window: int = 0,
+                 block_q: int | None = None,
+                 block_k: int | None = None) -> torch.Tensor:
     """Model layout: q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh] ->
-    [B, S, Hq, Dh]."""
+    [B, S, Hq, Dh]. ``block_q``/``block_k`` pin the kernel's launch
+    config (``attention_config``); the CPU's plain version takes none."""
     if q.device.type == "cpu":
+        if block_q is not None or block_k is not None:
+            raise ValueError("attention_op: a launch config is the card "
+                             "kernel's; the CPU runs the plain version")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         out = attention_reference(qt, kt, vt, causal=causal, window=window)
         return out.transpose(1, 2)
+    cfg = attention_config(q, k, causal=causal, window=window,
+                           block_q=block_q, block_k=block_k)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return flash_attention(q, k, v, causal=causal, window=window)
+        return _FlashAttention.apply(q, k, v, causal, window,
+                                     cfg["block_q"], cfg["block_k"])
+    return flash_attention(q, k, v, causal=causal, window=window, **cfg)
 
 
 class _SSDScan(torch.autograd.Function):
@@ -66,8 +186,8 @@ class _SSDScan(torch.autograd.Function):
     reaches the state gets an error, not a gradient without that part."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, D):
-        y, state = ssd_chunked_kernel(x, dt, A, B, C, D)
+    def forward(ctx, x, dt, A, B, C, D, chunk: int):
+        y, state = ssd_chunked_kernel(x, dt, A, B, C, D, chunk=chunk)
         ctx.save_for_backward(x, dt, A, B, C, D)
         ctx.set_materialize_grads(False)
         return y, state
@@ -79,8 +199,9 @@ class _SSDScan(torch.autograd.Function):
                 "ssd_op: the SSD backward kernel takes no gradient of the "
                 "final state; drop the state, or differentiate on the CPU")
         if dy is None:
-            return (None,) * 6
-        return ssd_chunked_bwd_kernel(*ctx.saved_tensors, dy.contiguous())
+            return (None,) * 7
+        return (*ssd_chunked_bwd_kernel(*ctx.saved_tensors, dy.contiguous()),
+                None)
 
 
 def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -88,10 +209,11 @@ def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Model layout: x [B, S, H, P], dt [B, S, H], A/D [H], B/C [B, S, G, N]
     -> (y [B, S, H, P] in x's dtype, final_state [B, H, P, N] fp32).
     ``chunk`` is the plain version's chunk, as the JAX model passes it; the
-    kernel picks its own tile along S."""
+    kernel's tile along S comes from ``ssd_config``."""
     if x.device.type == "cpu":
         return ssd_chunked_reference(x, dt, A, B, C, D, chunk=chunk)
+    tile = ssd_config(x, B)["chunk"]
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B, C, D)):
-        return _SSDScan.apply(x, dt, A, B, C, D)
-    return ssd_chunked_kernel(x, dt, A, B, C, D)
+        return _SSDScan.apply(x, dt, A, B, C, D, tile)
+    return ssd_chunked_kernel(x, dt, A, B, C, D, chunk=tile)

@@ -6,8 +6,11 @@ The forward replaces the Pallas TPU kernel ``_ssd_kernel`` /
 ``csrc/ssd.cu``; its header says what bounds it on the H100, what its
 design does about that and its error budget. In short: all four products
 run on tensor cores in bf16, each fp32 operand split into a bf16 hi and lo
-part, over tiles of ``TILE`` positions loaded ahead with ``cp.async``. Its
-plain version is ``repro_torch.kernels.ref.ssd_chunked_reference``.
+part, over tiles of ``chunk`` positions loaded ahead with ``cp.async``: 32
+(``TILE``, the default) or 16, the template instances compiled into the
+library (``CONFIGS``); ``kernels/ops.py`` resolves the tile from the tuning
+profile, and any other raises before a launch. Its plain version is
+``repro_torch.kernels.ref.ssd_chunked_reference``.
 
 The backward (``csrc/ssd_bwd.cu``) had no TPU kernel: it replaces
 ``jax.grad`` of the JAX model's ``ssd_chunked``. Three launches: two walks
@@ -21,8 +24,9 @@ torch, ``ssd_backward_tiles`` (``split=True`` for the kernel's roundings).
 
 Unlike the Pallas wrapper these take the model layout ``[B, S, H, P]`` /
 ``[B, S, G, N]`` and hand the kernels strides, so nothing is transposed or
-padded; the kernels walk the sequence in their own tiles, so there is no
-``chunk`` argument. They launch on CUDA tensors only and never fall back.
+padded. The forward's ``chunk`` is its tile along S, not the plain
+version's chunk; the backward walks tiles of ``TILE``. They launch on CUDA
+tensors only and never fall back.
 """
 
 from __future__ import annotations
@@ -33,7 +37,10 @@ import torch
 
 from repro_torch.kernels import build
 
-TILE = 32  # positions per tile along S: csrc/ssd.cu's kTile
+TILE = 32  # positions per tile along S: the forward's default, the backward's
+# the forward's tiles compiled into the library, by state dim (every head
+# dim has them all; csrc/ssd.cu's instances)
+CONFIGS = {16: (32, 16), 64: (32, 16), 128: (32, 16)}
 SUPPORTED_HEAD_DIMS = (32, 64)
 SUPPORTED_STATE_DIMS = (16, 64, 128)
 _MAX_GRID_YZ = 65535
@@ -50,10 +57,19 @@ def _entry():
         p, i = ctypes.c_void_p, ctypes.c_int
         ptr = ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                       ptr, ptr, ptr, ptr, ptr, p]
+                       ptr, ptr, ptr, ptr, ptr, i, p]
         fn.restype = ctypes.c_int
         _bound = fn
     return _bound
+
+
+def shared_memory_bytes(p: int, n: int, chunk: int) -> int:
+    """The dynamic shared memory of one forward block at (P, N, chunk), in
+    bytes, as the library was compiled (-1: no instance)."""
+    fn = build.build().lib.repro_ssd_chunked_fwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return int(fn(p, n, chunk))
 
 
 def _bwd_entry():
@@ -125,11 +141,24 @@ def _check(who, x, dt, A, B, C, D, dy=None) -> None:
                          f"{_MAX_GRID_YZ}")
 
 
+def check_config(n: int, chunk: int) -> None:
+    """Raises ValueError unless a tile of ``chunk`` is compiled at state
+    dim ``n`` (a state dim with no instance at all is ``_check``'s to
+    refuse): a config is never replaced by another."""
+    if n in CONFIGS and chunk not in CONFIGS[n]:
+        raise ValueError(f"ssd_chunked_kernel: no compiled instance for "
+                         f"chunk {chunk} at state_dim {n}; compiled: "
+                         f"{CONFIGS}")
+
+
 def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor):
+                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                       chunk: int = TILE):
     """x [B, S, H, P] bf16; dt [B, S, H] fp32 (> 0); A [H] fp32 (< 0);
-    B/C [B, S, G, N] bf16; D [H] fp32; all on one CUDA device.
+    B/C [B, S, G, N] bf16; D [H] fp32; all on one CUDA device; ``chunk``
+    the tile along S, one of ``CONFIGS``.
     Returns (y [B, S, H, P] bf16, final_state [B, H, P, N] fp32)."""
+    check_config(B.shape[-1], chunk)
     _check("ssd_chunked_kernel", x, dt, A, B, C, D)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -142,15 +171,19 @@ def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         err = _entry()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                        B.data_ptr(), C.data_ptr(), D.data_ptr(),
                        y.data_ptr(), state.data_ptr(), b, s, h, p, g, n,
-                       *strides, stream)
+                       *strides, chunk, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunked_kernel: launch failed, cudaError "
                            f"{err}")
     ssd_chunked_kernel.launches += 1
+    by_config = ssd_chunked_kernel.config_launches
+    by_config[chunk] = by_config.get(chunk, 0) + 1
     return y, state
 
 
 ssd_chunked_kernel.launches = 0
+# the launches by chunk
+ssd_chunked_kernel.config_launches = {}
 
 
 def ssd_bwd_workspace_bytes(b: int, s: int, h: int, p: int, n: int) -> int:

@@ -36,7 +36,8 @@ class ServeEngine:
     prefills once, then decodes step by step for all sequences together."""
 
     def __init__(self, model: Model, params: dict, *, batch: int,
-                 cache_len: int, device: torch.device | str = "cuda"):
+                 cache_len: int, device: torch.device | str = "cuda",
+                 tune_profile=None):
         device = resolve_device(device)
         if device != model.device:
             raise ValueError(f"ServeEngine: device {device} but the model "
@@ -48,6 +49,10 @@ class ServeEngine:
         self.batch = batch
         self.cache_len = cache_len
         self.device = device
+        # kernel launch configs for this replica: installed as the ambient
+        # profile around generate(), so the prefill and decode steps'
+        # kernels resolve tuned tiles instead of defaults
+        self.tune_profile = tune_profile
         self._prefill = make_prefill(model, batch, cache_len)
         self._decode = make_decode_step(model, batch, cache_len)
 
@@ -60,13 +65,15 @@ class ServeEngine:
         CRITICAL (``priority``) under ``sched``: params gate the time to
         first token. ``step`` defaults to the latest restorable one. The
         restored leaves (fp32 masters or a serving tree) are cast as
-        ``Model.serving_params`` casts them. ``tune_store`` (a tuning
-        profile to fetch) comes with ROADMAP.md A.8 and raises."""
+        ``Model.serving_params`` casts them.
+
+        ``tune_store``: a ``repro_torch.tune.store.ProfileStore`` — the
+        replica fetches the cluster's TuningProfile (tiny, metered,
+        DEFERRED by the store's own default priority: it never gates the
+        time to first token), so a serving cold start inherits the tuned
+        kernel configs with zero re-tuning; a missing or corrupt profile
+        keeps the defaults."""
         from repro_torch.core.pipeline import CRITICAL
-        if tune_store is not None:
-            raise NotImplementedError(
-                "from_checkpoint: tune_store — the port has no tuning "
-                "profiles yet (ROADMAP.md A.8)")
         if step is None:
             step = checkpointer.latest_step()
             if step is None:
@@ -77,10 +84,20 @@ class ServeEngine:
             step, model.init_like(), sched=sched,
             priority=CRITICAL if priority is None else priority,
             device=model.device)
+        tune_profile = tune_store.fetch() if tune_store is not None \
+            else None
         return cls(model, model.serving_params(params), batch=batch,
-                   cache_len=cache_len, device=model.device)
+                   cache_len=cache_len, device=model.device,
+                   tune_profile=tune_profile)
 
     def generate(self, requests: list[Request], seed: int = 0) -> list[Request]:
+        if self.tune_profile is None:
+            return self._generate(requests, seed)
+        from repro_torch.tune.profile import use_profile
+        with use_profile(self.tune_profile):
+            return self._generate(requests, seed)
+
+    def _generate(self, requests: list[Request], seed: int) -> list[Request]:
         if len(requests) > self.batch:
             raise ValueError(f"generate: {len(requests)} requests for a "
                              f"batch of {self.batch}")

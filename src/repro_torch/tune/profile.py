@@ -12,9 +12,10 @@ version-skewed artifact is rejected (``ProfileError``) instead of
 silently steering kernels with garbage configs.
 
 The *ambient* profile is a process-wide slot that ``use_profile`` scopes
-for tests.  The port's kernels do not consult it yet, and its runtime
-does not restore one: the sweep that fills a profile and the resolution
-in ``kernels/ops.py`` are ROADMAP A.8.
+for tests, serving engines and training loops; ``kernels/ops.py``
+resolves the card kernels' launch configs from it, and the BootSeer
+runtime's ``tune.restore`` task installs the one it fetched or swept
+(``repro_torch.tune.autotune``).
 """
 
 from __future__ import annotations

@@ -367,11 +367,134 @@ def test_analysis_service_accumulates_runs_as_the_reference(tmp_path):
     assert jobs[0] == jobs[1] and len(jobs[1]) == 2
 
 
-def test_tune_raises_until_the_port_has_a_sweep(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        BootseerRuntime(registry=Registry(tmp_path / "reg"),
-                        hdfs=HdfsCluster(tmp_path / "hdfs"),
-                        workdir=tmp_path / "w", tune=True)
+# ------------------------------------------------------------ tuning ---
+
+def _tune_runtime(pkg, reg, hdfs, workdir, **kw):
+    """A tuning runtime; the port's sweeps the plain versions on the CPU
+    (its default is the card's compiled configs)."""
+    if pkg == "repro_torch":
+        kw.setdefault("tune_backend", "cpu")
+    return _runtime(pkg, reg, hdfs, workdir, tune=True, **kw)
+
+
+def _tune_notes(res) -> dict:
+    notes = res.notes
+    return {"hit": notes["tune_cache_hit"],
+            "invocations": notes["tune_invocations"],
+            "digest": "tune_profile_digest" in notes,
+            "error": notes.get("tune_error")}
+
+
+def test_tune_warm_boot_hits_with_zero_invocations_as_the_reference(
+        tmp_path):
+    """tests/test_tune.py::TestBootRoundTrip on both runtimes: the cold boot
+    sweeps the tiny workloads and publishes, the warm boot fetches the same
+    digest with no sweep; each note as the JAX runtime's on the same job."""
+    seen = {}
+    for pkg in PKGS:
+        reg, hdfs, ck = _inputs(pkg, tmp_path / pkg, throttled=False)
+        with _tune_runtime(pkg, reg, hdfs, tmp_path / pkg / "w") as rt:
+            cold = rt.run_startup(_spec(pkg, n=2), checkpointer=ck)
+            rt.drain_deferred()
+            warm = rt.run_startup(_spec(pkg, n=2), checkpointer=ck)
+            rt.drain_deferred()
+            assert warm.notes["tune_profile_digest"] == \
+                cold.notes["tune_profile_digest"]
+            seen[pkg] = (_tune_notes(cold), _tune_notes(warm),
+                         rt.tune_store.stats["publishes"],
+                         rt.mount.exists("tune/HEAD"))
+    assert seen["repro_torch"] == seen["repro"]
+    assert seen["repro_torch"] == (
+        {"hit": False, "invocations": 2, "digest": True, "error": None},
+        {"hit": True, "invocations": 0, "digest": True, "error": None},
+        1, True)
+
+
+def test_tune_corrupt_dfs_profile_does_not_crash_the_boot(tmp_path):
+    """A dangling HEAD on the DFS: the next boot completes, re-tunes and
+    re-publishes, as the reference's."""
+    seen = {}
+    for pkg in PKGS:
+        reg, hdfs, ck = _inputs(pkg, tmp_path / pkg, throttled=False)
+        with _tune_runtime(pkg, reg, hdfs, tmp_path / pkg / "w") as rt:
+            rt.run_startup(_spec(pkg, n=2), checkpointer=ck)
+            rt.drain_deferred()
+            rt.mount.write("tune/HEAD", b"deadbeef")
+            res = rt.run_startup(_spec(pkg, n=2), checkpointer=ck)
+            rt.drain_deferred()
+            assert res.total_s > 0
+            seen[pkg] = (_tune_notes(res), rt.tune_store.stats["publishes"],
+                         rt.tune_store.stats["rejects"])
+    assert seen["repro_torch"] == seen["repro"] == (
+        {"hit": False, "invocations": 2, "digest": True, "error": None}, 2, 1)
+
+
+def test_tune_restore_is_off_the_critical_path_as_the_reference(tmp_path):
+    """The tuning task is non-gating on rank 0: stages, tasks, chains and
+    the scheduler's bytes as the reference's runtime gives them, but for
+    the profile's own (its JSON differs between the packages: backend,
+    keys, times), which the store meters DEFERRED."""
+    out = []
+    for pkg in PKGS:
+        reg, hdfs, ck = _inputs(pkg, tmp_path / pkg)
+        with _tune_runtime(pkg, reg, hdfs, tmp_path / pkg / "w") as rt:
+            runs = []
+            for _ in range(2):
+                summary = _summary(rt.run_startup(_spec(pkg),
+                                                  checkpointer=ck), rt)
+                moved = (rt.tune_store.stats["bytes_written"]
+                         + rt.tune_store.stats["bytes_read"])
+                assert moved > 0
+                summary["io"]["dfs"]["deferred"] -= moved
+                runs.append(summary)
+            out.append(runs)
+    assert out[0] == out[1]
+    for summary in out[1]:
+        assert all("tune.restore" not in chain
+                   for chain in summary["chains"].values())
+
+
+def test_tune_boot_installs_its_profile_for_the_kernels(tmp_path):
+    """The warm boot's profile is the ambient one the kernels' resolution
+    reads (kernels/ops.py), with the entries the cold boot swept."""
+    from repro_torch.tune.profile import get_active_profile, set_active_profile
+    reg, hdfs, ck = _inputs("repro_torch", tmp_path, throttled=False)
+    try:
+        with _tune_runtime("repro_torch", reg, hdfs, tmp_path / "w") as rt:
+            rt.run_startup(_spec("repro_torch", n=2), checkpointer=ck)
+            rt.drain_deferred()
+            set_active_profile(None)
+            res = rt.run_startup(_spec("repro_torch", n=2), checkpointer=ck)
+            rt.drain_deferred()
+            prof = get_active_profile()
+            assert prof is not None and prof.store is rt.tune_store
+            assert prof.digest() == res.notes["tune_profile_digest"]
+            assert sorted(k.split("|")[0] for k in prof.entries) == \
+                ["flash_attention", "ssd"]
+    finally:
+        set_active_profile(None)
+
+
+def test_a_failed_sweep_is_a_note_not_a_crash(tmp_path):
+    """The port's default sweeps on the card; without one the boot still
+    completes, and the note says why nothing was tuned."""
+    reg, hdfs, ck = _inputs("repro_torch", tmp_path, throttled=False)
+    with _runtime("repro_torch", reg, hdfs, tmp_path / "w", tune=True) as rt:
+        res = rt.run_startup(_spec("repro_torch", n=2), checkpointer=ck)
+        rt.drain_deferred()
+    notes = _tune_notes(res)
+    assert notes["hit"] is False and notes["invocations"] == 0
+    assert not notes["digest"] and "CUDA" in notes["error"]
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_tune_needs_the_optimized_runtime(tmp_path, pkg):
+    """The baseline runtime runs no tuning task and writes no tune notes."""
+    reg, hdfs, ck = _inputs(pkg, tmp_path, throttled=False)
+    with _tune_runtime(pkg, reg, hdfs, tmp_path / "w", optimize=False) as rt:
+        res = rt.run_startup(_spec(pkg, n=2), checkpointer=ck)
+    assert rt.tune is False and rt.tune_store is None
+    assert not any(k.startswith("tune_") for k in res.notes)
 
 
 # ------------------------------------------------------ launch profiles ---
@@ -640,3 +763,32 @@ def test_every_boot_byte_is_read_in_a_slot(tmp_path, io_witness):
     rt.close()
     with pytest.raises(AssertionError, match="outside any dfs slot"):
         io_witness.check_scheduler(rt.io_sched)
+
+
+def test_a_warm_tuning_boot_reads_its_profile_in_deferred_slots(
+        tmp_path, io_witness):
+    """A fresh runtime's warm boot (a new process) fetches the profile a
+    cold boot published: the profile's bytes, with every other DFS and
+    registry byte, read inside slots at the priorities the scheduler
+    metered, the profile's DEFERRED; nothing written to the DFS."""
+    from repro_torch.core.pipeline import DEFERRED
+    from repro_torch.tune.profile import set_active_profile
+    reg, hdfs, ck = _inputs("repro_torch", tmp_path, opt=True,
+                            throttled=False)
+    spec = _spec("repro_torch", n=2)
+    try:
+        with _tune_runtime("repro_torch", reg, hdfs, tmp_path / "w") as rt:
+            rt.run_startup(spec, checkpointer=ck)
+            rt.drain_deferred()
+        for ledger in (io_witness.read, io_witness.written,
+                       io_witness.registry):
+            ledger.clear()
+        with _tune_runtime("repro_torch", reg, hdfs, tmp_path / "w") as rt:
+            res = rt.run_startup(spec, checkpointer=ck)
+            rt.drain_deferred()
+            io_witness.check_scheduler(rt.io_sched, writes=True)
+            fetched = rt.tune_store.stats["bytes_read"]
+    finally:
+        set_active_profile(None)
+    assert res.notes["tune_cache_hit"] and io_witness.written == {}
+    assert io_witness.read[DEFERRED] >= fetched > 0

@@ -42,6 +42,7 @@ from repro_torch.ckpt.checkpoint import Checkpointer, flat_with_names
 from repro_torch.ckpt.index import TensorIndex
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.pipeline import CRITICAL, IOScheduler
+from repro_torch.dfs.fuse import HdfsFuseMount
 from repro_torch.dfs.hdfs import HdfsCluster
 from repro_torch.dfs.striped import StripedReader, StripeMissingError
 from repro_torch.fabric.placement import Placement
@@ -50,6 +51,8 @@ from repro_torch.models.model import Model
 from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.train.loop import train_loop
+from repro_torch.tune import (ProfileStore, TuningProfile,
+                              get_active_profile)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen2.5-3b"
@@ -513,9 +516,24 @@ def test_from_checkpoint_serves_the_saved_tensors(tmp_path, jax_rules, dtype):
     b, _ = restored._prefill(restored.params, {"tokens": toks},
                              unembed=restored.unembed)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ServeEngine.from_checkpoint(m, ck, batch=2, cache_len=16,
-                                    tune_store=object())
+    # tune_store: the engine carries the profile it fetched (none before a
+    # publish); on the CPU the kernels take no launch config, so greedy
+    # generation under it equals generation without it
+    store = ProfileStore(HdfsFuseMount(HdfsCluster(tmp_path / "t")))
+    assert ServeEngine.from_checkpoint(m, ck, batch=2, cache_len=16,
+                                       tune_store=store).tune_profile is None
+    prof = TuningProfile(backend="cpu")
+    prof.record("ssd|s16|h4|p16|g1|n16|float32|cpu", {"chunk": 16})
+    digest = store.publish(prof)["digest"]
+    tuned = ServeEngine.from_checkpoint(m, ck, batch=2, cache_len=16,
+                                        tune_store=store)
+    assert tuned.tune_profile.digest() == digest
+    assert tuned.tune_profile.store is store
+    prompts = [toks[i, :5 + 2 * i].numpy() for i in range(2)]
+    runs = [eng.generate([Request(prompt=p, max_new_tokens=4)
+                          for p in prompts]) for eng in (tuned, restored)]
+    assert [r.generated for r in runs[0]] == [r.generated for r in runs[1]]
+    assert get_active_profile() is None
     with pytest.raises(FileNotFoundError):
         ServeEngine.from_checkpoint(m, Checkpointer(
             HdfsCluster(tmp_path / "empty")), batch=2, cache_len=16)

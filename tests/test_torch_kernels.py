@@ -33,10 +33,11 @@ import torch
 
 from repro_torch.configs import get_config, get_tiny, reduced
 from repro_torch.kernels import build
+from repro_torch.kernels import ssd
 from repro_torch.kernels.flash_attention import (
-    KEY_TILE, flash_attention, flash_attention_bwd,
+    CONFIGS, KEY_TILE, flash_attention, flash_attention_bwd,
     flash_attention_bwd_deterministic, wgmma_probe)
-from repro_torch.kernels.ops import attention_op, ssd_op
+from repro_torch.kernels.ops import attention_op, card_backend, ssd_op
 from repro_torch.kernels.ref import (attention_backward_reference,
                                      attention_lse_reference,
                                      attention_reference, row_rel_err,
@@ -46,6 +47,8 @@ from repro_torch.kernels.ssd import ssd_chunked_bwd_kernel, ssd_chunked_kernel
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import tree_map
 from repro_torch.train.step import loss_and_grads
+from repro_torch.tune import (TuningProfile, attention_key, ssd_key,
+                              use_profile)
 
 BF16_ROW_RTOL = 2e-2
 GRAD_ROW_FLOOR = 1e-2
@@ -211,6 +214,79 @@ def test_kernel_tile_edges_on_card(cuda, b, hq, hkv, sq, sk, d, window,
     assert row_rel_err(out, ref) <= BF16_ROW_RTOL
 
 
+# every compiled launch config (CONFIGS) at the tile edges of its head dim
+CONFIG_EDGES = [(bq, bk, *edge) for edge in HOPPER_EDGES
+                for bq, bk in CONFIGS[edge[5]]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bq,bk,b,hq,hkv,sq,sk,d,window,causal",
+                         CONFIG_EDGES)
+def test_every_launch_config_matches_plain_on_card(cuda, bq, bk, b, hq, hkv,
+                                                   sq, sk, d, window, causal):
+    """Each template instance, its output and its LSE, against the plain
+    version; its launch counted under its config."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d + bq + bk)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda,
+                           dtype=torch.bfloat16)
+               for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+    before = flash_attention.config_launches.get((bq, bk), 0)
+    out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=True, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert flash_attention.config_launches[bq, bk] == before + 1
+    ref, lse_ref = attention_lse_reference(
+        *(t.transpose(1, 2) for t in (q, k, v)), causal=causal,
+        window=window)
+    assert row_rel_err(out, ref.transpose(1, 2)) <= BF16_ROW_RTOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_TOL
+
+
+@pytest.mark.gpu
+def test_a_config_with_no_instance_raises_on_card(cuda):
+    q = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="no compiled instance"):
+        flash_attention(q, q, q, block_q=128, block_k=128)
+    x, dt, A, B, C, D = _ssd_inputs(1, 40, 2, 32, 1, 16, device=cuda)
+    with pytest.raises(ValueError, match="no compiled instance"):
+        ssd_chunked_kernel(x, dt, A, B, C, D, chunk=64)
+
+
+@pytest.mark.gpu
+def test_ops_launch_the_profiles_configs_on_card(cuda):
+    """Under a profile tuned on this card, attention_op and ssd_op launch
+    its entries' configs, the training path (with its backward) too."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 256, 4, 64), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((2, 256, 2, 64), generator=gen, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    ssd_args = _ssd_inputs(2, 130, 4, 32, 1, 16, device=cuda)
+    backend = card_backend()
+    prof = TuningProfile(backend=backend)
+    prof.record(attention_key(sq=256, sk=256, d=64, g=2, dtype="bfloat16",
+                              causal=True, window=0, backend=backend),
+                {"block_q": 64, "block_k": 64})
+    prof.record(ssd_key(s=130, h=4, p=32, g=1, n=16, dtype="bfloat16",
+                        backend=backend), {"chunk": 16})
+    flash0 = flash_attention.config_launches.get((64, 64), 0)
+    ssd0 = ssd_chunked_kernel.config_launches.get(16, 0)
+    with use_profile(prof):
+        out = attention_op(q, k, v)
+        qg = q.detach().requires_grad_()
+        attention_op(qg, k, v).float().sum().backward()
+        y, st = ssd_op(*ssd_args, chunk=256)
+    torch.cuda.synchronize()
+    assert flash_attention.config_launches[64, 64] == flash0 + 2
+    assert ssd_chunked_kernel.config_launches[16] == ssd0 + 1
+    ref = attention_reference(*(t.transpose(1, 2) for t in (q, k, v)))
+    assert row_rel_err(out, ref.transpose(1, 2)) <= BF16_ROW_RTOL
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    y_ref, st_ref = ssd_chunked_reference(*ssd_args, chunk=256)
+    assert row_rel_err(y, y_ref) <= SSD_Y_ROW_RTOL
+    assert row_rel_err(st, st_ref) <= SSD_STATE_ROW_RTOL
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
 def test_wgmma_probe_matches_matmul(cuda, d):
@@ -297,6 +373,24 @@ def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n):
     y_ref, st_ref = ssd_chunked_reference(*args, chunk=256)
     assert y.dtype == torch.bfloat16 and y.shape == args[0].shape
     assert st.dtype == torch.float32 and st.shape == (b, h, p, n)
+    assert row_rel_err(y, y_ref) <= SSD_Y_ROW_RTOL
+    assert row_rel_err(st, st_ref) <= SSD_STATE_ROW_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [16])
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_SHAPES)
+def test_every_ssd_tile_matches_plain_on_card(cuda, chunk, b, s, h, p, g, n):
+    """The other compiled tile (the default, 32, runs above through
+    ssd_op), against the plain version at the same shapes; its launch
+    counted under its tile."""
+    assert chunk in ssd.CONFIGS[n] and chunk != ssd.TILE
+    args = _ssd_inputs(b, s, h, p, g, n, device=cuda, seed=s + h + chunk)
+    before = ssd_chunked_kernel.config_launches.get(chunk, 0)
+    y, st = ssd_chunked_kernel(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_chunked_kernel.config_launches[chunk] == before + 1
+    y_ref, st_ref = ssd_chunked_reference(*args, chunk=256)
     assert row_rel_err(y, y_ref) <= SSD_Y_ROW_RTOL
     assert row_rel_err(st, st_ref) <= SSD_STATE_ROW_RTOL
 

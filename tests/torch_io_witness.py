@@ -1,8 +1,9 @@
 """A test-side I/O witness for the port: every byte read through the
 port's ``HdfsCluster`` (``pread`` and the raw group-file handles of
-striped files) and through its ``Registry`` (image blocks) is attributed
-to the scheduler slot its thread holds at the time, by resource and
-priority. The JAX package's ``--io-witness`` patches only the reference's
+striped files) and through its ``Registry`` (image blocks), and every
+byte written whole through ``HdfsCluster.write`` (the tuning profiles'
+blobs and HEAD), is attributed to the scheduler slot its thread holds at
+the time, by resource and priority. The JAX package's ``--io-witness`` patches only the reference's
 classes, so the port's tests install this one (``install(monkeypatch)``).
 """
 
@@ -18,13 +19,15 @@ from repro_torch.dfs.hdfs import HdfsCluster
 
 class IoWitness:
     """``read`` holds the DFS bytes by the priority of the "dfs" slot held
-    while they were read (None: outside any "dfs" slot); ``registry`` the
-    image-block bytes by the "registry" slot's priority."""
+    while they were read (None: outside any "dfs" slot); ``written`` the
+    bytes of whole-file DFS writes likewise; ``registry`` the image-block
+    bytes by the "registry" slot's priority."""
 
     def __init__(self):
         self.lock = threading.Lock()
         self.local = threading.local()
         self.read = {}          # priority or None -> bytes
+        self.written = {}       # priority or None -> bytes
         self.registry = {}      # priority or None -> bytes
 
     def held(self, resource: str = "dfs"):
@@ -33,8 +36,9 @@ class IoWitness:
                 return priority
         return None
 
-    def count(self, nbytes: int, resource: str = "dfs"):
-        ledger = self.read if resource == "dfs" else self.registry
+    def count(self, nbytes: int, resource: str = "dfs", ledger=None):
+        if ledger is None:
+            ledger = self.read if resource == "dfs" else self.registry
         with self.lock:
             key = self.held(resource)
             ledger[key] = ledger.get(key, 0) + nbytes
@@ -48,12 +52,18 @@ class IoWitness:
                 if n}
         assert self.read == want, self.read
 
-    def check_scheduler(self, sched: IOScheduler):
+    def check_scheduler(self, sched: IOScheduler, *, writes: bool = False):
         """Every DFS and registry byte read inside a slot of its resource,
-        and the bytes by priority equal to what ``sched`` metered."""
+        and the bytes by priority equal to what ``sched`` metered; with
+        ``writes``, the DFS bytes written whole as well, metered with the
+        reads (a ``ProfileStore`` meters its publish in the same slots)."""
         snap = sched.snapshot()
         names = {CRITICAL: "critical", DEFERRED: "deferred"}
-        for resource, ledger in (("dfs", self.read),
+        dfs = dict(self.read)
+        if writes:
+            for p, n in self.written.items():
+                dfs[p] = dfs.get(p, 0) + n
+        for resource, ledger in (("dfs", dfs),
                                  ("registry", self.registry)):
             assert ledger.get(None, 0) == 0, (
                 f"{ledger[None]} {resource} bytes read outside any "
@@ -94,6 +104,7 @@ def install(monkeypatch) -> IoWitness:
     real_pread = HdfsCluster.pread
     real_open = HdfsCluster.open_group_file
     real_get_block = Registry.get_block
+    real_write = HdfsCluster.write
 
     @contextmanager
     def slot(self, resource, *, priority=CRITICAL, nbytes=0):
@@ -114,6 +125,11 @@ def install(monkeypatch) -> IoWitness:
         f = real_open(self, group, name, mode)
         return _Handle(f, w) if "r" in mode else f
 
+    def write(self, path, data, attrs=None):
+        out = real_write(self, path, data, attrs)
+        w.count(len(data), ledger=w.written)
+        return out
+
     def get_block(self, h):
         data = real_get_block(self, h)
         w.count(len(data), "registry")
@@ -122,5 +138,6 @@ def install(monkeypatch) -> IoWitness:
     monkeypatch.setattr(IOScheduler, "slot", slot)
     monkeypatch.setattr(HdfsCluster, "pread", pread)
     monkeypatch.setattr(HdfsCluster, "open_group_file", open_group_file)
+    monkeypatch.setattr(HdfsCluster, "write", write)
     monkeypatch.setattr(Registry, "get_block", get_block)
     return w
