@@ -89,6 +89,16 @@ Phases, one line or more each; any failure exits non-zero:
      = 2, S = 2048, both on stand-in embeddings (qwen2-vl with vision-grid
      M-RoPE positions) and the stream's labels: 96 / 48 and 2 / 1 flash
      launches a step, and the flash backward's share of musicgen's step.
+     roofline, in phases 5 and 7: each served model's prefill (a frontend
+     family's from stand-in embeddings) and one decode step, and each
+     trained model's step, counted on the card (roofline/step_cost.py:
+     FLOPs by dtype, bytes) beside the dry run of the same config and
+     shape on the meta device (launch/dryrun.py), priced at the H100's
+     peaks; the roofline's share of the profiled wall and device-busy
+     time; the dry run's peak memory beside the card's. It fails if the
+     two counts differ in FLOPs, if the compute term exceeds the measured
+     device-busy time, or if a training step's or a prefill's dry-run
+     peak lies outside 0.85-1.15x the measured one.
   8. resume, with no tuning profile active and under
      torch.use_deterministic_algorithms(True): qwen2.5-3b at
      full width trains 6 steps (run A), then anew 3 steps, saves a striped
@@ -259,6 +269,12 @@ TINY_OVERRIDES = {ZAMBA: {"num_layers": 5}}
 # the gradients are compared with the card routed as the CPU was.
 FLIP_MARGIN = 1e-2
 CARD_BYTES = 80e9
+# [roofline]: the dry run's peak memory of a training step or a prefill
+# against the card's, 15% either way. The dry run counts the
+# live storages, each rounded to 512 bytes as the caching allocator rounds
+# them; it does not see the flash backward's fp32 scratch (<= 0.4 GB at
+# the cells' shapes) nor blocks the allocator hands out larger than asked.
+ROOFLINE_PEAK_RANGE = (0.85, 1.15)
 BATCH, CACHE_LEN, NEW_TOKENS = 8, 2048, 32
 PROMPT_LENS = (256, 1024)
 # the resume phase: run A's steps, run B's steps before its save, and the
@@ -822,6 +838,7 @@ def phase_ssd_bwd_kernels(card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.ref import row_rel_err, ssd_backward_reference
     from repro_torch.kernels.ssd import (ssd_bwd_workspace_bytes,
+                                         ssd_bwd_workspace_floats,
                                          ssd_chunked_bwd_kernel)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -862,6 +879,11 @@ def phase_ssd_bwd_kernels(card: str) -> dict:
         dy = torch.randn((b, s, h, p), generator=gen,
                          device="cuda").bfloat16()
         ws = ssd_bwd_workspace_bytes(b, s, h, p, n)
+        # the dry run and the autograd backward size it in Python
+        if ws != 4 * ssd_bwd_workspace_floats(b, s, h, p, n):
+            fail("kernels", f"ssd_bwd {name}: the library's workspace {ws} "
+                 "bytes is not ssd_bwd_workspace_floats' "
+                 f"{4 * ssd_bwd_workspace_floats(b, s, h, p, n)}")
         ms = cuda_ms(lambda: ssd_chunked_bwd_kernel(*args, dy), iters=10)
         plain_ms = cuda_ms(lambda: ssd_backward_reference(*args, dy,
                                                           chunk=chunk),
@@ -1504,22 +1526,55 @@ def phase_serve(card: str, arch: str, profile=None) -> dict:
     with torch.no_grad():
         _, cache = model.prefill(params, {"tokens": toks},
                                  cache_len=CACHE_LEN, unembed=unembed)
-    for name, fn in (
-            ("prefill", lambda: model.prefill(params, {"tokens": toks},
-                                              cache_len=CACHE_LEN,
-                                              unembed=unembed)),
-            ("decode x4", lambda: [model.decode_step(params, toks[:, -1:],
-                                                     cache, plen + i,
-                                                     unembed=unembed)
-                                   for i in range(4)])):
-        profile_window(f"{arch} {name}", fn, card,
-                       scopes=MOE_SCOPES if cfg.moe else ())
+    windows = {name: profile_window(f"{arch} {name}", fn, card,
+                                    scopes=MOE_SCOPES if cfg.moe else ())
+               for name, fn in (
+        ("prefill", lambda: model.prefill(params, {"tokens": toks},
+                                          cache_len=CACHE_LEN,
+                                          unembed=unembed)),
+        ("decode x4", lambda: [model.decode_step(params, toks[:, -1:],
+                                                 cache, plen + i,
+                                                 unembed=unembed)
+                               for i in range(4)]))}
+    roofline_serve(card, arch, model, params, toks, cache, unembed, windows)
     del cache
     if cfg.mrope:
         serve_vision(card, arch, model, params, toks, unembed)
     if profile is not None:
         serve_tuned(card, arch, model, params, toks, unembed, profile)
     return dict(counts, configs=configs)
+
+
+def roofline_serve(card: str, arch: str, model, params, toks, cache,
+                   unembed, windows: dict) -> None:
+    """[roofline] of a served model: its prefill (a frontend family's from
+    stand-in embeddings, as the dry run builds it, whose FLOPs the token
+    prefill profiled shares) and one decode step against ``cache``, each
+    through the serving steps (serve/step.py) the dry run builds."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import frontend
+    from repro_torch.serve.step import make_decode_step, make_prefill
+    cfg = model.cfg
+    b, s = toks.shape
+    batch = {"tokens": toks}
+    if frontend.needs_embeddings(cfg):
+        batch = frontend_batch(cfg, b, s, VISION_GRID,
+                               torch.Generator(device="cuda").manual_seed(4),
+                               "cuda")
+    prefill = make_prefill(model, b, CACHE_LEN)
+    roofline_cell(card, arch, cfg, ShapeConfig(f"prefill_{s}", s, b,
+                                               "prefill"),
+                  lambda p, x, u: prefill(p, x, unembed=u),
+                  (params, batch, unembed), windows["prefill"],
+                  cache_len=CACHE_LEN)
+    del batch
+    decode = make_decode_step(model, b, CACHE_LEN)
+    roofline_cell(card, arch, cfg, ShapeConfig("decode", CACHE_LEN, b,
+                                               "decode"),
+                  lambda p, t, c, u: decode(p, t, c, s + 4, unembed=u),
+                  (params, toks[:, -1:], cache, unembed),
+                  windows["decode x4"], per_call=4)
 
 
 def serve_vision(card: str, arch: str, model, params, toks, unembed) -> None:
@@ -1650,6 +1705,86 @@ def profile_window(name: str, fn, card: str, *, grad: bool = False,
         say("profile", f"  {name}: the MoE scopes together {inside / 1e3:.3f}"
             f" ms ({100 * inside / max(busy_us, 1e-9):.1f}% of device busy)")
     return out
+
+
+def roofline_cell(card: str, arch: str, cfg, shape, fn, args, window: dict,
+                  *, per_call: int = 1, cache_len: int | None = None) -> None:
+    """[roofline]: ``fn(*args)``, one call of the main path's, counted on
+    the card by roofline/step_cost.StepCount, beside the dry run of ``cfg``
+    at ``shape`` on the meta device (launch/dryrun.run_one, the same
+    step built by its own code), priced at the H100's peaks
+    (roofline/analysis.analyze), against ``window``, the call's
+    profile_window (``per_call`` calls in it). Fails if the card's and the
+    meta count differ in FLOPs (by dtype), if the compute term exceeds the
+    measured device-busy time (the count holds work that never ran), or,
+    for a training step or a prefill, if the dry run's peak lies outside
+    ROOFLINE_PEAK_RANGE of the measured one: torch.cuda's peak over the
+    call above what was allocated before it, plus the call's arguments."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analysis import analyze
+    from repro_torch.roofline.step_cost import StepCount
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with StepCount(args) as count:
+        fn(*args)
+    torch.cuda.synchronize()
+    measured = (torch.cuda.max_memory_allocated() - before
+                + count.argument_bytes)
+    card_cost = count.cost()
+    rec = dryrun.run_one(arch, cfg=cfg, shape=shape, cache_len=cache_len,
+                         verbose=False)
+    meta = rec["cost_analytic_global"]
+    kind = rec["step_kind"]
+    rep = analyze(arch=arch, shape=shape, mesh_name=dryrun.MESH, chips=1,
+                  step_kind=kind, cost={
+                      "flops": card_cost["flops"],
+                      "flops_fp32": card_cost["flops_fp32"],
+                      "bytes accessed": card_cost["bytes"]},
+                  collectives={"total": 0}, cfg=cfg)
+    busy_s = window["busy_ms"] / 1e3 / per_call
+    wall_s = window["wall_ms"] / 1e3 / per_call
+    bound_s = max(rep.compute_s, rep.memory_s)
+    peak = rec["memory"]["peak_memory_in_bytes"]
+    ratio = peak / measured
+    lo, hi = ROOFLINE_PEAK_RANGE
+    same = all(card_cost[k] == meta[k]
+               for k in ("flops", "flops_bf16", "flops_fp32"))
+    kernels = {k.split(".")[-1]: (v["calls"], v["flops"] / 1e12)
+               for k, v in card_cost["by_op"].items()
+               if k.startswith("repro_torch.")}
+    problems = []
+    if not same:
+        problems.append(f"the card counts {card_cost['flops']:.6e} FLOPs "
+                        f"(fp32 {card_cost['flops_fp32']:.6e}), the meta "
+                        f"device {meta['flops']:.6e} (fp32 "
+                        f"{meta['flops_fp32']:.6e})")
+    if not rep.compute_s <= busy_s:
+        problems.append(f"compute_s {rep.compute_s:.6f} s exceeds the "
+                        f"measured device busy {busy_s:.6f} s")
+    if kind != "decode" and not lo <= ratio <= hi:
+        problems.append(f"the dry run's peak {peak / 1e9:.3f} GB is "
+                        f"{ratio:.3f}x the measured {measured / 1e9:.3f} GB")
+    say("roofline", f"{arch} {kind} B={shape.global_batch} S={shape.seq_len}"
+        f": FLOPs {card_cost['flops'] / 1e12:.4f} T (bf16 "
+        f"{card_cost['flops_bf16'] / 1e12:.4f}, fp32 "
+        f"{card_cost['flops_fp32'] / 1e12:.4f}; kernels {kernels}), bytes "
+        f"{card_cost['bytes'] / 1e9:.3f} GB; card count == meta count: "
+        f"{same}; compute_s {1e3 * rep.compute_s:.3f} ms, memory_s "
+        f"{1e3 * rep.memory_s:.3f} ms -> {rep.bottleneck} (H100 peaks: 989 "
+        f"TFLOP/s bf16, 67 fp32, 3.35 TB/s); measured wall "
+        f"{1e3 * wall_s:.3f} ms, device busy {1e3 * busy_s:.3f} ms; roofline "
+        f"max(compute_s, memory_s) {100 * bound_s / busy_s:.1f}% of busy, "
+        f"{100 * bound_s / wall_s:.1f}% of wall; peak: dry run "
+        f"{peak / 1e9:.3f} GB, measured {measured / 1e9:.3f} GB (ratio "
+        f"{ratio:.3f}{'' if kind == 'decode' else f', gate {lo}-{hi}'}), the"
+        f" count's own tracker on the card {count.peak / 1e9:.3f} GB; dry "
+        f"run traced in {rec['trace_s']:.2f} s; "
+        f"{'FAIL' if problems else 'ok'}, on {card}")
+    if problems:
+        fail("roofline", f"{arch} {kind}: " + "; ".join(problems))
 
 
 def phase_small_reference(card: str, arch: str) -> None:
@@ -1869,6 +2004,7 @@ def phase_train(card: str, arch: str, profile=None) -> dict:
     (``train_tuned``)."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.loader import Loader
     from repro_torch.data.synthetic import SyntheticStream
     from repro_torch.models import frontend
@@ -1993,6 +2129,9 @@ def phase_train(card: str, arch: str, profile=None) -> dict:
                                                                 data),
                           card, grad=True, share_of=share_of, top=14,
                           scopes=MOE_SCOPES if cfg.moe else ())
+    roofline_cell(card, arch, cfg, ShapeConfig(
+        f"train_{TRAIN_SEQ}", TRAIN_SEQ, batch_size, "train"), step_fn,
+        (params, opt, loader(TRAIN_STEPS + 9)), prof)
     if "flash_bwd" in prof["shares"]:
         bwd_ms, n = prof["shares"]["flash_bwd"]
         say("train", f"{arch}: the flash backward ({n} kernels: "

@@ -31,6 +31,20 @@ Unlike the Pallas wrapper this one takes the model layout
 ``[B, S, H, D]`` and hands the kernel strides, from which it builds its
 TMA tensor maps, so nothing is transposed or padded. It launches on CUDA
 tensors only and never falls back.
+
+Both are also PyTorch operators, defined through ``torch.library``:
+``flash_attention_fwd_op`` (``repro_torch::flash_attention_fwd``) and
+``flash_attention_bwd_op`` (``repro_torch::flash_attention_bwd``). Their
+CUDA implementation is the launchers above; their fake one gives the
+outputs' shapes, so that a meta tensor (the dry run) takes them, and a
+dispatch mode (``roofline/step_cost.py``) sees each launch as one
+operator, as the JAX package's jaxpr walker sees a ``pallas_call``.
+``kernels/ops.py`` registers their autograd and FLOP formulas. They are
+defined with ``torch.library.define`` and ``impl`` rather than
+``torch.library.custom_op``, whose device kernels import
+``torch._dynamo`` at their first call: 2.5 s on the first launch of a
+process, and a heap that makes every full garbage collection twice as
+long.
 """
 
 from __future__ import annotations
@@ -258,6 +272,57 @@ def _backward(q, k, v, lse, do, *, causal: bool, window: int,
         raise RuntimeError(f"flash_attention_bwd: launch failed, cudaError "
                            f"{err}")
     return dq, dk, dv
+
+
+torch.library.define(
+    "repro_torch::flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, int block_q, "
+    "int block_k, bool return_lse) -> (Tensor, Tensor)")
+torch.library.define(
+    "repro_torch::flash_attention_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor do, bool causal, "
+    "int window, bool deterministic) -> (Tensor, Tensor, Tensor)")
+
+
+@torch.library.impl("repro_torch::flash_attention_fwd", "cuda")
+def _flash_fwd_cuda(q, k, v, causal, window, block_q, block_k, return_lse):
+    """``flash_attention`` as an operator: (o, lse), lse empty unless
+    ``return_lse``."""
+    if return_lse:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=True, block_q=block_q,
+                               block_k=block_k)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          block_q=block_q, block_k=block_k)
+    return out, q.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd")
+def _(q, k, v, causal, window, block_q, block_k, return_lse):
+    check_config(q.shape[-1], block_q, block_k)
+    b, sq, hq, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, hq, sq) if return_lse else (0,),
+                        dtype=torch.float32))
+
+
+@torch.library.impl("repro_torch::flash_attention_bwd", "cuda")
+def _flash_bwd_cuda(q, k, v, lse, do, causal, window, deterministic):
+    """``flash_attention_bwd`` (``deterministic``: its deterministic
+    path) as an operator: (dq, dk, dv)."""
+    bwd = (flash_attention_bwd_deterministic if deterministic
+           else flash_attention_bwd)
+    return bwd(q, k, v, lse, do, causal=causal, window=window)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_bwd")
+def _(q, k, v, lse, do, causal, window, deterministic):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+flash_attention_fwd_op = torch.ops.repro_torch.flash_attention_fwd.default
+flash_attention_bwd_op = torch.ops.repro_torch.flash_attention_bwd.default
 
 
 def wgmma_probe(a: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

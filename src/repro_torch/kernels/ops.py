@@ -8,6 +8,16 @@ back from the kernel to the plain version, and no kernel output that needs
 a gradient lacks one: on the card attention and the SSD scan differentiate
 through their backward kernels.
 
+The kernels are reached as PyTorch operators (``torch.library``
+operators, defined beside their launchers): this module registers their
+autograd, the forwards' backward being the backward operators, and their
+FLOP formulas (``torch.utils.flop_counter``), taken from
+``roofline/kernel_cost.py``, so that a step's count
+(``roofline/step_cost.py``), the kernels' bounds and the autotuner's
+pruning share one source. A meta tensor takes the same operators, whose
+fake implementations give the outputs' shapes: the dry run
+(``launch/dryrun.py``) builds a step on the meta device with them.
+
 Config resolution on the card (a port of the JAX package's
 ``kernels/ops.py``): caller-supplied kwargs win; otherwise the ambient
 profile (installed at boot by the BootSeer ``tune.restore`` task, or by
@@ -17,7 +27,8 @@ profile tuned on another card misses; otherwise the defaults, the
 kernels' own. A profile with ``tune_on_miss`` set tunes an unseen key once
 on first use and publishes the updated profile back through its store
 (record-on-miss). A config the kernel has no instance of raises in its
-wrapper; it is never replaced by the default.
+wrapper; it is never replaced by the default. A meta tensor names no card,
+so no profile is consulted for it: it takes the defaults.
 """
 
 from __future__ import annotations
@@ -26,13 +37,15 @@ import threading
 import warnings
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention import (
-    DEFAULT_CONFIG, flash_attention, flash_attention_bwd,
-    flash_attention_bwd_deterministic)
+    DEFAULT_CONFIG, flash_attention_bwd_op, flash_attention_fwd_op)
 from repro_torch.kernels.ref import attention_reference, ssd_chunked_reference
-from repro_torch.kernels.ssd import (TILE, ssd_chunked_bwd_kernel,
-                                     ssd_chunked_kernel)
+from repro_torch.kernels.ssd import (TILE, ssd_bwd_op,
+                                     ssd_bwd_workspace_floats, ssd_fwd_op)
+from repro_torch.roofline.kernel_cost import (ssd_bwd_flops, ssd_flops,
+                                              unmasked_pairs)
 from repro_torch.tune.profile import attention_key, get_active_profile, ssd_key
 
 # the kernels' own launch configs, where neither a caller nor the profile
@@ -54,9 +67,12 @@ def _warn_once(tag: str, msg: str) -> None:
     warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
 
-def card_backend(device=None) -> str:
+def card_backend(device=None) -> str | None:
     """The profile keys' backend for the card ``device`` (the current one
-    by default): the kernels' target and the card's name."""
+    by default): the kernels' target and the card's name; None for the
+    meta device, which names no card."""
+    if device is not None and torch.device(device).type == "meta":
+        return None
     return f"cuda-sm_90a:{torch.cuda.get_device_name(device)}"
 
 
@@ -65,13 +81,13 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _resolve(kernel: str, key: str, supplied: dict, defaults: dict,
+def _resolve(kernel: str, key: str | None, supplied: dict, defaults: dict,
              tune_kwargs: dict) -> dict:
     """Launch config for ``key``: supplied kwargs > ambient profile >
     defaults (field-wise: a caller may pin block_q and let the profile
-    pick block_k)."""
+    pick block_k). No key (no card): the profile is not consulted."""
     cfg = dict(defaults)
-    prof = get_active_profile()
+    prof = get_active_profile() if key is not None else None
     if prof is not None:
         hit = prof.resolve(key)
         if hit is None and prof.tune_on_miss:
@@ -105,9 +121,10 @@ def attention_config(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dtype = dtype_name(q.dtype)
-    key = attention_key(sq=sq, sk=sk, d=d, g=hq // hkv, dtype=dtype,
-                        causal=causal, window=window,
-                        backend=card_backend(q.device))
+    backend = card_backend(q.device)
+    key = backend and attention_key(sq=sq, sk=sk, d=d, g=hq // hkv,
+                                    dtype=dtype, causal=causal,
+                                    window=window, backend=backend)
     return _resolve(
         "flash_attention", key, {"block_q": block_q, "block_k": block_k},
         DEFAULT_ATTENTION,
@@ -122,38 +139,36 @@ def ssd_config(x: torch.Tensor, B: torch.Tensor) -> dict:
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dtype = dtype_name(x.dtype)
-    key = ssd_key(s=s, h=h, p=p, g=g, n=n, dtype=dtype,
-                  backend=card_backend(x.device))
+    backend = card_backend(x.device)
+    key = backend and ssd_key(s=s, h=h, p=p, g=g, n=n, dtype=dtype,
+                              backend=backend)
     return _resolve("ssd", key, {}, DEFAULT_SSD,
                     dict(b=b, s=s, h=h, p=p, g=g, n=n, dtype=dtype))
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The forward kernel with its LSE saved, and the backward kernel: the
-    counterpart of ``jax.grad`` through the JAX model's attention. Under
-    ``torch.use_deterministic_algorithms(True)`` the backward sums in a
-    fixed order, so its gradients are bit-identical from call to call, as
-    ``jax.grad``'s are."""
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, window = inputs[:5]
+    ctx.save_for_backward(q, k, v, output[1])
+    ctx.causal, ctx.window = causal, window
+    ctx.set_materialize_grads(False)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, block_q: int,
-                block_k: int):
-        out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                   return_lse=True, block_q=block_q,
-                                   block_k=block_k)
-        ctx.save_for_backward(q, k, v, lse)
-        ctx.causal, ctx.window = causal, window
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, lse = ctx.saved_tensors
-        bwd = (flash_attention_bwd_deterministic
-               if torch.are_deterministic_algorithms_enabled()
-               else flash_attention_bwd)
-        dq, dk, dv = bwd(q, k, v, lse, dout.contiguous(), causal=ctx.causal,
-                         window=ctx.window)
-        return dq, dk, dv, None, None, None, None
+def _flash_backward(ctx, dout, _dlse):
+    """The backward kernel: the counterpart of ``jax.grad`` through the JAX
+    model's attention. Under ``torch.use_deterministic_algorithms(True)``
+    it sums in a fixed order, so its gradients are bit-identical from call
+    to call, as ``jax.grad``'s are. The LSE takes no gradient."""
+    if dout is None:
+        return (None,) * 8
+    q, k, v, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd_op(
+        q, k, v, lse, dout.contiguous(), ctx.causal, ctx.window,
+        torch.are_deterministic_algorithms_enabled())
+    return dq, dk, dv, None, None, None, None, None
+
+
+torch.library.register_autograd("repro_torch::flash_attention_fwd",
+                                _flash_backward, setup_context=_flash_setup)
 
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -162,7 +177,8 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  block_k: int | None = None) -> torch.Tensor:
     """Model layout: q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh] ->
     [B, S, Hq, Dh]. ``block_q``/``block_k`` pin the kernel's launch
-    config (``attention_config``); the CPU's plain version takes none."""
+    config (``attention_config``); the CPU's plain version takes none.
+    Under grad the forward also writes the LSE its backward takes."""
     if q.device.type == "cpu":
         if block_q is not None or block_k is not None:
             raise ValueError("attention_op: a launch config is the card "
@@ -172,36 +188,39 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.transpose(1, 2)
     cfg = attention_config(q, k, causal=causal, window=window,
                            block_q=block_q, block_k=block_k)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window,
-                                     cfg["block_q"], cfg["block_k"])
-    return flash_attention(q, k, v, causal=causal, window=window, **cfg)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return flash_attention_fwd_op(q, k, v, causal, window, cfg["block_q"],
+                                  cfg["block_k"], grad)[0]
 
 
-class _SSDScan(torch.autograd.Function):
-    """The forward kernel, its inputs saved, and the backward kernel: the
-    counterpart of ``jax.grad`` through the JAX model's ``ssd_chunked``,
-    bit-identical from call to call as that is. The final state's gradient
-    is not computed (the train path drops the state): a caller whose loss
-    reaches the state gets an error, not a gradient without that part."""
+def _ssd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:6])
+    ctx.set_materialize_grads(False)
 
-    @staticmethod
-    def forward(ctx, x, dt, A, B, C, D, chunk: int):
-        y, state = ssd_chunked_kernel(x, dt, A, B, C, D, chunk=chunk)
-        ctx.save_for_backward(x, dt, A, B, C, D)
-        ctx.set_materialize_grads(False)
-        return y, state
 
-    @staticmethod
-    def backward(ctx, dy, dstate):
-        if dstate is not None:
-            raise NotImplementedError(
-                "ssd_op: the SSD backward kernel takes no gradient of the "
-                "final state; drop the state, or differentiate on the CPU")
-        if dy is None:
-            return (None,) * 7
-        return (*ssd_chunked_bwd_kernel(*ctx.saved_tensors, dy.contiguous()),
-                None)
+def _ssd_backward(ctx, dy, dstate):
+    """The backward kernel: the counterpart of ``jax.grad`` through the JAX
+    model's ``ssd_chunked``, bit-identical from call to call as that is.
+    The final state's gradient is not computed (the train path drops the
+    state): a caller whose loss reaches the state gets an error, not a
+    gradient without that part."""
+    if dstate is not None:
+        raise NotImplementedError(
+            "ssd_op: the SSD backward kernel takes no gradient of the "
+            "final state; drop the state, or differentiate on the CPU")
+    if dy is None:
+        return (None,) * 7
+    x, dt, A, B, C, D = ctx.saved_tensors
+    b, s, h, p = x.shape
+    workspace = torch.empty(
+        (ssd_bwd_workspace_floats(b, s, h, p, B.shape[-1]),),
+        dtype=torch.float32, device=x.device)
+    return (*ssd_bwd_op(x, dt, A, B, C, D, dy.contiguous(), workspace),
+            None)
+
+
+torch.library.register_autograd("repro_torch::ssd_fwd", _ssd_backward,
+                                setup_context=_ssd_setup)
 
 
 def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -212,8 +231,32 @@ def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     kernel's tile along S comes from ``ssd_config``."""
     if x.device.type == "cpu":
         return ssd_chunked_reference(x, dt, A, B, C, D, chunk=chunk)
-    tile = ssd_config(x, B)["chunk"]
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B, C, D)):
-        return _SSDScan.apply(x, dt, A, B, C, D, tile)
-    return ssd_chunked_kernel(x, dt, A, B, C, D, chunk=tile)
+    return ssd_fwd_op(x, dt, A, B, C, D, ssd_config(x, B)["chunk"])
+
+
+# The operators' FLOPs, for torch.utils.flop_counter and step_cost: the
+# kernels' least work (roofline/kernel_cost.py), 4 d a visible (q, k) pair
+# forward and 10 d backward (S recomputed, dV, dP, dK, dQ).
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_fwd_flops(q, k, v, causal, window, *args, **kwargs) -> int:
+    b, sq, hq, d = q
+    return 4 * d * b * hq * unmasked_pairs(sq, k[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_bwd_flops(q, k, v, lse, do, causal, window, *args, **kwargs) -> int:
+    b, sq, hq, d = q
+    return 10 * d * b * hq * unmasked_pairs(sq, k[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_fwd)
+def _ssd_fwd_flops(x, dt, A, B, C, D, chunk, **kwargs) -> int:
+    b, s, h, p = x
+    return ssd_flops(b, s, h, p, B[2], B[3], tile=chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd)
+def _ssd_bwd_flops(x, dt, A, B, C, D, *args, **kwargs) -> int:
+    b, s, h, p = x
+    return ssd_bwd_flops(b, s, h, p, B[2], B[3])

@@ -27,6 +27,12 @@ Unlike the Pallas wrapper these take the model layout ``[B, S, H, P]`` /
 padded. The forward's ``chunk`` is its tile along S, not the plain
 version's chunk; the backward walks tiles of ``TILE``. They launch on CUDA
 tensors only and never fall back.
+
+Both are also PyTorch operators, defined through ``torch.library`` as
+the flash kernels are (``kernels/flash_attention.py``): ``ssd_fwd_op``
+(``repro_torch::ssd_fwd``) and ``ssd_bwd_op`` (``repro_torch::ssd_bwd``),
+whose workspace is an argument, so that whoever allocates it (the
+autograd backward in ``kernels/ops.py``) is seen allocating it.
 """
 
 from __future__ import annotations
@@ -187,20 +193,30 @@ ssd_chunked_kernel.config_launches = {}
 
 
 def ssd_bwd_workspace_bytes(b: int, s: int, h: int, p: int, n: int) -> int:
-    """The backward's scratch for these shapes, in bytes: the state
-    entering each tile and the state gradient leaving it, each as bf16 hi
-    and lo planes ([B, H, S / TILE, 2, P, N], as many bytes as fp32), and
-    dA / dD per (batch, head, tile)."""
+    """The backward's scratch for these shapes, in bytes, as the library
+    reckons it: the state entering each tile and the state gradient
+    leaving it, each as bf16 hi and lo planes ([B, H, S / TILE, 2, P, N],
+    as many bytes as fp32), and dA / dD per (batch, head, tile)."""
     return int(_bwd_entry()[1](b, s, h, p, n))
+
+
+def ssd_bwd_workspace_floats(b: int, s: int, h: int, p: int, n: int) -> int:
+    """``ssd_bwd_workspace_bytes`` / 4, from the shapes alone (no library):
+    csrc/ssd_bwd.cu's ``Workspace``."""
+    tiles = -(-s // TILE)
+    return 2 * b * h * tiles * p * n + 2 * b * h * tiles
 
 
 def ssd_chunked_bwd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                           dy: torch.Tensor):
+                           dy: torch.Tensor, *,
+                           workspace: torch.Tensor | None = None):
     """The gradients of ``ssd_chunked_kernel``'s y for the output gradient
     ``dy`` [B, S, H, P] bf16 (x's shape and layout rules), the inputs as
     the forward's, all on one CUDA device; the final state's gradient is
-    taken as zero. Returns (dx [B, S, H, P] bf16, ddt [B, S, H] fp32,
+    taken as zero. ``workspace``: contiguous fp32 scratch of at least
+    ``ssd_bwd_workspace_bytes`` on x's device, allocated here if not
+    given. Returns (dx [B, S, H, P] bf16, ddt [B, S, H] fp32,
     dA [H] fp32, dB [B, S, G, N] bf16, dC [B, S, G, N] bf16, dD [H] fp32),
     the same bits from call to call."""
     _check("ssd_chunked_bwd_kernel", x, dt, A, B, C, D, dy)
@@ -208,19 +224,27 @@ def ssd_chunked_bwd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     g, n = B.shape[2], B.shape[3]
     dev = x.device
     fn, workspace_bytes = _bwd_entry()
+    need = workspace_bytes(b, s, h, p, n)
+    if workspace is None:
+        workspace = torch.empty((need // 4,), dtype=torch.float32, device=dev)
+    elif (workspace.device != dev or workspace.dtype != torch.float32
+          or not workspace.is_contiguous() or 4 * workspace.numel() < need
+          or workspace.data_ptr() % 16):
+        raise ValueError(f"ssd_chunked_bwd_kernel: workspace must be "
+                         f"contiguous, 16-byte aligned fp32 of >= {need} bytes"
+                         f" on {dev}, got {workspace.dtype} "
+                         f"{tuple(workspace.shape)} on {workspace.device}")
     dx = torch.empty((b, s, h, p), dtype=torch.bfloat16, device=dev)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     dA = torch.empty((h,), dtype=torch.float32, device=dev)
     dD = torch.empty((h,), dtype=torch.float32, device=dev)
     dB = torch.empty((b, s, g, n), dtype=torch.bfloat16, device=dev)
     dC = torch.empty((b, s, g, n), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty((workspace_bytes(b, s, h, p, n) // 4,),
-                     dtype=torch.float32, device=dev)
     strides = [_Strides(*t.stride()[:3]) for t in (x, dt, B, C, dy)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in (x, dt, A, B, C, D, dy, dx, ddt, dA,
-                                          dB, dC, dD, ws)),
+                                          dB, dC, dD, workspace)),
                  b, s, h, p, g, n, *strides, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunked_bwd_kernel: launch failed, "
@@ -230,3 +254,50 @@ def ssd_chunked_bwd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_chunked_bwd_kernel.launches = 0
+
+
+torch.library.define(
+    "repro_torch::ssd_fwd",
+    "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor D, "
+    "int chunk) -> (Tensor, Tensor)")
+torch.library.define(
+    "repro_torch::ssd_bwd",
+    "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor D, "
+    "Tensor dy, Tensor(a!) workspace) -> (Tensor, Tensor, Tensor, Tensor, "
+    "Tensor, Tensor)")
+
+
+@torch.library.impl("repro_torch::ssd_fwd", "cuda")
+def _ssd_fwd_cuda(x, dt, A, B, C, D, chunk):
+    """``ssd_chunked_kernel`` as an operator: (y, final_state)."""
+    return ssd_chunked_kernel(x, dt, A, B, C, D, chunk=chunk)
+
+
+@torch.library.register_fake("repro_torch::ssd_fwd")
+def _(x, dt, A, B, C, D, chunk):
+    check_config(B.shape[-1], chunk)
+    b, _, h, p = x.shape
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((b, h, p, B.shape[-1]), dtype=torch.float32))
+
+
+@torch.library.impl("repro_torch::ssd_bwd", "cuda")
+def _ssd_bwd_cuda(x, dt, A, B, C, D, dy, workspace):
+    """``ssd_chunked_bwd_kernel`` as an operator, its scratch given:
+    (dx, ddt, dA, dB, dC, dD)."""
+    return ssd_chunked_bwd_kernel(x, dt, A, B, C, D, dy, workspace=workspace)
+
+
+@torch.library.register_fake("repro_torch::ssd_bwd")
+def _(x, dt, A, B, C, D, dy, workspace):
+    b, s, h, _ = x.shape
+    f32 = dict(dtype=torch.float32)
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((b, s, h), **f32), x.new_empty((h,), **f32),
+            torch.empty_like(B, memory_format=torch.contiguous_format),
+            torch.empty_like(C, memory_format=torch.contiguous_format),
+            x.new_empty((h,), **f32))
+
+
+ssd_fwd_op = torch.ops.repro_torch.ssd_fwd.default
+ssd_bwd_op = torch.ops.repro_torch.ssd_bwd.default

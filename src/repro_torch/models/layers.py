@@ -70,8 +70,9 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         raise ValueError(f"apply_mrope: sections {tuple(sections)} do not "
                          f"sum to head_dim / 2 = {half}")
     inv = rope_freqs(x.shape[-1], theta, x.device)
-    sel = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                  torch.tensor(sections, device=x.device))
+    # each slot's stream, from the section bounds known on the host
+    j = torch.arange(half, device=x.device)
+    sel = (j >= sections[0]).long() + (j >= sections[0] + sections[1]).long()
     ang = positions[..., sel].float() * inv  # [B, S, half]
     return _rotate(x, ang)
 

@@ -455,13 +455,12 @@ class Model:
         if "k" in caches:
             # Ring slot g holds position p0 + (g - p0) mod w, p0 = max(0,
             # s - w): the last w positions; slots past the prompt stay
-            # empty (-1, zeros).
+            # empty (-1, zeros). The filled slots are the first min(s, w),
+            # known on the host: no data-dependent shape, no read back.
             w = self.cache_window(cache_len)
             p0 = max(0, s - w)
-            src = p0 + torch.remainder(
-                torch.arange(w, device=self.device) - p0, w)
-            valid = src < s
-            slots, src = valid.nonzero()[:, 0], src[valid]
+            slots = torch.arange(min(s, w), device=self.device)
+            src = p0 + torch.remainder(slots - p0, w)
             caches["slot_pos"][:, slots] = src.to(torch.int32)
         for kind, p, i in self._schedule(params):
             if kind == "mamba":
@@ -487,7 +486,7 @@ class Model:
         cfg = self.cfg
         h = L.embed(tokens.long(), params["embed"], self.compute_dtype)
         b = h.shape[0]
-        positions = torch.tensor([pos], device=self.device)
+        positions = torch.arange(pos, pos + 1, device=self.device)
         mrope_pos = (torch.full((b, 1, 3), pos, dtype=torch.int32,
                                 device=self.device) if cfg.mrope else None)
         for kind, p, i in self._schedule(params):

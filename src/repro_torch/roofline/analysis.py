@@ -1,4 +1,5 @@
-"""Roofline constants of one NVIDIA H100 SXM and the model-FLOPs count.
+"""Three-term roofline of one NVIDIA H100 SXM, from a step's count (the dry
+run's, ``launch/dryrun.py``, or a count of the real step on the card).
 
 Hardware constants (NVIDIA's data sheet, dense, at the 700 W power limit):
   bf16 tensor-core peak 989 TFLOP/s, fp32 outside the tensor cores 67
@@ -6,14 +7,18 @@ Hardware constants (NVIDIA's data sheet, dense, at the 700 W power limit):
   host, all to all, 450 GB/s each way (not used on one card).
 
 Terms (seconds per step, per card):
-  compute    = FLOPs / PEAK_FLOPS
+  compute    = FLOPs_bf16 / PEAK_FLOPS + FLOPs_fp32 / PEAK_FP32_FLOPS
   memory     = bytes / HBM_BW
   collective = collective bytes / LINK_BW
 
 A port of the JAX package's ``roofline/analysis.py`` with the H100's
-constants. MODEL_FLOPS uses the standard 6·N·D (train) / 2·N·D
-(forward-only) with N = active params for MoE. The step-level ``analyze``
-and ``format_table`` wait for the rest of ROADMAP A.9.
+constants: the same report, fields and table. The compute term prices the
+fp32 GEMMs (``cost["flops_fp32"]``, ``roofline/step_cost.py``'s split) at
+the fp32 rate, since TF32 is off; a cost without that entry is priced as
+the reference prices it, all at PEAK_FLOPS. MODEL_FLOPS uses the standard
+6·N·D (train) / 2·N·D (forward-only) with N = active params for MoE; the
+ratio MODEL_FLOPS / (FLOPs x chips) flags remat's recomputation (or, > 1,
+an undercount).
 """
 
 from __future__ import annotations
@@ -78,3 +83,49 @@ def model_flops(cfg, shape, *, step_kind: str) -> float:
             attn *= 3  # fwd + 2x bwd
         base += attn
     return base
+
+
+def analyze(*, arch: str, shape, mesh_name: str, chips: int, step_kind: str,
+            cost: dict, collectives: dict, cfg,
+            memory_per_device: Optional[float] = None,
+            notes: str = "") -> RooflineReport:
+    flops_dev = float(cost.get("flops", 0.0))
+    fp32_dev = float(cost.get("flops_fp32", 0.0))
+    bytes_dev = float(cost.get("bytes accessed", 0.0))
+    coll_dev = float(collectives.get("total", 0.0))
+
+    compute_s = (flops_dev - fp32_dev) / PEAK_FLOPS + fp32_dev / PEAK_FP32_FLOPS
+    memory_s = bytes_dev / HBM_BW
+    coll_s = coll_dev / LINK_BW
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": coll_s}
+    bottleneck = max(terms, key=terms.get)
+
+    mf = model_flops(cfg, shape, step_kind=step_kind)
+    ratio = mf / max(flops_dev * chips, 1.0)
+
+    return RooflineReport(
+        arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,
+        step_kind=step_kind, hlo_flops_per_device=flops_dev,
+        hlo_bytes_per_device=bytes_dev,
+        collective_bytes_per_device=coll_dev,
+        collective_detail=collectives,
+        model_flops_global=mf, compute_s=compute_s, memory_s=memory_s,
+        collective_s=coll_s, bottleneck=bottleneck,
+        useful_flops_ratio=ratio, memory_per_device_bytes=memory_per_device,
+        notes=notes)
+
+
+def format_table(reports: list[RooflineReport]) -> str:
+    head = (f"{'arch':<20} {'shape':<12} {'mesh':<9} {'step':<7} "
+            f"{'compute_s':>10} {'memory_s':>10} {'collect_s':>10} "
+            f"{'bound':<10} {'useful':>7} {'GB/dev':>8}")
+    lines = [head, "-" * len(head)]
+    for r in reports:
+        gb = (r.memory_per_device_bytes or 0) / 2**30
+        lines.append(
+            f"{r.arch:<20} {r.shape:<12} {r.mesh:<9} {r.step_kind:<7} "
+            f"{r.compute_s:>10.4f} {r.memory_s:>10.4f} "
+            f"{r.collective_s:>10.4f} {r.bottleneck:<10} "
+            f"{r.useful_flops_ratio:>7.2f} {gb:>8.2f}")
+    return "\n".join(lines)

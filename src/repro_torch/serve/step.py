@@ -10,11 +10,13 @@ from repro_torch.models.model import Model
 
 
 def make_prefill(model: Model, batch: int, cache_len: int):
+    """``batch_in`` as ``Model.prefill`` takes it: ``tokens``, or a
+    frontend family's ``embeddings`` (and ``mrope_pos``)."""
     def prefill(params: dict, batch_in: dict, *,
                 unembed: torch.Tensor | None = None):
-        tokens = batch_in["tokens"]
-        if tokens.shape[0] != batch:
-            raise ValueError(f"prefill: batch {tokens.shape[0]} != {batch}")
+        lead = batch_in.get("tokens", batch_in.get("embeddings"))
+        if lead.shape[0] != batch:
+            raise ValueError(f"prefill: batch {lead.shape[0]} != {batch}")
         with torch.no_grad():
             return model.prefill(params, batch_in, cache_len=cache_len,
                                  unembed=unembed)

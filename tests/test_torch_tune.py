@@ -158,21 +158,22 @@ def test_resolve_picks_as_the_reference(case):
 
 @pytest.fixture()
 def on_card(monkeypatch):
-    """ops' card path on ``meta`` tensors: the card's name fixed, the
-    kernels replaced by recorders of the config they are handed."""
+    """ops' card path on ``meta`` tensors: the card's name fixed (a meta
+    tensor names none, so it would take the defaults), the kernels'
+    operators replaced by recorders of the config they are handed."""
     calls = []
     monkeypatch.setattr(ops, "card_backend", lambda device=None: CARD)
 
-    def flash_rec(q, k, v, *, causal, window, block_q, block_k):
+    def flash_rec(q, k, v, causal, window, block_q, block_k, return_lse):
         calls.append(("flash_attention", block_q, block_k))
-        return q
+        return q, None
 
-    def ssd_rec(x, dt, A, B, C, D, *, chunk):
+    def ssd_rec(x, dt, A, B, C, D, chunk):
         calls.append(("ssd", chunk))
         return x, None
 
-    monkeypatch.setattr(ops, "flash_attention", flash_rec)
-    monkeypatch.setattr(ops, "ssd_chunked_kernel", ssd_rec)
+    monkeypatch.setattr(ops, "flash_attention_fwd_op", flash_rec)
+    monkeypatch.setattr(ops, "ssd_fwd_op", ssd_rec)
     return calls
 
 
