@@ -99,6 +99,26 @@ Phases, one line or more each; any failure exits non-zero:
      two counts differ in FLOPs, if the compute term exceeds the measured
      device-busy time, or if a training step's or a prefill's dry-run
      peak lies outside 0.85-1.15x the measured one.
+  shard: the flash kernels on sequence shards at full width (qwen2.5-3b's
+     training shape, B = 2, S = 2048, 16/2 heads of 128, and zamba2-1.2b's,
+     B = 8, 32/32 heads of 64, window 4096): q cut into 4 pieces at
+     q_offset 0, 512, 1024, 1536 against the whole K/V, forward with the
+     LSE and backward; each piece's o, LSE and dQ and the summed dK/dV held
+     to the plain versions by the row gates, the pieces' forward rows
+     against the unsharded call's bits, the deterministic backward two
+     calls bit-equal. Then the sharded path (Model(cfg, make_rules(mesh)):
+     DTensors, local_map islands) on a one-device NCCL DeviceMesh (1, 1)
+     at full width against the plain path on the same weights:
+     qwen2.5-3b's prefill, 4 decodes (both fed the plain path's greedy
+     tokens) and 8 requests through ServeEngine, and 8 training steps (B =
+     2 x S = 2048); mamba2-370m's prefill and decodes; moonshot's at 5 of
+     48 layers (the tp MoE island). Prefill logits and decodes by the row
+     gates, greedy tokens equal, the first step's gradient leaves by the
+     [train] row gate, losses within the [train] gate, launches
+     equal to the plain path's and to one flash launch per attention call
+     and one SSD launch per Mamba2 layer; bit-equality printed; prefill
+     ms, decode ms a step, step ms and peak GB beside the plain path's
+     (DTensor's host cost). The group is destroyed before resume and boot.
   8. resume, with no tuning profile active and under
      torch.use_deterministic_algorithms(True): qwen2.5-3b at
      full width trains 6 steps (run A), then anew 3 steps, saves a striped
@@ -2187,6 +2207,348 @@ def train_tuned(card: str, arch: str, cfg, step_fn, params, opt, loader,
     return params, opt
 
 
+# the [shard] phase: a sequence shard's q rows at their offset, and the
+# sharded model on a one-device NCCL mesh
+SHARD_KERNEL_SHAPES = {  # name: (B, S, Hq, Hkv, D, window); 4 shards of S
+    QWEN: (2, 2048, 16, 2, 128, 0), ZAMBA: (8, 2048, 32, 32, 64, 4096)}
+SHARD_PIECES = 4
+SHARD_TRAIN_STEPS = 8
+# [shard]: moonshot-v1-16b-a3b's prefill at the training cells' depth cut
+SHARD_MOON_LAYERS = TRAIN_LAYERS[MOON]
+
+
+def phase_shard_kernels(card: str) -> None:
+    """The flash kernels on sequence shards at full width: q cut into
+    SHARD_PIECES pieces at offsets 0, S/4, S/2, 3S/4 (whole q tiles)
+    against the whole K/V, as the sharded model's attention island calls
+    them; each piece's o, LSE and dQ and the summed dK/dV held to the
+    plain versions by the row gates; the pieces' forward rows against the
+    unsharded call's bits; the deterministic backward two calls bit-equal
+    on each piece."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
+    from repro_torch.kernels.ref import (attention_backward_reference,
+                                         attention_lse_reference, row_rel_err)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    failed = []
+    for arch, (b, s, hq, hkv, d, window) in SHARD_KERNEL_SHAPES.items():
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                                   dtype=torch.bfloat16)
+                       for h in (hq, hkv, hkv, hq))
+        n = s // SHARD_PIECES
+        whole = flash_attention(q, k, v, causal=True, window=window)
+        kt, vt = (t.transpose(1, 2) for t in (k, v))
+        # the plain gradients of the whole sequence: dK, dV sum its pieces'
+        _, dk_ref, dv_ref = (g.transpose(1, 2) for g in
+                             attention_backward_reference(
+                                 q.transpose(1, 2), kt, vt, do.transpose(1, 2),
+                                 window=window))
+        rows, dk_sum, dv_sum, errs, det_equal = [], 0, 0, {}, True
+        for i in range(SHARD_PIECES):
+            off = i * n
+            qi, doi = (t[:, off:off + n].contiguous() for t in (q, do))
+            o, lse = flash_attention(qi, k, v, causal=True, window=window,
+                                     q_offset=off, return_lse=True)
+            dq, dk, dv = flash_attention_bwd(qi, k, v, lse, doi, causal=True,
+                                             window=window, q_offset=off)
+            det = [flash_attention_bwd_deterministic(
+                qi, k, v, lse, doi, causal=True, window=window, q_offset=off)
+                for _ in range(2)]
+            det_equal &= all(torch.equal(x, y) for x, y in zip(*det))
+            o_ref, lse_ref = attention_lse_reference(
+                qi.transpose(1, 2), kt, vt, window=window, q_offset=off)
+            (dq_ref,) = (attention_backward_reference(
+                qi.transpose(1, 2), kt, vt, doi.transpose(1, 2),
+                window=window, q_offset=off)[0].transpose(1, 2),)
+            for name, x, r, floor in (
+                    ("o", o, o_ref.transpose(1, 2), 0.0), ("lse", lse,
+                                                           lse_ref, 0.0),
+                    ("dq", dq, dq_ref, GRAD_ROW_FLOOR)):
+                errs[name] = max(errs.get(name, 0.0),
+                                 row_rel_err(x, r, floor=floor))
+            errs["lse_abs"] = max(errs.get("lse_abs", 0.0),
+                                  (lse - lse_ref).abs().max().item())
+            rows.append(o)
+            dk_sum = dk_sum + dk.float()
+            dv_sum = dv_sum + dv.float()
+        errs["dk"] = row_rel_err(dk_sum, dk_ref, floor=GRAD_ROW_FLOOR)
+        errs["dv"] = row_rel_err(dv_sum, dv_ref, floor=GRAD_ROW_FLOOR)
+        bits = torch.equal(torch.cat(rows, 1), whole)
+        ok = (all(math.isfinite(e) for e in errs.values())
+              and max(errs[x] for x in ("o", "lse", "dq", "dk", "dv"))
+              <= KERNEL_ROW_RTOL and errs["lse_abs"] <= LSE_ABS_TOL
+              and det_equal)
+        if not ok:
+            failed.append(arch)
+        say("shard", f"flash on {SHARD_PIECES} sequence shards of {arch}'s "
+            f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} window={window} (q_offset "
+            f"0, {n}, {2 * n}, {3 * n}): worst row rel L2 o {errs['o']:.3e}, "
+            f"LSE {errs['lse']:.3e} (abs {errs['lse_abs']:.3e}), dQ "
+            f"{errs['dq']:.3e}, summed dK {errs['dk']:.3e}, dV "
+            f"{errs['dv']:.3e} (tol {KERNEL_ROW_RTOL}; LSE abs "
+            f"{LSE_ABS_TOL}); the pieces' forward rows bit-equal to the "
+            f"unsharded call's: {bits}; deterministic backward two calls "
+            f"bit-equal: {det_equal} {'ok' if ok else 'FAIL'}")
+        del q, k, v, do, whole, rows, dk_sum, dv_sum
+        free_card()
+    if failed:
+        fail("shard", f"the offset kernels disagree with plain: {failed}")
+
+
+def phase_shard_model(card: str) -> None:
+    """The sharded path (``Model(cfg, make_rules(mesh))``: DTensors, the
+    islands) on a one-device NCCL ``DeviceMesh`` (1, 1) at full width,
+    against the plain path on the same weights: qwen2.5-3b served (8
+    requests through ServeEngine) and trained (SHARD_TRAIN_STEPS steps,
+    B = 2 x S = 2048), mamba2-370m prefilled and decoded, moonshot
+    prefilled at SHARD_MOON_LAYERS layers (the tp MoE island). Every
+    kernel launch count equals the plain path's; prefill logits and decodes
+    are held by the row gates, greedy tokens equal, the losses within the
+    [train] gate; the host cost of DTensor's dispatch is the times beside
+    the plain path's. The group is destroyed at the end, before [resume]
+    and [boot], whose launcher children must not inherit it."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store_dir = tempfile.mkdtemp(prefix="shard-store-", dir=ROOT / "build")
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(store_dir) / "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        failed = []
+        for arch, fn in ((QWEN, _shard_serve), (MAMBA, _shard_serve),
+                         (MOON, _shard_serve), (QWEN, _shard_train)):
+            if not fn(card, arch, mesh):
+                failed.append(f"{arch} {fn.__name__}")
+            free_card()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if failed:
+        fail("shard", f"the sharded path disagrees with the plain: {failed}")
+
+
+def _shard_model(arch: str, mesh):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.rules import make_rules
+    cfg = get_config(arch)
+    if arch == MOON:
+        cfg = dataclasses.replace(cfg, num_layers=SHARD_MOON_LAYERS)
+    return cfg, Model(cfg, device="cuda"), Model(cfg, make_rules(mesh))
+
+
+def _shard_serve(card: str, arch: str, mesh) -> bool:
+    """Prefill and decodes (and for qwen2.5-3b ServeEngine's 8 requests)
+    on the plain and the sharded path; True if they agree."""
+    import torch
+    from repro_torch.kernels.ref import row_rel_err
+    from repro_torch.models.sharded import shard_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, plain, sharded = _shard_model(arch, mesh)
+    params = plain.init(torch.Generator(device="cuda").manual_seed(0))
+    dparams = shard_params(params, sharded.rules, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LENS[1]),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    out, times, counts, fed = {}, {}, {}, None
+    for name, model, p in (("plain", plain, params),
+                           ("sharded", sharded, dparams)):
+        unembed = model.unembed_table(p)
+        with torch.no_grad():   # warm-up: the first call of each path
+            model.prefill(p, {"tokens": toks}, cache_len=CACHE_LEN,
+                          unembed=unembed)
+        counters = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = model.prefill(p, {"tokens": toks},
+                                          cache_len=CACHE_LEN,
+                                          unembed=unembed)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        counts[name] = {k: c.launches for k, c in counters.items()}
+        full = logits.full_tensor() if name == "sharded" else logits
+        # both paths decode the plain path's greedy tokens, so that a
+        # near-tie cannot send them down different sequences
+        decodes, nxt = [], full.argmax(-1).int()
+        tokens = fed if fed is not None else []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(4):
+                if fed is None:
+                    tokens.append(nxt)
+                lg, cache = model.decode_step(p, tokens[i][:, None], cache,
+                                              PROMPT_LENS[1] + i,
+                                              unembed=unembed)
+                lg = lg.full_tensor() if name == "sharded" else lg
+                decodes.append(lg)
+                nxt = lg.argmax(-1).int()
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / 4
+        fed = tokens
+        out[name] = (full, torch.stack(decodes))
+        times[name] = (prefill_ms, decode_ms)
+        del cache
+    (pl, pd), (sl, sd) = out["plain"], out["sharded"]
+    prefill_err = row_rel_err(sl, pl)
+    decode_err = row_rel_err(sd, pd)
+    same_tokens = torch.equal(pl.argmax(-1), sl.argmax(-1)) and torch.equal(
+        pd.argmax(-1), sd.argmax(-1))
+    want = dict.fromkeys(counts["plain"], 0)
+    want.update(prefill_launches(cfg))
+    ok = (prefill_err <= REFERENCE_ROW_RTOL and decode_err <= CONSISTENCY_RTOL
+          and same_tokens and counts["plain"] == counts["sharded"] == want)
+    engine_note = ""
+    if arch == QWEN:
+        got = {}
+        for name, model, p in (("plain", plain, params),
+                               ("sharded", sharded, dparams)):
+            engine = ServeEngine(model, p, batch=BATCH, cache_len=CACHE_LEN,
+                                 device=model.device)
+            reqs = [Request(prompt=toks[i, :PROMPT_LENS[i % 2]].cpu().numpy(),
+                            max_new_tokens=NEW_TOKENS) for i in range(BATCH)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = [r.generated for r in engine.generate(reqs)]
+            torch.cuda.synchronize()
+            times[name] += (time.perf_counter() - t0,)
+        ok &= got["plain"] == got["sharded"]
+        engine_note = (f"; ServeEngine, {BATCH} requests of "
+                       f"{NEW_TOKENS} tokens: greedy tokens equal "
+                       f"{got['plain'] == got['sharded']}, "
+                       f"{times['sharded'][2]:.2f} s sharded, "
+                       f"{times['plain'][2]:.2f} s plain")
+    say("shard", f"{arch} on a (1, 1) NCCL mesh, {cfg.num_layers} layers: "
+        f"prefill logits bit-equal {torch.equal(sl, pl)} (worst row rel L2 "
+        f"{prefill_err:.3e}, tol {REFERENCE_ROW_RTOL}), 4 decodes bit-equal "
+        f"{torch.equal(sd, pd)} ({decode_err:.3e}, tol {CONSISTENCY_RTOL}), "
+        f"greedy tokens equal {same_tokens}; launches {counts['sharded']} "
+        f"(plain {counts['plain']}); prefill {times['sharded'][0]:.1f} ms "
+        f"(plain {times['plain'][0]:.1f}), decode "
+        f"{times['sharded'][1]:.1f} ms a step (plain "
+        f"{times['plain'][1]:.1f}){engine_note}; {card} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _shard_train(card: str, arch: str, mesh) -> bool:
+    """The first step's gradient and SHARD_TRAIN_STEPS AdamW steps from the
+    same masters on the plain and the sharded path: every gradient leaf
+    within TRAIN_GRAD_ROW_RTOL of the plain path's by its worst row (the
+    fast flash backward's atomics make neither path's bits repeat: the
+    plain path's own second call is printed beside it), the
+    losses within TRAIN_LOSS_RTOL, launches equal. The peak is the steps'."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt.checkpoint import flat_with_names
+    from repro_torch.data.loader import Loader, ShardedLoader
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.kernels.ref import row_rel_err
+    from repro_torch.models.sharded import shard_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_map
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    cfg, plain, sharded = _shard_model(arch, mesh)
+    runs, plain_grads, grad_errs, noise = {}, None, {}, {}
+
+    def first_grads(model, params, loader):
+        grads = tree_map(torch.zeros_like, params)
+        loss_and_grads(model, params, loader(0), grads)
+        return grads
+
+    def leaf_errs(grads) -> dict:
+        out = {}
+        for key, g in flat_with_names(grads):
+            if isinstance(g, DTensor):
+                g = g.full_tensor()
+            ref = plain_grads[key].cuda()
+            out[key] = (row_rel_err(g, ref, floor=GRAD_ROW_FLOOR),
+                        torch.equal(g, ref))
+        return out
+
+    for name, model in (("plain", plain), ("sharded", sharded)):
+        free_card()
+        params = plain.init(torch.Generator(device="cuda").manual_seed(0),
+                            dtype=torch.float32)
+        stream = SyntheticStream(cfg.vocab_size, 0)
+        if name == "sharded":
+            params = shard_params(params, model.rules, cfg)
+            loader = ShardedLoader(stream, model.rules, TRAIN_BATCH,
+                                   TRAIN_SEQ)
+        else:
+            loader = Loader(stream, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+        grads = first_grads(model, params, loader)
+        if name == "plain":   # kept on the host, one leaf back at a time
+            plain_grads = dict(flat_with_names(tree_map(
+                lambda t: t.cpu(), grads)))
+            # the plain path against itself: the yardstick of the gate
+            del grads
+            grads = first_grads(model, params, loader)
+            noise = leaf_errs(grads)
+        else:
+            grad_errs = leaf_errs(grads)
+            plain_grads = None
+        del grads
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        opt = adamw_init(params)
+        step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+        counters = reset_launches()
+        losses, times = [], []
+        for step in range(SHARD_TRAIN_STEPS):
+            batch = loader(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+        runs[name] = dict(losses=losses,
+                          step_ms=1e3 * statistics.median(times[1:]),
+                          peak=torch.cuda.max_memory_allocated() / 1e9,
+                          launches={k: c.launches
+                                    for k, c in counters.items()})
+        del params, opt, batch, metrics
+    p, s = runs["plain"], runs["sharded"]
+    worst = max(abs(a - b) / abs(a) for a, b in zip(p["losses"], s["losses"]))
+    worst_leaf = max(grad_errs, key=lambda k: grad_errs[k][0])
+    noise_leaf = max(noise, key=lambda k: noise[k][0])
+    grad_equal = sum(eq for _, eq in grad_errs.values())
+    # each forward kernel twice a step (forward, remat's recompute), its
+    # backward once
+    fwd = prefill_launches(cfg)
+    want = dict.fromkeys(s["launches"], 0)
+    want.update({k: 2 * n * SHARD_TRAIN_STEPS for k, n in fwd.items()},
+                flash_attention_bwd=fwd["flash_attention"] * SHARD_TRAIN_STEPS,
+                ssd_bwd=fwd["ssd"] * SHARD_TRAIN_STEPS)
+    ok = (worst <= TRAIN_LOSS_RTOL and p["launches"] == s["launches"] == want
+          and all(math.isfinite(x) for x in s["losses"])
+          and all(math.isfinite(e) and e <= TRAIN_GRAD_ROW_RTOL
+                  for e, _ in grad_errs.values())
+          and s["peak"] < CARD_BYTES / 1e9)
+    say("shard", f"{arch} trained {SHARD_TRAIN_STEPS} steps at B = "
+        f"{TRAIN_BATCH} x S = {TRAIN_SEQ} on a (1, 1) NCCL mesh: the first "
+        f"step's {len(grad_errs)} gradient leaves against the plain path's, "
+        f"worst row rel L2 {grad_errs[worst_leaf][0]:.3e} ({worst_leaf}, tol "
+        f"{TRAIN_GRAD_ROW_RTOL}, floor {GRAD_ROW_FLOOR} x median), "
+        f"{grad_equal} bit-equal; the plain path's against its own second "
+        f"call {noise[noise_leaf][0]:.3e} ({noise_leaf}), "
+        f"{sum(eq for _, eq in noise.values())} bit-equal; loss "
+        f"{s['losses'][0]:.4f} -> {s['losses'][-1]:.4f} (plain "
+        f"{p['losses'][0]:.4f} -> {p['losses'][-1]:.4f}), worst relative "
+        f"difference {worst:.3e} (tol {TRAIN_LOSS_RTOL}), losses bit-equal "
+        f"{p['losses'] == s['losses']}; launches {s['launches']} (plain "
+        f"{p['launches']}); step {s['step_ms']:.1f} ms (plain "
+        f"{p['step_ms']:.1f}, median of steps 2-{SHARD_TRAIN_STEPS}), peak "
+        f"{s['peak']:.2f} GB (plain {p['peak']:.2f}); {card} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def phase_moe_block(card: str) -> None:
     """moonshot-v1-16b-a3b's MoE block at its training shape (B = 2 x S =
     2048 tokens, D = 2048, 64 experts, top 6, F = 1408; bf16 activations,
@@ -2679,6 +3041,8 @@ def main() -> int:
                for arch in archs]
     for entry in (flash_bwd, ssd_bwd):
         entry["launches"] = sum(c[entry["name"]] for c in trained)
+    timed("shard kernels", phase_shard_kernels, card)
+    timed("shard model", phase_shard_model, card)
     flash_bwd_det["launches"] = timed("resume", phase_resume, card)
     timed("boot", phase_boot, card)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, flash_bwd_det,

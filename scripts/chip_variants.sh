@@ -12,7 +12,8 @@
 # chip_smoke.py's device and build phases and the kernel phases of FILE
 # (ssd.cu: the SSD phase; ssd_bwd.cu: the SSD backward's;
 # flash_attention.cu: the forward's and the backward's, which checks the
-# forward's LSE; flash_attention_bwd.cu: the backward's), one after another. Prints per variant the changed lines,
+# forward's LSE; flash_attention_bwd.cu: the backward's; both also the
+# sequence shards' of [shard]), one after another. Prints per variant the changed lines,
 # ptxas's lines for that kernel at D = 128 or the serving shape, the
 # phases' [kernels] lines, the profiler's time per launch of the timed
 # kernels and their exit code (a planted fault must give 1).
@@ -40,16 +41,17 @@ for name in "${names[@]}"; do
     ssd_bwd.cu)
       phases="c.phase_ssd_bwd_kernels(card)"; kernel="ssd_bwd_[a-z]*_kernelILi64ELi128" ;;
     flash_attention.cu)
-      phases="c.phase_kernels(card); c.phase_flash_bwd_kernels(card)"
+      phases="c.phase_kernels(card); c.phase_flash_bwd_kernels(card); c.phase_shard_kernels(card)"
       kernel=flash_fwd_kernelILi128 ;;
-    *) phases="c.phase_flash_bwd_kernels(card)"; kernel="flash_bwd_[a-z]*_kernelILi128" ;;
+    *) phases="c.phase_flash_bwd_kernels(card); c.phase_shard_kernels(card)"
+       kernel="flash_bwd_[a-z]*_kernelILi128" ;;
   esac
   (cd "$d" && timeout 600 python3 -c "import chip_smoke as c
 card = c.phase_device(); c.phase_build(); $phases" > run.log 2>&1)
   rc=$?
   echo "== $name"
   grep -A2 "$kernel" "$d/build.log" | grep -E "spill|registers"
-  grep -E "^\[kernels\]" "$d/run.log" | cut -c1-420
+  grep -E "^\[(kernels|shard)\]" "$d/run.log" | cut -c1-420
   grep -E "^\[profile\].* \*[a-z_]*\* " "$d/run.log" | cut -c1-160
   grep -E "Error|error" "$d/run.log" | tail -3
   echo "== $name exit $rc"

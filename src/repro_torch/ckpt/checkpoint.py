@@ -107,6 +107,71 @@ def _flat_specs(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def _is_dtensor(t: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _dtensor_spec(t) -> Optional[tuple]:
+    """A DTensor's layout as a PartitionSpec-like tuple: per dim the mesh
+    axes that shard it (None: replicated); None for a plain tensor."""
+    if not _is_dtensor(t):
+        return None
+    names = t.device_mesh.mesh_dim_names
+    axes: list = [[] for _ in range(t.ndim)]
+    for m, p in enumerate(t.placements):
+        if p.is_partial():
+            raise ValueError("checkpoint: a partial DTensor has no layout")
+        if p.is_shard():
+            axes[p.dim].append(names[m])
+    return tuple(None if not a else (a[0] if len(a) == 1 else tuple(a))
+                 for a in axes)
+
+
+def _spec_tree(like: Any) -> Any:
+    if isinstance(like, dict):
+        return {k: _spec_tree(v) for k, v in like.items()}
+    return _dtensor_spec(like)
+
+
+def _gathered_on_rank0(method):
+    """``save`` and ``save_delta`` of trees holding DTensors: every rank
+    gathers each leaf to full size (a collective) and rank 0 writes it, as
+    the reference's ``np.asarray`` gathers to the host; every rank waits
+    for the write, then sees it (``HdfsCluster.refresh``), and rank 0
+    returns the manifest (the others None). One leaf at a time is whole on
+    a device: rank 0 copies it to the host at once, the others drop it, so
+    a model that only fits the mesh sharded can still be saved."""
+    import functools
+
+    @functools.wraps(method)
+    def wrapped(self, step, *trees, **kw):
+        if not any(_is_dtensor(leaf) for tree in trees
+                   for _, leaf in flat_with_names(tree)):
+            return method(self, step, *trees, **kw)
+        import torch.distributed as dist
+        rank0 = dist.get_rank() == 0
+
+        def to_host(leaf):
+            if not _is_dtensor(leaf):
+                return leaf
+            whole = leaf.full_tensor()
+            # a copy on a CPU mesh too: the gathered buffer goes at once
+            return whole.to("cpu", copy=True) if rank0 else None
+
+        host = tuple(_unflatten(tree, iter(
+            to_host(leaf) for _, leaf in flat_with_names(tree)))
+            for tree in trees)
+        try:
+            return method(self, step, *host, **kw) if rank0 else None
+        finally:
+            dist.barrier()
+            if dist.get_rank() != 0:
+                self.hdfs.refresh()
+
+    return wrapped
+
+
 def _unflatten(like: Any, leaves: Iterator) -> Any:
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
@@ -295,6 +360,7 @@ class Checkpointer:
     def _piece_bytes(self, hash_chunk: int) -> int:
         return max(hash_chunk, PIECE_BYTES // hash_chunk * hash_chunk)
 
+    @_gathered_on_rank0
     def save(self, step: int, *trees: Any,
              meta: Optional[dict] = None) -> TensorIndex:
         """A full snapshot of ``trees`` (params first) as step ``step``,
@@ -329,6 +395,7 @@ class Checkpointer:
                         "save_crc_wait_s": crc_wait_s}
         return index
 
+    @_gathered_on_rank0
     def save_delta(self, step: int, *trees: Any, base: Optional[int] = None,
                    meta: Optional[dict] = None) -> TensorIndex:
         """Incremental save: only the byte ranges of ``trees`` whose chunk
@@ -461,8 +528,7 @@ class Checkpointer:
         """{entry name: per-dim (start, size)} for this host. ``specs``
         are trees of PartitionSpec-like sequences (``None``: replicated)
         congruent to ``likes``, read against ``axis_sizes`` and
-        ``coords`` (plain dicts); a mesh of more than one device raises
-        until the port shards (ROADMAP.md A.7)."""
+        ``coords`` (plain dicts): this host's slice of each entry."""
         out: dict = {}
         for name, rows in (shard_slices or {}).items():
             try:
@@ -474,10 +540,6 @@ class Checkpointer:
         if specs is None:
             return out
         sizes = dict(axis_sizes or {})
-        if any(int(n) > 1 for n in sizes.values()):
-            raise NotImplementedError(
-                f"restore: a mesh of axis sizes {sizes} — the port restores "
-                "on one device; sharded restores come with ROADMAP.md A.7")
         for ti, spec_tree in enumerate(specs):
             if spec_tree is None or ti >= len(likes):
                 continue
@@ -513,7 +575,21 @@ class Checkpointer:
                      shard_slices: Optional[dict] = None, sched=None,
                      **plan_kw) -> tuple[TensorIndex, list[RestorePlan]]:
         """This host's restore plan for ``step``: one ``RestorePlan`` per
-        wave (params, then optimizer state)."""
+        wave (params, then optimizer state). Likes of DTensors default
+        ``specs`` to their placements, ``axis_sizes`` to their mesh's and
+        ``coords`` to this rank's coordinates on it."""
+        mesh_likes = [leaf for like in likes
+                      for _, leaf in flat_with_names(like)
+                      if _is_dtensor(leaf)]
+        if mesh_likes:
+            mesh = mesh_likes[0].device_mesh
+            if specs is None:
+                specs = tuple(_spec_tree(like) for like in likes)
+            if axis_sizes is None:
+                axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+            if coords is None:
+                coords = dict(zip(mesh.mesh_dim_names,
+                                  mesh.get_coordinate()))
         index = self.load_index(step, sched=sched)
         slices = self._dim_slices(index, likes, specs=specs,
                                   axis_sizes=axis_sizes, coords=coords,
@@ -617,6 +693,12 @@ class Checkpointer:
                     raise ValueError(f"restore: {key} has shape "
                                      f"{tuple(t.shape)} in the checkpoint, "
                                      f"{tuple(shape)} in the tree")
+                if _is_dtensor(leaf):
+                    from torch.distributed.tensor import DTensor
+                    t = DTensor.from_local(
+                        t, leaf.device_mesh, leaf.placements,
+                        run_check=False, shape=leaf.shape,
+                        stride=leaf.stride())
                 leaves.append(t)
             out.append(_unflatten(like, iter(leaves)))
         return out
@@ -639,7 +721,12 @@ class Checkpointer:
         (the reference reads a synchronous tail at ``priority``).
         ``timings`` then holds ``wave0_read_s``, ``wave0_copy_s``,
         ``wave0_bytes`` and, once the tail is done, ``tail_s`` and
-        ``tail_bytes``."""
+        ``tail_bytes``.
+
+        Trees of DTensors (``Model.init_like`` on a mesh): by default each
+        leaf's placements are its spec, against its mesh's sizes and this
+        rank's coordinates, so the rank plans and reads only its slices;
+        each comes back as a DTensor with the like's placements."""
         device = torch.device(device)
         index, plans = self.plan_restore(
             step, *likes, specs=specs, axis_sizes=axis_sizes, coords=coords,

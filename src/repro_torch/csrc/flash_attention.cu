@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention.py: GQA attention with an online
-// softmax, causal and/or sliding-window masks on absolute positions that
-// both count from 0, padded KV columns masked by `kpos < Sk`, and the final
+// softmax, causal and/or sliding-window masks on absolute positions (key
+// j at position j, q row r at r + q_off: a sequence shard's rows against
+// the whole sequence's keys), padded KV columns masked by `kpos < Sk`, and the final
 // division clamping the row sum at 1e-30. P is rounded to bf16 before
 // P @ V. The kv head of q head h is h / (Hq / Hkv).
 //
@@ -177,7 +178,7 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
 template <int BK>
 __device__ __forceinline__ void online_softmax(float (&sacc)[BK / 2], float (&m)[2],
                                                float (&l)[2], float (&corr)[2],
-                                               bool masked, int row0, int k_lo,
+                                               bool masked, int pos0, int k_lo,
                                                int t, int Sk, int causal,
                                                int window, float scale_log2) {
   if (masked) {
@@ -185,7 +186,7 @@ __device__ __forceinline__ void online_softmax(float (&sacc)[BK / 2], float (&m)
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = row0 + (e >> 1) * 8;
+        const int r = pos0 + (e >> 1) * 8;
         const int c = k_lo + j * 8 + 2 * t + (e & 1);
         bool ok = c < Sk;
         if (causal) ok = ok && r >= c;
@@ -228,7 +229,7 @@ __device__ __forceinline__ void flash_fwd_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv,
     int Sq, int Sk, long long o_sb, long long o_ss, long long o_sh,
-    float scale_log2, int causal, int window) {
+    float scale_log2, int causal, int window, int q_off) {
   using T = Tiles<D, BQ, BK>;
   constexpr int kStages = T::kStages;
   constexpr int kTileBytes = T::kTileBytes;
@@ -250,12 +251,13 @@ __device__ __forceinline__ void flash_fwd_body(
   const int b = blockIdx.y / Hq;
   const int h = blockIdx.y % Hq;
   const int hk = h / (Hq / Hkv);
-  const int q_lo = q_tile * BQ;
+  const int q_lo = q_tile * BQ;   // the tile's first row
+  const int p_lo = q_lo + q_off;  // and its position
   int kt_end = (Sk + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, (q_lo + BQ - 1) / BK + 1);
+  if (causal) kt_end = min(kt_end, (p_lo + BQ - 1) / BK + 1);
   int kt_begin = 0;
-  if (window > 0 && q_lo - window + 1 > 0)
-    kt_begin = (q_lo - window + 1) / BK;
+  if (window > 0 && p_lo - window + 1 > 0)
+    kt_begin = (p_lo - window + 1) / BK;
   const int n_tiles = max(kt_end - kt_begin, 0);
 
   if (threadIdx.x == 0) {
@@ -303,6 +305,7 @@ __device__ __forceinline__ void flash_fwd_body(
     const int t = tid & 3;
     const int r_lo = q_lo + 64 * cw;
     const int row0 = r_lo + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const int pos0 = row0 + q_off;          // and their positions
     const uint32_t q_rows = sQ + 64 * cw * 128;  // inside each box
 
     float m[2] = {kNegInf, kNegInf};
@@ -319,8 +322,8 @@ __device__ __forceinline__ void flash_fwd_body(
     // Only tiles that touch the diagonal, a window edge or Sk need a mask.
     auto needs_mask = [&](int k_lo) {
       bool masked = k_lo + BK > Sk;
-      masked |= causal && k_lo + BK - 1 > r_lo;
-      masked |= window > 0 && k_lo <= r_lo + 63 - window;
+      masked |= causal && k_lo + BK - 1 > r_lo + q_off;
+      masked |= window > 0 && k_lo <= r_lo + q_off + 63 - window;
       return masked;
     };
 
@@ -333,7 +336,7 @@ __device__ __forceinline__ void flash_fwd_body(
       issue_qk<D, BQ, BK>(sacc, q_rows, sK);
       wgmma_wait<0>();
       fence_regs(sacc);
-      online_softmax<BK>(sacc, m, l, corr, needs_mask(k_lo), row0, k_lo, t, Sk,
+      online_softmax<BK>(sacc, m, l, corr, needs_mask(k_lo), pos0, k_lo, t, Sk,
                          causal, window, scale_log2);
       pack_a<BK>(sacc, pa);  // P in bf16, straight from the S accumulators
     }
@@ -347,7 +350,7 @@ __device__ __forceinline__ void flash_fwd_body(
       issue_pv<D, BQ, BK>(oacc, pa, sV, prev);
       wgmma_wait<1>();  // S of tile i is in; P V of tile i - 1 still runs
       fence_regs(sacc);
-      online_softmax<BK>(sacc, m, l, corr, needs_mask(k_lo), row0, k_lo, t, Sk,
+      online_softmax<BK>(sacc, m, l, corr, needs_mask(k_lo), pos0, k_lo, t, Sk,
                          causal, window, scale_log2);
       wgmma_wait<0>();
       fence_regs(oacc);
@@ -397,9 +400,9 @@ __device__ __forceinline__ void flash_fwd_body(
       const __grid_constant__ CUtensorMap tm_k,                                 \
       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,  \
       float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, long long o_sb, \
-      long long o_ss, long long o_sh, float scale_log2, int causal, int window
+      long long o_ss, long long o_sh, float scale_log2, int causal, int window, int q_off
 #define FLASH_FWD_ARGS \
-  &tm_q, &tm_k, &tm_v, o, lse, Hq, Hkv, Sq, Sk, o_sb, o_ss, o_sh, scale_log2, causal, window
+  &tm_q, &tm_k, &tm_v, o, lse, Hq, Hkv, Sq, Sk, o_sb, o_ss, o_sh, scale_log2, causal, window, q_off
 
 // Two consumers (BQ = 128): 384 threads, 3 warps on each register-file
 // partition, 168 registers a thread.
@@ -490,7 +493,7 @@ template <int D, int BQ, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
            int Hkv, int Sq, int Sk, const long long* qs, const long long* ks,
            const long long* vs, const long long* os, int causal, int window,
-           cudaStream_t stream) {
+           int q_off, cudaStream_t stream) {
   using T = Tiles<D, BQ, BK>;
   // A runtime call first: it makes the device's primary context current on
   // this thread, which cuTensorMapEncodeTiled needs. PyTorch does not bind
@@ -509,7 +512,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
   kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hkv, Sq, Sk, os[0], os[1],
-      os[2], scale_log2, causal, window);
+      os[2], scale_log2, causal, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -545,21 +548,22 @@ int launch_probe(const void* a, const void* k, const void* v, float* s_out,
 // a unit stride on D, other strides multiples of 8 elements and 16-byte
 // aligned bases. Each *_strides array holds the (batch, seq, head) strides
 // in elements. lse: null, or contiguous fp32 [B, Hq, Sq] for the rows'
-// log-sum-exp. (block_q, block_k) names the launch config, one of
+// log-sum-exp. q_off >= 0: row r of q stands at position r + q_off, key j
+// at j (0 for a whole sequence). (block_q, block_k) names the launch config, one of
 // FLASH_INSTANCES at D; any other is cudaErrorInvalidValue. Returns a
 // cudaError_t.
 extern "C" int repro_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int B, int Hq,
     int Hkv, int Sq, int Sk, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
-    const long long* o_strides, int causal, int window, int block_q, int block_k,
-    void* stream) {
+    const long long* o_strides, int causal, int window, int q_off, int block_q,
+    int block_k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define FLASH_LAUNCH(d, bq, bk)                                                  \
   if (D == d && block_q == bq && block_k == bk)                                  \
     return launch<d, bq, bk>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, q_strides, k_strides, \
-                             v_strides, o_strides, causal, window, s);
+                             v_strides, o_strides, causal, window, q_off, s);
   FLASH_INSTANCES(FLASH_LAUNCH)
 #undef FLASH_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -8,8 +8,9 @@
 // row log-sum-exp (csrc/flash_attention.cu with a non-null `lse`) and dO,
 // it returns dQ, dK and dV under the forward's conventions: GQA with the
 // kv head of q head h at h / (Hq / Hkv), so dK and dV sum over the group's
-// q heads; causal and sliding-window masks on absolute positions that both
-// count from 0; ragged Sq and Sk; D in {64, 128}; the model layout
+// q heads; causal and sliding-window masks on absolute positions (key j at
+// j, q row r at r + q_off: a sequence shard's rows against the whole
+// sequence's keys); ragged Sq and Sk; D in {64, 128}; the model layout
 // [B, S, H, D] with the caller's (batch, seq, head) strides.
 //
 // What bounds it. The work is 10 * D FLOPs per unmasked (q, k) pair (S
@@ -128,22 +129,26 @@ constexpr int kRowBytes = 2 * kQTile * 4;       // a q tile's LSE * log2 e and d
 constexpr int kChunkBytes = 64 * 64 * 4;        // an fp32 [64][64] chunk: a dQ partial
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The masks take positions, not rows: row r of q stands at r + q_off, so a
+// q tile's first row at p_lo = q_lo + q_off and the rows end at p_end = Sq +
+// q_off. The caller adds q_off once per tile (and per thread), not per pair.
+//
 // Whether a (64-row q tile, 64-key tile) pair has a pair to mask: a key
-// after a row (causal), a key at or before a row minus the window, a row
-// past Sq or a key past Sk.
-__device__ __forceinline__ bool tile_needs_mask(int q_lo, int k_lo, int Sq, int Sk,
+// after a row's position (causal), a key at or before a row's position
+// minus the window, a row past the last or a key past Sk.
+__device__ __forceinline__ bool tile_needs_mask(int p_lo, int k_lo, int p_end, int Sk,
                                                 int causal, int window) {
-  bool masked = q_lo + kQTile > Sq || k_lo + kKTile > Sk;
-  masked |= causal && k_lo + kKTile - 1 > q_lo;
-  masked |= window > 0 && k_lo <= q_lo + kQTile - 1 - window;
+  bool masked = p_lo + kQTile > p_end || k_lo + kKTile > Sk;
+  masked |= causal && k_lo + kKTile - 1 > p_lo;
+  masked |= window > 0 && k_lo <= p_lo + kQTile - 1 - window;
   return masked;
 }
 
-__device__ __forceinline__ bool visible(int r, int c, int Sq, int Sk, int causal,
+__device__ __forceinline__ bool visible(int p, int c, int p_end, int Sk, int causal,
                                         int window) {
-  bool ok = r < Sq && c < Sk;
-  if (causal) ok = ok && r >= c;
-  if (window > 0) ok = ok && c > r - window;
+  bool ok = p < p_end && c < Sk;
+  if (causal) ok = ok && p >= c;
+  if (window > 0) ok = ok && c > p - window;
   return ok;
 }
 
@@ -183,22 +188,22 @@ __device__ __forceinline__ void delta_mma(float (&s)[kKTile / 2], float (&dp)[kK
 }
 
 // delta += P o dP over one tile: P = exp2(S * scale_log2 - LSE * log2 e),
-// 0 where masked. Element 4 j + e is row row0 + 8 (e / 2), key k_lo + 8 j +
-// 2 t + e % 2.
+// 0 where masked. Element 4 j + e is the row at position pos0 + 8 (e / 2),
+// key k_lo + 8 j + 2 t + e % 2.
 __device__ __forceinline__ void delta_accumulate(const float (&s)[kKTile / 2],
                                                  const float (&dpacc)[kKTile / 2],
                                                  float (&drow)[2], const float (&lrow)[2],
-                                                 bool masked, int row0, int k_lo, int t, int Sq,
-                                                 int Sk, int causal, int window,
+                                                 bool masked, int pos0, int k_lo, int t,
+                                                 int p_end, int Sk, int causal, int window,
                                                  float scale_log2) {
 #pragma unroll
   for (int j = 0; j < kKTile / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = row0 + 8 * (e >> 1);
+      const int r = pos0 + 8 * (e >> 1);
       const int c = k_lo + 8 * j + 2 * t + (e & 1);
       float p = exp2f(s[4 * j + e] * scale_log2 - lrow[e >> 1]);
-      p = (!masked || visible(r, c, Sq, Sk, causal, window)) ? p : 0.f;
+      p = (!masked || visible(r, c, p_end, Sk, causal, window)) ? p : 0.f;
       drow[e >> 1] += p * dpacc[4 * j + e];
     }
 }
@@ -211,7 +216,7 @@ flash_bwd_delta_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v,
                        const float* __restrict__ lse, float* __restrict__ rows,
                        float* __restrict__ dq_acc, int Hq, int Hkv, int Sq, int Sk,
-                       int Sq_pad, float scale_log2, int causal, int window) {
+                       int Sq_pad, float scale_log2, int causal, int window, int q_off) {
   constexpr int kTileBytes = kQTile * D * 2;  // Q, dO, or one K or V tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -230,10 +235,11 @@ flash_bwd_delta_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = bh / Hq;
   const int h = bh % Hq;
   const int hk = h / (Hq / Hkv);
+  const int p_lo = q_lo + q_off;  // the tile's first position
   int kt_end = (Sk + kKTile - 1) / kKTile;
-  if (causal) kt_end = min(kt_end, (q_lo + kQTile - 1) / kKTile + 1);
+  if (causal) kt_end = min(kt_end, (p_lo + kQTile - 1) / kKTile + 1);
   int kt_begin = 0;
-  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / kKTile;
+  if (window > 0 && p_lo - window + 1 > 0) kt_begin = (p_lo - window + 1) / kKTile;
   const int n_tiles = max(kt_end - kt_begin, 0);
 
   if (threadIdx.x == 0) {
@@ -277,6 +283,8 @@ flash_bwd_delta_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int g = (tid % 32) >> 2;
   const int t = tid & 3;
   const int row0 = q_lo + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const int pos0 = row0 + q_off;           // and their positions
+  const int p_end = Sq + q_off;
 
   // the main kernel adds every key tile's dQ partial into these rows
   float4* zero = reinterpret_cast<float4*>(dq_acc + (static_cast<long long>(bh) * Sq_pad + q_lo) * D);
@@ -299,8 +307,9 @@ flash_bwd_delta_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sacc);
     fence_regs(dpacc);
     mbar_arrive(empty + 8 * stage);
-    delta_accumulate(sacc, dpacc, drow, lrow, tile_needs_mask(q_lo, k_lo, Sq, Sk, causal, window),
-                     row0, k_lo, t, Sq, Sk, causal, window, scale_log2);
+    delta_accumulate(sacc, dpacc, drow, lrow,
+                     tile_needs_mask(p_lo, k_lo, p_end, Sk, causal, window), pos0, k_lo, t,
+                     p_end, Sk, causal, window, scale_log2);
   }
   // the quad's four shares of each row; rows past Sq get zeros
 #pragma unroll
@@ -387,9 +396,9 @@ __device__ __forceinline__ void reduce_staged(uint32_t smem, float* dst, int byt
 
 // The first key tile whose main block walks q tile `qt`: the main kernel's
 // q-tile range [qt_begin, qt_end) holds qt for key tiles kb >= this one
-// (qt_end grows with kb), up to kb = qt when causal.
-__device__ __forceinline__ int first_key_tile(int qt, int window) {
-  const int need = kQTile * qt - (kKTile - 2) - window;  // kb * kKTile >= need
+// (qt_end grows with kb), up to the last key tile its rows see when causal.
+__device__ __forceinline__ int first_key_tile(int qt, int window, int q_off) {
+  const int need = kQTile * qt + q_off - (kKTile - 2) - window;  // kb * kKTile >= need
   return window <= 0 || need <= 0 ? 0 : (need + kKTile - 1) / kKTile;
 }
 
@@ -435,7 +444,7 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const float* __restrict__ rows, float* __restrict__ dq_acc,
                       float* __restrict__ dkv_acc, int* __restrict__ dq_sem, int B, int Hq,
                       int Hkv, int Sq, int Sk, int Sq_pad, int Sk_pad, float scale_log2,
-                      int causal, int window) {
+                      int causal, int window, int q_off) {
   constexpr int kQTileBytes = kQTile * D * 2;  // a Q or dO tile
   constexpr int kKVBytes = kKTile * D * 2;     // the K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -461,10 +470,15 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.x % Hq;
   const int hk = h / (Hq / Hkv);
   const int k_lo = kb * kKTile;
-  const int qt_begin = causal ? k_lo / kQTile : 0;
+  // the q tiles whose rows' positions (row + q_off) see one of these keys
+  const int qt_begin = causal ? max(k_lo - q_off, 0) / kQTile : 0;
   int qt_end = Sq_pad / kQTile;
-  if (window > 0) qt_end = min(qt_end, (k_lo + kKTile - 2 + window) / kQTile + 1);
+  if (window > 0) {
+    const int last_row = k_lo + kKTile - 2 + window - q_off;  // the last one that sees a key
+    qt_end = last_row < 0 ? 0 : min(qt_end, last_row / kQTile + 1);
+  }
   const int n_q = max(qt_end - qt_begin, 0);  // iteration i: q tile qt_begin + i
+  const int p_end = Sq + q_off;               // the masks' bound on row positions
   // this block's share of dK's fp32 sum (dV's one plane further), summing
   // the group's q heads across blocks; with kDet its own slot of them
   const int slot = kDet ? b * Hq + h : b * Hkv + hk;
@@ -520,6 +534,7 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < n_q; ++i) {
       const int stage = i % kStages;
       const int q_lo = (qt_begin + i) * kQTile;
+      const int p_lo = q_lo + q_off;  // its first row's position
       const uint32_t q_s = sQ + stage * kQTileBytes;
       const uint32_t do_s = sDO + stage * kQTileBytes;
       const float* lse2 = rows_s + stage * (kRowBytes / 4);  // LSE * log2 e
@@ -537,16 +552,16 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sacc);
       // P^T = exp2(S^T * scale_log2 - LSE * log2 e), 0 where masked, in fp32
       // for warpgroup 1's dS^T (the same thread of it holds the same elements)
-      const bool masked = tile_needs_mask(q_lo, k_lo, Sq, Sk, causal, window);
+      const bool masked = tile_needs_mask(p_lo, k_lo, p_end, Sk, causal, window);
 #pragma unroll
       for (int j = 0; j < kQTile / 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = q_lo + 8 * j + 2 * t + (e & 1);
+          const int r = p_lo + 8 * j + 2 * t + (e & 1);
           const int c = k_lo + 16 * warp + g + 8 * (e >> 1);
           const float p = exp2f(sacc[4 * j + e] * scale_log2 - ((e & 1) ? l2.y : l2.x));
-          sacc[4 * j + e] = (!masked || visible(r, c, Sq, Sk, causal, window)) ? p : 0.f;
+          sacc[4 * j + e] = (!masked || visible(r, c, p_end, Sk, causal, window)) ? p : 0.f;
         }
         p_s[j * 128 + tid] = make_float4(sacc[4 * j], sacc[4 * j + 1], sacc[4 * j + 2],
                                          sacc[4 * j + 3]);
@@ -575,7 +590,7 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int qt = qt_begin + i;
       dq_partial<kDet>(sDS, sK, sDQ,
                        dq_acc + (static_cast<long long>(b * Hq + h) * Sq_pad + q_lo) * D,
-                       sems + 2 * qt, kb - first_key_tile(qt, window), tid, 3);
+                       sems + 2 * qt, kb - first_key_tile(qt, window, q_off), tid, 3);
     }
     // dV, staged in the Q ring once warpgroup 1's last dK has read it
     named_barrier(5, 256);
@@ -648,7 +663,7 @@ flash_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
         dq_partial<kDet>(sDS, sK + kKBoxBytes, sDQ + kChunkBytes,
                          dq_acc + (static_cast<long long>(b * Hq + h) * Sq_pad + q_lo) * D +
                              kQTile * 64,
-                         sems + 2 * qt, kb - first_key_tile(qt, window), tid, 4);
+                         sems + 2 * qt, kb - first_key_tile(qt, window, q_off), tid, 4);
       }
     }
     // dK, staged in the dO ring
@@ -721,7 +736,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
            int Hq, int Hkv, int Sq, int Sk, const long long* qs, const long long* ks,
            const long long* vs, const long long* dos, const long long* dqs,
            const long long* dks, const long long* dvs, int causal, int window,
-           cudaStream_t stream) {
+           int q_off, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const int Sq_pad = (Sq + kQTile - 1) / kQTile * kQTile;
   const int Sk_pad = (Sk + kKTile - 1) / kKTile * kKTile;
@@ -740,7 +755,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_bwd_delta_kernel<D><<<dim3(Sq_pad / kQTile, B * Hq), 160, delta_bytes, stream>>>(
       tq, tdo, tk, tv, lse, rows, dq_acc, Hq, Hkv, Sq, Sk, Sq_pad, scale_log2, causal,
-      window);
+      window, q_off);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -751,7 +766,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   const int main_blocks = Sk_pad / kKTile * B * Hq;  // 1024 at the training shape
   flash_bwd_main_kernel<D, kDet><<<main_blocks, 256, main_bytes, stream>>>(
       tq, tdo, tk, tv, rows, dq_acc, dkv_acc, dq_sem, B, Hq, Hkv, Sq, Sk, Sq_pad, Sk_pad,
-      scale_log2, causal, window);
+      scale_log2, causal, window, q_off);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
@@ -778,7 +793,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // written before they are read; dkv_acc [2, B * Hkv, Sk_pad, D], zeros.
 // dq_sem null takes the fast path. Non-null, it is int32 [B * Hq, Sq_pad /
 // 64, 2], zeros, and the path is deterministic; dkv_acc is then
-// [2, B * Hq, Sk_pad, D], written before it is read. Returns a cudaError_t.
+// [2, B * Hq, Sk_pad, D], written before it is read. q_off >= 0: row r of
+// q stands at position r + q_off, key j at j. Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     void* rows, void* dq_acc, void* dkv_acc, void* dq_sem, void* dq, void* dk, void* dv,
@@ -786,7 +802,7 @@ extern "C" int repro_flash_attention_bwd_bf16(
     int Hkv, int Sq, int Sk, int D, const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* do_strides, const long long* dq_strides,
     const long long* dk_strides, const long long* dv_strides, int causal, int window,
-    void* stream) {
+    int q_off, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* r = static_cast<float*>(rows);
@@ -796,7 +812,7 @@ extern "C" int repro_flash_attention_bwd_bf16(
 #define REPRO_BWD_LAUNCH(D_, DET_)                                                          \
   launch<D_, DET_>(q, k, v, dout, l, r, aq, akv, sem, dq, dk, dv, B, Hq, Hkv, Sq, Sk,       \
                    q_strides, k_strides, v_strides, do_strides, dq_strides, dk_strides,     \
-                   dv_strides, causal, window, s)
+                   dv_strides, causal, window, q_off, s)
   if (D == 64) return sem ? REPRO_BWD_LAUNCH(64, true) : REPRO_BWD_LAUNCH(64, false);
   if (D == 128) return sem ? REPRO_BWD_LAUNCH(128, true) : REPRO_BWD_LAUNCH(128, false);
 #undef REPRO_BWD_LAUNCH

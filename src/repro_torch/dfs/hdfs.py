@@ -136,6 +136,13 @@ class HdfsCluster:
 
     # ----- namenode persistence -----
 
+    def refresh(self):
+        """Reload the namenode's metadata from disk: the files another
+        process (another rank of a mesh) wrote since this one loaded it."""
+        with self._lock:
+            if self._meta_path.exists():
+                self._load_meta()
+
     def _load_meta(self):
         raw = json.loads(self._meta_path.read_text())
         self._counter = raw.get("counter", 0)

@@ -73,9 +73,9 @@ _s = ctypes.POINTER(ctypes.c_longlong)
 # the C entry points of csrc/flash_attention.cu and their arguments
 _SIGNATURES = {
     "repro_flash_attention_fwd_bf16":
-        [_p] * 5 + [_i] * 6 + [_s] * 4 + [_i] * 4 + [_p],
+        [_p] * 5 + [_i] * 6 + [_s] * 4 + [_i] * 5 + [_p],
     "repro_flash_attention_bwd_bf16":
-        [_p] * 12 + [_i] * 6 + [_s] * 7 + [_i, _i, _p],
+        [_p] * 12 + [_i] * 6 + [_s] * 7 + [_i] * 3 + [_p],
     "repro_flash_wgmma_probe_bf16": [_p, _p, _p, _p, _p, _i, _p],
     "repro_flash_attention_fwd_smem_bytes": [_i, _i, _i],
 }
@@ -150,7 +150,7 @@ def shared_memory_bytes(d: int, block_q: int, block_k: int) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
                     return_lse: bool = False,
                     block_q: int = DEFAULT_CONFIG[0],
                     block_k: int = DEFAULT_CONFIG[1]):
@@ -158,11 +158,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns o [B, Sq, Hq, D] in bf16, and with ``return_lse`` (o, lse):
     lse [B, Hq, Sq] fp32, the logsumexp over each row's visible keys of the
     scaled scores (natural log), as ``flash_attention_bwd`` takes it.
-    (``block_q``, ``block_k``) picks the launch config from ``CONFIGS``."""
+    (``block_q``, ``block_k``) picks the launch config from ``CONFIGS``.
+    Row r of q stands at position r + ``q_offset`` and key j at j, for the
+    causal and window masks: a sequence shard's q rows against the whole
+    sequence's keys (0: q and k both from position 0)."""
     check_config(q.shape[-1], block_q, block_k)
     _check(q, k, v)
-    if window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
+    _check_positions(window, q_offset, "flash_attention")
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -175,7 +177,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), 0 if lse is None else lse.data_ptr(),
                        b, hq, hkv, sq, sk, d, *strides, int(causal),
-                       int(window), block_q, block_k, stream)
+                       int(window), int(q_offset), block_q, block_k, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: launch failed, cudaError {err}")
     flash_attention.launches += 1
@@ -191,7 +193,8 @@ flash_attention.config_launches = {}
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, window: int = 0):
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
     """The gradients of ``flash_attention(q, k, v)`` for the output
     gradient ``do``, given the forward's ``lse`` (``return_lse``). q, do:
     [B, Sq, Hq, D]; k/v: [B, Sk, Hkv, D], bf16 on CUDA; lse [B, Hq, Sq]
@@ -201,9 +204,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dP) from a pass of their own rather than rowsum(dO o O) from the
     forward's output, whose bf16 rounding of P moves rows of dQ by up to
     ~5% (csrc/flash_attention_bwd.cu). dQ, dK and dV are sums across
-    blocks by fp32 atomics, so their low bits may vary from call to call."""
+    blocks by fp32 atomics, so their low bits may vary from call to call.
+    ``q_offset`` is the forward's."""
     out = _backward(q, k, v, lse, do, causal=causal, window=window,
-                    deterministic=False)
+                    q_offset=q_offset, deterministic=False)
     flash_attention_bwd.launches += 1
     return out
 
@@ -213,14 +217,15 @@ flash_attention_bwd.launches = 0
 
 def flash_attention_bwd_deterministic(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
-        do: torch.Tensor, *, causal: bool = True, window: int = 0):
+        do: torch.Tensor, *, causal: bool = True, window: int = 0,
+        q_offset: int = 0):
     """``flash_attention_bwd``'s gradients, bit-identical from call to call:
     dQ's partials are added in key-tile order (each waits its turn on a
     counter per q tile), dK's and dV's are kept per q head and summed in
     head order. It takes more scratch ([2, B, Hq, Sk, D] fp32 rather than
     [2, B, Hkv, Sk, D]) and more time."""
     out = _backward(q, k, v, lse, do, causal=causal, window=window,
-                    deterministic=True)
+                    q_offset=q_offset, deterministic=True)
     flash_attention_bwd_deterministic.launches += 1
     return out
 
@@ -228,11 +233,17 @@ def flash_attention_bwd_deterministic(
 flash_attention_bwd_deterministic.launches = 0
 
 
-def _backward(q, k, v, lse, do, *, causal: bool, window: int,
+def _check_positions(window: int, q_offset: int, name: str) -> None:
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset {q_offset} < 0")
+
+
+def _backward(q, k, v, lse, do, *, causal: bool, window: int, q_offset: int,
               deterministic: bool):
     _check(q, k, v, do=do)
-    if window < 0:
-        raise ValueError(f"flash_attention_bwd: window {window} < 0")
+    _check_positions(window, q_offset, "flash_attention_bwd")
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if (lse.device != q.device or lse.dtype != torch.float32
@@ -267,7 +278,7 @@ def _backward(q, k, v, lse, do, *, causal: bool, window: int,
             dkv_acc.data_ptr(), 0 if sems is None else sems.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, hq, hkv, sq, sk, d, *strides, int(causal), int(window),
-            stream)
+            int(q_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd: launch failed, cudaError "
                            f"{err}")
@@ -276,29 +287,30 @@ def _backward(q, k, v, lse, do, *, causal: bool, window: int,
 
 torch.library.define(
     "repro_torch::flash_attention_fwd",
-    "(Tensor q, Tensor k, Tensor v, bool causal, int window, int block_q, "
-    "int block_k, bool return_lse) -> (Tensor, Tensor)")
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, int q_offset, "
+    "int block_q, int block_k, bool return_lse) -> (Tensor, Tensor)")
 torch.library.define(
     "repro_torch::flash_attention_bwd",
     "(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor do, bool causal, "
-    "int window, bool deterministic) -> (Tensor, Tensor, Tensor)")
+    "int window, int q_offset, bool deterministic) -> (Tensor, Tensor, Tensor)")
 
 
 @torch.library.impl("repro_torch::flash_attention_fwd", "cuda")
-def _flash_fwd_cuda(q, k, v, causal, window, block_q, block_k, return_lse):
+def _flash_fwd_cuda(q, k, v, causal, window, q_offset, block_q, block_k,
+                    return_lse):
     """``flash_attention`` as an operator: (o, lse), lse empty unless
     ``return_lse``."""
     if return_lse:
         return flash_attention(q, k, v, causal=causal, window=window,
-                               return_lse=True, block_q=block_q,
-                               block_k=block_k)
+                               q_offset=q_offset, return_lse=True,
+                               block_q=block_q, block_k=block_k)
     out = flash_attention(q, k, v, causal=causal, window=window,
-                          block_q=block_q, block_k=block_k)
+                          q_offset=q_offset, block_q=block_q, block_k=block_k)
     return out, q.new_empty((0,), dtype=torch.float32)
 
 
 @torch.library.register_fake("repro_torch::flash_attention_fwd")
-def _(q, k, v, causal, window, block_q, block_k, return_lse):
+def _(q, k, v, causal, window, q_offset, block_q, block_k, return_lse):
     check_config(q.shape[-1], block_q, block_k)
     b, sq, hq, _ = q.shape
     return (torch.empty_like(q, memory_format=torch.contiguous_format),
@@ -307,16 +319,18 @@ def _(q, k, v, causal, window, block_q, block_k, return_lse):
 
 
 @torch.library.impl("repro_torch::flash_attention_bwd", "cuda")
-def _flash_bwd_cuda(q, k, v, lse, do, causal, window, deterministic):
+def _flash_bwd_cuda(q, k, v, lse, do, causal, window, q_offset,
+                    deterministic):
     """``flash_attention_bwd`` (``deterministic``: its deterministic
     path) as an operator: (dq, dk, dv)."""
     bwd = (flash_attention_bwd_deterministic if deterministic
            else flash_attention_bwd)
-    return bwd(q, k, v, lse, do, causal=causal, window=window)
+    return bwd(q, k, v, lse, do, causal=causal, window=window,
+               q_offset=q_offset)
 
 
 @torch.library.register_fake("repro_torch::flash_attention_bwd")
-def _(q, k, v, lse, do, causal, window, deterministic):
+def _(q, k, v, lse, do, causal, window, q_offset, deterministic):
     return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
                  for t in (q, k, v))
 

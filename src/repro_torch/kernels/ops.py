@@ -117,7 +117,10 @@ def attention_config(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
                      window: int, block_q: int | None = None,
                      block_k: int | None = None) -> dict:
     """The flash forward's launch config for these card tensors (model
-    layout), by ``_resolve``."""
+    layout), by ``_resolve``. The key holds (Sq, Sk, D, the GQA group,
+    dtype, causal, window), not a q position offset: a sequence shard
+    (``attention_op(q_offset=)``) takes the config of its own (Sq, Sk),
+    whose tiles are the same; only which key tiles a q tile walks moves."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dtype = dtype_name(q.dtype)
@@ -147,9 +150,9 @@ def ssd_config(x: torch.Tensor, B: torch.Tensor) -> dict:
 
 
 def _flash_setup(ctx, inputs, output):
-    q, k, v, causal, window = inputs[:5]
+    q, k, v, causal, window, q_offset = inputs[:6]
     ctx.save_for_backward(q, k, v, output[1])
-    ctx.causal, ctx.window = causal, window
+    ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
     ctx.set_materialize_grads(False)
 
 
@@ -159,12 +162,12 @@ def _flash_backward(ctx, dout, _dlse):
     it sums in a fixed order, so its gradients are bit-identical from call
     to call, as ``jax.grad``'s are. The LSE takes no gradient."""
     if dout is None:
-        return (None,) * 8
+        return (None,) * 9
     q, k, v, lse = ctx.saved_tensors
     dq, dk, dv = flash_attention_bwd_op(
-        q, k, v, lse, dout.contiguous(), ctx.causal, ctx.window,
+        q, k, v, lse, dout.contiguous(), ctx.causal, ctx.window, ctx.q_offset,
         torch.are_deterministic_algorithms_enabled())
-    return dq, dk, dv, None, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None, None
 
 
 torch.library.register_autograd("repro_torch::flash_attention_fwd",
@@ -172,25 +175,28 @@ torch.library.register_autograd("repro_torch::flash_attention_fwd",
 
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool = True, window: int = 0,
+                 causal: bool = True, window: int = 0, q_offset: int = 0,
                  block_q: int | None = None,
                  block_k: int | None = None) -> torch.Tensor:
-    """Model layout: q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh] ->
-    [B, S, Hq, Dh]. ``block_q``/``block_k`` pin the kernel's launch
-    config (``attention_config``); the CPU's plain version takes none.
-    Under grad the forward also writes the LSE its backward takes."""
+    """Model layout: q [B, Sq, Hq, Dh], k/v [B, Sk, Hkv, Dh] ->
+    [B, Sq, Hq, Dh]; row r of q stands at position r + ``q_offset``, key j
+    at j (a sequence shard's rows against the gathered keys).
+    ``block_q``/``block_k`` pin the kernel's launch config
+    (``attention_config``); the CPU's plain version takes none. Under grad
+    the forward also writes the LSE its backward takes."""
     if q.device.type == "cpu":
         if block_q is not None or block_k is not None:
             raise ValueError("attention_op: a launch config is the card "
                              "kernel's; the CPU runs the plain version")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        out = attention_reference(qt, kt, vt, causal=causal, window=window)
+        out = attention_reference(qt, kt, vt, causal=causal, window=window,
+                                  q_offset=q_offset)
         return out.transpose(1, 2)
     cfg = attention_config(q, k, causal=causal, window=window,
                            block_q=block_q, block_k=block_k)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return flash_attention_fwd_op(q, k, v, causal, window, cfg["block_q"],
-                                  cfg["block_k"], grad)[0]
+    return flash_attention_fwd_op(q, k, v, causal, window, q_offset,
+                                  cfg["block_q"], cfg["block_k"], grad)[0]
 
 
 def _ssd_setup(ctx, inputs, output):
@@ -239,15 +245,18 @@ def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 # forward and 10 d backward (S recomputed, dV, dP, dK, dQ).
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
-def _flash_fwd_flops(q, k, v, causal, window, *args, **kwargs) -> int:
+def _flash_fwd_flops(q, k, v, causal, window, q_offset, *args,
+                     **kwargs) -> int:
     b, sq, hq, d = q
-    return 4 * d * b * hq * unmasked_pairs(sq, k[1], causal, window)
+    return 4 * d * b * hq * unmasked_pairs(sq, k[1], causal, window, q_offset)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
-def _flash_bwd_flops(q, k, v, lse, do, causal, window, *args, **kwargs) -> int:
+def _flash_bwd_flops(q, k, v, lse, do, causal, window, q_offset, *args,
+                     **kwargs) -> int:
     b, sq, hq, d = q
-    return 10 * d * b * hq * unmasked_pairs(sq, k[1], causal, window)
+    return 10 * d * b * hq * unmasked_pairs(sq, k[1], causal, window,
+                                            q_offset)
 
 
 @register_flop_formula(torch.ops.repro_torch.ssd_fwd)

@@ -15,13 +15,14 @@ NEG_INF = -1e30
 
 
 def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                   window: int) -> torch.Tensor:
-    """fp32 scaled scores [B, Hkv, G, Sq, Sk], NEG_INF where masked."""
+                   window: int, q_offset: int = 0) -> torch.Tensor:
+    """fp32 scaled scores [B, Hkv, G, Sq, Sk], NEG_INF where masked; row
+    r at position r + ``q_offset``, key j at j."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qf = q.reshape(b, hkv, hq // hkv, sq, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / math.sqrt(d)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -32,40 +33,45 @@ def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
     """Naive softmax attention.  q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D].
 
-    Positions count from 0 for both q and k (top-left aligned when
-    Sq != Sk), as in the flash kernel.
+    Key j stands at position j and q row r at r + ``q_offset`` (0: both
+    count from 0, top-left aligned when Sq != Sk), as in the flash kernel.
     """
     b, hq, sq, d = q.shape
-    p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
+    p = torch.softmax(_masked_scores(q, k, causal, window, q_offset), dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
 def attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            window: int = 0):
+                            window: int = 0, q_offset: int = 0):
     """``attention_reference`` and each row's natural-log log-sum-exp of
     the scaled scores over its visible keys, [B, Hq, Sq] fp32: what the
     forward kernel writes with ``return_lse``."""
     b, hq, sq, _ = q.shape
-    lse = torch.logsumexp(_masked_scores(q, k, causal, window), dim=-1)
-    return (attention_reference(q, k, v, causal=causal, window=window),
+    lse = torch.logsumexp(_masked_scores(q, k, causal, window, q_offset),
+                          dim=-1)
+    return (attention_reference(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset),
             lse.reshape(b, hq, sq))
 
 
 def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, do: torch.Tensor, *,
-                                 causal: bool = True, window: int = 0):
+                                 causal: bool = True, window: int = 0,
+                                 q_offset: int = 0):
     """dQ, dK, dV of ``attention_reference`` for the output gradient ``do``
     (q's shape), by ``torch.autograd`` in fp32 from the given (bf16)
     inputs; the layout is ``attention_reference``'s. Returns fp32 tensors
     in q's, k's and v's shapes."""
     with torch.enable_grad():
         qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
-        out = attention_reference(qf, kf, vf, causal=causal, window=window)
+        out = attention_reference(qf, kf, vf, causal=causal, window=window,
+                                  q_offset=q_offset)
         return torch.autograd.grad(out, (qf, kf, vf), do.float())
 
 

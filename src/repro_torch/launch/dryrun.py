@@ -10,12 +10,26 @@ parameters, optimizer state, caches and inputs of the meta device
 ``roofline/step_cost.StepCount`` counts its FLOPs (by dtype), its bytes and
 its live storages, whose peak is the step's memory on one card. The
 kernels run as their operators' fake implementations, priced by their FLOP
-formulas. The mesh is one card ("1"); the production meshes need
-sharding (ROADMAP A.7), so ``--multi-pod`` and ``--both-meshes`` refuse.
+formulas. By default the mesh is one card ("1").
+
+``--multi-pod`` runs each pair on the 2x16x16 production mesh (512
+devices), ``--both-meshes`` on 16x16 (256) and 2x16x16, as the reference
+does; each mesh in a process of its own (``--mesh-worker``) whose default
+group is a ``"fake"`` one of that many ranks, rank 0, every shard a
+meta tensor. The model runs its sharded path (``Model(cfg, make_rules(mesh))``)
+and the count sees rank 0's local work (``StepCount`` steps aside for
+DTensor). Per device: FLOPs are the one-card count divided by the devices,
+as the reference divides its analytic count; bytes and the peak of the
+live storages are the rank's own; the collectives' bytes by kind are
+those of the functional collectives DTensor issues (in place of the
+reference's ``roofline/hlo.py``), priced at ``LINK_BW``.
+``--moe-sharding``, ``--serving-layout``, ``--seq-sharded-acts`` and
+``--param-gather-dtype`` are the reference's knobs (``sharding/rules.py``).
 
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--tiny] [--out out.jsonl]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes
 
 ``--launch-profile PATH`` validates the live environment against a
 recorded launch profile (``repro_torch.tune.launchprofile``) first: drift
@@ -50,9 +64,10 @@ from repro_torch.train.step import make_train_step
 LONG_OK = {"mamba2-370m", "zamba2-1.2b", "mixtral-8x22b"}
 MESH, CHIPS = "1", 1
 CARD_BYTES = 80e9  # one H100's device memory
-SHARDING = ("the production meshes (16x16, 2x16x16) need sharding, which "
-            "the port does not have yet (ROADMAP A.7); the dry run prices "
-            "one card (mesh \"1\")")
+# the production meshes: name -> (multi_pod, devices)
+MESHES = {"16x16": (False, 256), "2x16x16": (True, 512)}
+KNOBS = ("moe_sharding", "serving_layout", "seq_sharded_acts",
+         "param_gather_dtype")
 
 
 def combos():
@@ -164,6 +179,118 @@ def run_one(arch: str, shape_id: str | None = None, *, tiny: bool = False,
     return out
 
 
+def run_sharded(arch: str, shape_id: str, mesh_name: str, *,
+                tiny: bool = False, knobs: dict | None = None,
+                verbose: bool = True, tag: str = "") -> dict:
+    """One pair on a production mesh, in a process whose default group is
+    a fake one of the mesh's size (``mesh_worker``): the step's count on
+    rank 0's shards, FLOPs from the one-card count."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding.rules import make_rules
+    knobs = dict(knobs or {})
+    multi_pod, chips = MESHES[mesh_name]
+    cfg = get_tiny(arch) if tiny else get_config(arch)
+    shape = SHAPES[shape_id]
+    one = run_one(arch, shape_id, tiny=tiny,
+                  verbose=False)["cost_analytic_global"]
+    # the mesh's device type is the CPU's: DTensor's redistribution cost
+    # model asks torch.<device type>.device_count(), which meta lacks; the
+    # shards themselves are meta tensors
+    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+    model = Model(cfg, make_rules(mesh, **knobs), device="meta")
+    t0 = time.perf_counter()
+    fn, args, step_kind = build_step(model, shape, tiny=tiny)
+    with StepCount(args) as count:
+        fn(*args)
+    t_trace = time.perf_counter() - t0
+    local = count.cost()
+    mem = count.memory()
+    coll = count.collectives()
+    cost = {"flops": one["flops"] / chips,
+            "flops_fp32": one["flops_fp32"] / chips,
+            "bytes accessed": local["bytes"]}
+    report = analyze(
+        arch=arch, shape=shape, mesh_name=mesh_name, chips=chips,
+        step_kind=step_kind, cost=cost, collectives=coll, cfg=cfg,
+        memory_per_device=mem["peak_memory_in_bytes"])
+    out = {
+        "arch": arch, "shape": shape.name, "mesh": mesh_name,
+        "chips": chips, "step_kind": step_kind, "tiny": tiny, "tag": tag,
+        **{k: getattr(model.rules, k) for k in KNOBS},
+        "remat": model.remat, "trace_s": round(t_trace, 2),
+        "memory": mem, "cost": cost,
+        "cost_analytic_global": {k: v for k, v in one.items()
+                                 if k != "by_op"},
+        "cost_local": {k: v for k, v in local.items() if k != "by_op"},
+        "collectives": coll,
+        "roofline": report.to_json(),
+    }
+    if verbose:
+        gb = mem["peak_memory_in_bytes"] / 1e9
+        fits = "fits" if mem["peak_memory_in_bytes"] <= CARD_BYTES else \
+            "does not fit"
+        print(f"[dryrun] {arch:<20} {shape.name:<12} {mesh_name:<8} "
+              f"{step_kind:<7} trace {t_trace:6.1f}s  peak {gb:9.2f} GB/dev "
+              f"({fits} 80 GB)  coll {coll['total'] / 1e9:9.3f} GB  "
+              f"compute {report.compute_s:.4f}s  memory "
+              f"{report.memory_s:.4f}s  collective {report.collective_s:.4f}s"
+              f"  -> {report.bottleneck} (H100 constants)", flush=True)
+    return out
+
+
+def mesh_worker(mesh_name: str, todo: list, *, tiny: bool, knobs: dict,
+                tag: str, out_path: str) -> int:
+    """The pairs on one production mesh, in this process, over a fake
+    group of the mesh's size; one JSON line each into ``out_path`` (an
+    ``{"error"}`` line for a pair that fails). Returns the failures."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=MESHES[mesh_name][1])
+    failures = 0
+    try:
+        for arch, shape_id in todo:
+            try:
+                res = run_sharded(arch, shape_id, mesh_name, tiny=tiny,
+                                  knobs=knobs, tag=tag)
+            except Exception as e:  # noqa: BLE001 - report every pair
+                traceback.print_exc()
+                res = {"arch": arch, "shape": shape_id, "mesh": mesh_name,
+                       "error": repr(e)}
+                failures += 1
+            with open(out_path, "a") as f:
+                f.write(json.dumps(res) + "\n")
+    finally:
+        dist.destroy_process_group()
+    return failures
+
+
+def run_meshes(todo: list, meshes: list, *, tiny: bool, knobs: dict,
+               tag: str) -> list:
+    """Each mesh's pairs in a child process (``--mesh-worker``); their
+    records in order."""
+    import subprocess
+    import tempfile
+    records = []
+    for mesh_name in meshes:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "out.jsonl")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--mesh-worker", mesh_name, "--worker-out", out,
+                   "--pairs", json.dumps(todo), "--tag", tag]
+            if tiny:
+                cmd.append("--tiny")
+            for k, v in knobs.items():
+                flag = "--" + k.replace("_", "-")
+                cmd += [flag] if v is True else ([] if v is False
+                                                 else [flag, str(v)])
+            subprocess.run(cmd, check=False)
+            if os.path.exists(out):
+                with open(out) as f:
+                    records += [json.loads(line) for line in f]
+    return records
+
+
 def check_launch_profile(path: str, *, environ=None) -> list:
     """Load a recorded launch profile from ``path`` and return the drift
     lines against ``environ`` (default: this process's environment).
@@ -184,9 +311,18 @@ def main(argv=None):
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: needs sharding (ROADMAP A.7)")
+                    help="the 2x16x16 production mesh (512 devices)")
     ap.add_argument("--both-meshes", action="store_true",
-                    help="refused: needs sharding (ROADMAP A.7)")
+                    help="16x16 and 2x16x16")
+    ap.add_argument("--moe-sharding", choices=["tp", "ep"], default="tp")
+    ap.add_argument("--serving-layout", action="store_true")
+    ap.add_argument("--seq-sharded-acts", action="store_true")
+    ap.add_argument("--param-gather-dtype", choices=["float32", "bfloat16"],
+                    default="float32")
+    ap.add_argument("--mesh-worker", choices=sorted(MESHES),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--worker-out", help=argparse.SUPPRESS)
+    ap.add_argument("--pairs", help=argparse.SUPPRESS)
     ap.add_argument("--tiny", action="store_true",
                     help="reduced configs/shapes (harness self-test)")
     ap.add_argument("--tag", default="")
@@ -198,9 +334,12 @@ def main(argv=None):
                     help="exit 2 on any launch-profile drift")
     args = ap.parse_args(argv)
 
-    if args.multi_pod or args.both_meshes:
-        print(f"dryrun: {SHARDING}", file=sys.stderr)
-        raise SystemExit(2)
+    knobs = {k: getattr(args, k) for k in KNOBS}
+    if args.mesh_worker:
+        todo = [tuple(p) for p in json.loads(args.pairs)]
+        raise SystemExit(1 if mesh_worker(
+            args.mesh_worker, todo, tiny=args.tiny, knobs=knobs,
+            tag=args.tag, out_path=args.worker_out) else 0)
 
     if args.launch_profile:
         drift = check_launch_profile(args.launch_profile)
@@ -220,6 +359,24 @@ def main(argv=None):
         ap.error("--arch and --shape, or --all")
 
     results, failures = [], []
+    if args.multi_pod or args.both_meshes:
+        meshes = (["16x16", "2x16x16"] if args.both_meshes
+                  else ["2x16x16"])
+        for res in run_meshes(todo, meshes, tiny=args.tiny, knobs=knobs,
+                              tag=args.tag):
+            if "error" in res:
+                failures.append((res["arch"], res["shape"], res["mesh"],
+                                 res["error"]))
+                continue
+            results.append(res)
+            if args.out:
+                with open(args.out, "a") as f:
+                    f.write(json.dumps(res) + "\n")
+        got = {(r["arch"], r["shape"], r["mesh"]) for r in results}
+        failures += [(a, s, m, "no record") for a, s in todo for m in meshes
+                     if (a, s, m) not in got and not any(
+                         f[:3] == (a, s, m) for f in failures)]
+        todo = []
     for arch, shape_id in todo:
         try:
             res = run_one(arch, shape_id, tiny=args.tiny, tag=args.tag)

@@ -100,6 +100,36 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
 
+def distributed_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                                 q_abs_pos: int, *, window: int = 0,
+                                 reduce=None) -> torch.Tensor:
+    """``decode_attention`` over one shard of the cache's slots: the
+    reference's distributed online softmax (``_decode_attn``). ``reduce(t,
+    op)`` reduces a tensor over the shards holding the other slots ("max"
+    or "sum"): the row max m, then l = sum exp(s - m) and o = sum p v, and
+    the output o / max(l, 1e-30). Its one-device case (``reduce`` None,
+    the cache whole on this device) is ``decode_attention``, bit for bit."""
+    if reduce is None:
+        return decode_attention(q, k_cache, v_cache, slot_pos, q_abs_pos,
+                                window=window)
+    b, _, hq, dh = q.shape
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, dh).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) / math.sqrt(dh)
+    ok = (slot_pos >= 0) & (slot_pos <= q_abs_pos)
+    if window > 0:
+        ok &= slot_pos > (q_abs_pos - window)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    s = s + torch.where(ok, zero, NEG_INF)
+    m = reduce(s.amax(dim=-1), "max")
+    p = torch.exp(s - m[..., None])
+    l = reduce(p.sum(dim=-1), "sum")
+    o = reduce(torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()), "sum")
+    o = o / l.clamp_min(1e-30)[..., None]
+    return o.reshape(b, 1, hq, dh).to(q.dtype)
+
+
 def init_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int, *,
                device: torch.device | str,
                dtype: torch.dtype = torch.bfloat16) -> dict:

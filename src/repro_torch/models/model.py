@@ -52,10 +52,13 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.sharding.rules import Rules, single_device_rules
 
 # init is ("normal", std), ("ones",), ("zeros",), ("a_log",) or
-# ("dt_bias",); fp32: kept in fp32 whatever the compute dtype
-Leaf = namedtuple("Leaf", ["shape", "init", "fp32"], defaults=(False,))
+# ("dt_bias",); fp32: kept in fp32 whatever the compute dtype; spec: the
+# reference's PartitionSpec as a tuple (sharding/rules.py)
+Leaf = namedtuple("Leaf", ["shape", "init", "fp32", "spec"],
+                  defaults=(False, None))
 
 # the most elements Model.init draws in fp32 at once (0.5 GB)
 _INIT_PART = 1 << 27
@@ -64,6 +67,13 @@ TRANSFORMER_ARCH_TYPES = ("dense", "moe", "vlm", "audio")
 # the per-layer cache entries of a Mamba2 layer and of an attention call
 SSM_CACHE = ("ssm", "conv_x", "conv_B", "conv_C")
 KV_CACHE = ("k", "v", "slot_pos")
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: the current card for a CUDA mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -76,7 +86,7 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
-def _ssm_leaves(cfg: ModelConfig) -> dict:
+def _ssm_leaves(cfg: ModelConfig, r: Rules) -> dict:
     """The reference's ``_ssm_leaves``: one Mamba2 block per layer."""
     s = cfg.ssm
     d, n = cfg.d_model, cfg.num_layers
@@ -86,90 +96,127 @@ def _ssm_leaves(cfg: ModelConfig) -> dict:
     s_in = ("normal", 0.02)
     s_out = ("normal", 0.02 / math.sqrt(2 * n))
     return {
-        "norm": Leaf((n, d), ("ones",)),
-        "z_proj": Leaf((n, d, di), s_in),
-        "x_proj": Leaf((n, d, di), s_in),
-        "B_proj": Leaf((n, d, gn), s_in),
-        "C_proj": Leaf((n, d, gn), s_in),
-        "dt_proj": Leaf((n, d, h), s_in),
-        "conv_x_w": Leaf((n, s.conv_width, di), ("normal", 0.2), True),
-        "conv_x_b": Leaf((n, di), ("zeros",), True),
-        "conv_B_w": Leaf((n, s.conv_width, gn), ("normal", 0.2), True),
-        "conv_B_b": Leaf((n, gn), ("zeros",), True),
-        "conv_C_w": Leaf((n, s.conv_width, gn), ("normal", 0.2), True),
-        "conv_C_b": Leaf((n, gn), ("zeros",), True),
-        "A_log": Leaf((n, h), ("a_log",), True),
-        "ssm_D": Leaf((n, h), ("ones",), True),
-        "dt_bias": Leaf((n, h), ("dt_bias",), True),
-        "gate_norm": Leaf((n, di), ("ones",)),
-        "out_proj": Leaf((n, di, d), s_out),
+        "norm": Leaf((n, d), ("ones",), False, (None, None)),
+        "z_proj": Leaf((n, d, di), s_in, False, (None, r.dp(d), r.tp(di))),
+        "x_proj": Leaf((n, d, di), s_in, False, (None, r.dp(d), r.tp(di))),
+        "B_proj": Leaf((n, d, gn), s_in, False, (None, r.dp(d), None)),
+        "C_proj": Leaf((n, d, gn), s_in, False, (None, r.dp(d), None)),
+        "dt_proj": Leaf((n, d, h), s_in, False, (None, r.dp(d), r.tp(h))),
+        "conv_x_w": Leaf((n, s.conv_width, di), ("normal", 0.2), True,
+                         (None, None, r.tp(di))),
+        "conv_x_b": Leaf((n, di), ("zeros",), True, (None, r.tp(di))),
+        "conv_B_w": Leaf((n, s.conv_width, gn), ("normal", 0.2), True,
+                         (None, None, None)),
+        "conv_B_b": Leaf((n, gn), ("zeros",), True, (None, None)),
+        "conv_C_w": Leaf((n, s.conv_width, gn), ("normal", 0.2), True,
+                         (None, None, None)),
+        "conv_C_b": Leaf((n, gn), ("zeros",), True, (None, None)),
+        "A_log": Leaf((n, h), ("a_log",), True, (None, r.tp(h))),
+        "ssm_D": Leaf((n, h), ("ones",), True, (None, r.tp(h))),
+        "dt_bias": Leaf((n, h), ("dt_bias",), True, (None, r.tp(h))),
+        "gate_norm": Leaf((n, di), ("ones",), False, (None, r.tp(di))),
+        "out_proj": Leaf((n, di, d), s_out, False, (None, r.tp(di), r.dp(d))),
     }
 
 
-def param_schema(cfg: ModelConfig) -> dict:
-    """Shapes and initialisers of the parameters, under the reference's
-    names: Leaf entries, nested in dicts."""
-    schema = {"embed": Leaf((cfg.vocab_size, cfg.d_model), ("normal", 0.02)),
-              "final_norm": Leaf((cfg.d_model,), ("ones",))}
+def param_schema(cfg: ModelConfig, r: Rules | None = None) -> dict:
+    """Shapes, initialisers and specs of the parameters, under the
+    reference's names: Leaf entries, nested in dicts. The specs are the
+    reference's ``param_schema``'s, derived from ``r`` as there (one
+    device's, sizes 1, without it)."""
+    r = r or single_device_rules()
+    d, v = cfg.d_model, cfg.vocab_size
+    schema = {"embed": Leaf((v, d), ("normal", 0.02), False,
+                            (r.tp(v), r.dp(d))),
+              "final_norm": Leaf((d,), ("ones",), False, (None,))}
     if not cfg.tie_embeddings:
-        schema["lm_head"] = Leaf((cfg.d_model, cfg.vocab_size),
-                                 ("normal", 0.02))
+        schema["lm_head"] = Leaf((d, v), ("normal", 0.02), False,
+                                 (r.dp(d), r.tp(v)))
     if cfg.arch_type in TRANSFORMER_ARCH_TYPES:
-        schema["layers"] = _dense_leaves(cfg)
+        schema["layers"] = _dense_leaves(cfg, r)
     else:
-        schema["layers"] = _ssm_leaves(cfg)
+        schema["layers"] = _ssm_leaves(cfg, r)
     if cfg.arch_type == "hybrid":
         # one block, its output scale that of a one-layer model
         schema["shared_attn"] = _attn_leaves(
-            dataclasses.replace(cfg, num_layers=1), stacked=False)
+            dataclasses.replace(cfg, num_layers=1), r, stacked=False)
     return schema
 
 
-def _attn_leaves(cfg: ModelConfig, *, stacked: bool = True) -> dict:
+def _attn_leaves(cfg: ModelConfig, r: Rules, *,
+                 stacked: bool = True) -> dict:
     """The reference's ``_attn_leaves``: [L, ...] leaves, or one block's."""
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     pre = (cfg.num_layers,) if stacked else ()
+    lp = (None,) if stacked else ()
     s_in = ("normal", 0.02)
     s_out = ("normal", 0.02 / math.sqrt(2 * cfg.num_layers))
     leaves = {
-        "attn_norm": Leaf(pre + (d,), ("ones",)),
-        "wq": Leaf(pre + (d, nq * hd), s_in),
-        "wk": Leaf(pre + (d, nkv * hd), s_in),
-        "wv": Leaf(pre + (d, nkv * hd), s_in),
-        "wo": Leaf(pre + (nq * hd, d), s_out),
+        "attn_norm": Leaf(pre + (d,), ("ones",), False, (*lp, None)),
+        "wq": Leaf(pre + (d, nq * hd), s_in, False,
+                   (*lp, r.dp(d), r.tp(nq * hd))),
+        "wk": Leaf(pre + (d, nkv * hd), s_in, False,
+                   (*lp, r.dp(d), r.tp(nkv * hd))),
+        "wv": Leaf(pre + (d, nkv * hd), s_in, False,
+                   (*lp, r.dp(d), r.tp(nkv * hd))),
+        "wo": Leaf(pre + (nq * hd, d), s_out, False,
+                   (*lp, r.tp(nq * hd), r.dp(d))),
     }
     if cfg.qkv_bias:
-        leaves["bq"] = Leaf(pre + (nq * hd,), ("zeros",))
-        leaves["bk"] = Leaf(pre + (nkv * hd,), ("zeros",))
-        leaves["bv"] = Leaf(pre + (nkv * hd,), ("zeros",))
+        for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            leaves[name] = Leaf(pre + (n * hd,), ("zeros",), False,
+                                (*lp, r.tp(n * hd)))
     return leaves
 
 
-def _dense_leaves(cfg: ModelConfig) -> dict:
+def _dense_leaves(cfg: ModelConfig, r: Rules) -> dict:
     """The reference's stacked ``_attn_leaves`` and ``_mlp_leaves``: a
     SwiGLU MLP, or with ``cfg.moe`` the router [L, D, E] and E experts'
-    SwiGLU weights [L, E, D, F] / [L, E, F, D]."""
+    SwiGLU weights [L, E, D, F] / [L, E, F, D] (under ``"ep"`` the expert
+    dim over ``model`` when E divides it, else the hidden dim as ``"tp"``)."""
     d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
     s_in = ("normal", 0.02)
     s_out = ("normal", 0.02 / math.sqrt(2 * n))
-    layers = _attn_leaves(cfg)
-    layers["mlp_norm"] = Leaf((n, d), ("ones",))
+    layers = _attn_leaves(cfg, r)
+    layers["mlp_norm"] = Leaf((n, d), ("ones",), False, (None, None))
     if cfg.moe:
         e = cfg.moe.num_experts
+        if r.moe_sharding == "ep" and e % r.model_size == 0:
+            espec = (r.model_axis, r.dp(d), None)
+            espec_dn = (r.model_axis, None, r.dp(d))
+        else:
+            espec = (None, r.dp(d), r.tp(f))
+            espec_dn = (None, r.tp(f), r.dp(d))
         layers.update({
-            "router": Leaf((n, d, e), s_in),
-            "w_gate": Leaf((n, e, d, f), s_in),
-            "w_up": Leaf((n, e, d, f), s_in),
-            "w_down": Leaf((n, e, f, d), s_out),
+            "router": Leaf((n, d, e), s_in, False, (None, r.dp(d), None)),
+            "w_gate": Leaf((n, e, d, f), s_in, False, (None, *espec)),
+            "w_up": Leaf((n, e, d, f), s_in, False, (None, *espec)),
+            "w_down": Leaf((n, e, f, d), s_out, False, (None, *espec_dn)),
         })
     else:
         layers.update({
-            "w_gate": Leaf((n, d, f), s_in),
-            "w_up": Leaf((n, d, f), s_in),
-            "w_down": Leaf((n, f, d), s_out),
+            "w_gate": Leaf((n, d, f), s_in, False, (None, r.dp(d), r.tp(f))),
+            "w_up": Leaf((n, d, f), s_in, False, (None, r.dp(d), r.tp(f))),
+            "w_down": Leaf((n, f, d), s_out, False,
+                           (None, r.tp(f), r.dp(d))),
         })
     return layers
+
+
+def init_parts(shape: tuple, prefix: tuple = ()):
+    """The parts ``Model.init`` fills a leaf of ``shape`` in, in order, as
+    (index, part shape): runs of whole rows of its first dimension of at
+    most ``_INIT_PART`` elements, or, where one row is larger, each row's
+    own parts in turn (the index ints, then a slice)."""
+    rows = _INIT_PART * shape[0] // math.prod(shape)
+    if rows:
+        for lo in range(0, shape[0], rows):
+            hi = min(lo + rows, shape[0])
+            yield prefix + (slice(lo, hi),), (hi - lo,) + tuple(shape[1:])
+        return
+    for i in range(shape[0]):
+        yield from init_parts(shape[1:], prefix + (i,))
 
 
 def map_schema(fn, schema: dict, *trees: dict) -> dict:
@@ -182,16 +229,163 @@ def map_schema(fn, schema: dict, *trees: dict) -> dict:
             for name, leaf in schema.items()}
 
 
+def ssm_mix(s_cfg, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+            dtr: torch.Tensor, w: dict, cache: dict | None,
+            mode: str) -> torch.Tensor:
+    """The middle of a Mamba2 block, on the heads ``x`` holds (all of them
+    on one device, a rank's on a mesh): the causal convs of x, B and C,
+    dt = softplus(dt_raw + dt_bias) and the SSD scan (the kernel) over a
+    whole sequence, or the one-token conv and state steps with ``mode``
+    "decode". ``w`` holds the block's fp32 ``conv_*``, ``dt_bias``,
+    ``A_log`` and ``ssm_D``; ``cache`` (None in training) takes the new
+    SSM and conv states in place. Returns y [B, S, heads * head_dim]."""
+    b, s = x.shape[:2]
+    pd, g, n = s_cfg.head_dim, s_cfg.ngroups, s_cfg.state_dim
+    nh = x.shape[-1] // pd
+    A = -torch.exp(w["A_log"])
+    if mode in ("train", "prefill"):
+        x, cx = ssm_lib.causal_conv(x, w["conv_x_w"], w["conv_x_b"])
+        Bm, cb = ssm_lib.causal_conv(Bm, w["conv_B_w"], w["conv_B_b"])
+        Cm, cc = ssm_lib.causal_conv(Cm, w["conv_C_w"], w["conv_C_b"])
+        dt = F.softplus(dtr.float() + w["dt_bias"])
+        y, state = ssd_op(x.reshape(b, s, nh, pd), dt, A,
+                          Bm.reshape(b, s, g, n), Cm.reshape(b, s, g, n),
+                          w["ssm_D"], chunk=s_cfg.chunk_size)
+    elif mode == "decode":
+        x1, cx = ssm_lib.conv_decode_step(cache["conv_x"], x[:, 0],
+                                          w["conv_x_w"], w["conv_x_b"])
+        B1, cb = ssm_lib.conv_decode_step(cache["conv_B"], Bm[:, 0],
+                                          w["conv_B_w"], w["conv_B_b"])
+        C1, cc = ssm_lib.conv_decode_step(cache["conv_C"], Cm[:, 0],
+                                          w["conv_C_w"], w["conv_C_b"])
+        dt1 = F.softplus(dtr[:, 0].float() + w["dt_bias"])
+        y, state = ssm_lib.ssd_decode_step(
+            cache["ssm"], x1.reshape(b, nh, pd), dt1, A,
+            B1.reshape(b, g, n), C1.reshape(b, g, n), w["ssm_D"])
+    else:
+        raise ValueError(f"mamba_sublayer: mode {mode!r}")
+    if cache is not None:
+        for name, new in (("ssm", state), ("conv_x", cx), ("conv_B", cb),
+                          ("conv_C", cc)):
+            cache[name].copy_(new)
+    return y.reshape(b, -1, nh * pd)   # decode: [B, 1, ...]
+
+
+class PlainOps:
+    """The operations the layer code leaves to where it runs, on one
+    device: plain tensor ops. ``models/sharded.py``'s ``ShardedPath`` has
+    the same methods on DTensors, with the reference's collectives and
+    ``shard_map`` islands. ``spec`` arguments are the reference's
+    ``rules.constrain`` specs, nothing to do here."""
+
+    def __init__(self, model: "Model"):
+        self.model = model
+        self.cfg = model.cfg
+
+    def use(self, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """A parameter where it is used, in ``dtype``."""
+        return w.to(dtype)
+
+    def mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return x @ w
+
+    def put(self, x: torch.Tensor, spec) -> torch.Tensor:
+        return x
+
+    def shard_input(self, t: torch.Tensor, spec) -> torch.Tensor:
+        return t
+
+    def view(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """Entry i of a stacked leaf or cache: a view, written in place."""
+        return t[i]
+
+    def value(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor):
+        return L.embed(tokens.long(), table, self.model.compute_dtype)
+
+    def ring(self, caches: dict, s: int, w: int):
+        """Ring slot g holds position p0 + (g - p0) mod w, p0 = max(0, s -
+        w): the last w positions; slots past the prompt stay empty (-1,
+        zeros). The filled slots are the first min(s, w), known on the
+        host: no data-dependent shape, no read back. Writes every call's
+        slot positions; returns (slots, their positions) for the k/v."""
+        p0 = max(0, s - w)
+        slots = torch.arange(min(s, w), device=self.model.device)
+        src = p0 + torch.remainder(slots - p0, w)
+        caches["slot_pos"][:, slots] = src.to(torch.int32)
+        return slots, src
+
+    def seq_attention(self, q, k, v, positions, mrope_pos, cache, ring):
+        """RoPE, then the flash kernel over the whole sequence; with
+        ``cache`` (this call's views of the ring) the rotated k and v go
+        into it. q, k, v [B, S, heads * head_dim]; returns [B, S, Hq, D]."""
+        cfg, m = self.cfg, self.model
+        b, s, _ = q.shape
+        q = m._rope(q.reshape(b, s, cfg.num_heads, cfg.head_dim), positions,
+                    mrope_pos)
+        k = m._rope(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
+                    positions, mrope_pos)
+        v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        out = attention_op(q, k, v, causal=True, window=cfg.sliding_window)
+        if cache is not None:
+            slots, src = ring
+            cache["k"][:, slots] = k[:, src]
+            cache["v"][:, slots] = v[:, src]
+        return out
+
+    def decode_attention(self, q, k, v, cache, pos, positions, mrope_pos):
+        cfg = self.cfg
+        b = q.shape[0]
+        return self.model._decode_attend(
+            q.reshape(b, 1, cfg.num_heads, cfg.head_dim),
+            k.reshape(b, 1, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(b, 1, cfg.num_kv_heads, cfg.head_dim), cache, pos,
+            positions, mrope_pos)
+
+    def moe(self, p: dict, m: torch.Tensor):
+        return moe_lib.moe_block(m, p["router"], p["w_gate"], p["w_up"],
+                                 p["w_down"], moe=self.cfg.moe)
+
+    def ssm(self, p, x, Bm, Cm, dtr, cache, mode):
+        return ssm_mix(self.cfg.ssm, x, Bm, Cm, dtr, p, cache, mode)
+
+    def cross_entropy(self, logits: torch.Tensor, labels) -> torch.Tensor:
+        """Mean over positions of logsumexp(logits) - logits[label]."""
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return (lse - label_logit).mean()
+
+
 class Model:
-    def __init__(self, cfg: ModelConfig, *, device: torch.device | str = "cuda",
-                 remat: bool = True):
-        """``remat``: recompute each layer in ``train_loss``'s backward
-        pass instead of keeping its activations (the reference's
-        ``Rules.remat``, on by default); the gradients are the same."""
+    def __init__(self, cfg: ModelConfig, rules: Rules | None = None, *,
+                 device: torch.device | str | None = None,
+                 remat: bool | None = None):
+        """``rules``: None (or ``single_device_rules()``) runs on one
+        device on plain tensors; rules over a ``DeviceMesh``
+        (``make_rules(mesh)``) run the sharded path, every parameter, cache
+        and activation a DTensor with the reference's placements, at any
+        mesh size, 1 included. The layer code is the same on both: what
+        differs is ``self.ops``, ``PlainOps`` or ``models/sharded.py``'s
+        ``ShardedPath``. ``device`` defaults to the card, or on a mesh to
+        this rank's device of the mesh's type. ``remat``: recompute each
+        layer in ``train_loss``'s backward pass instead of keeping its
+        activations (the rules' ``remat``, on by default); the gradients
+        are the same."""
         self.cfg = cfg
+        self.rules = rules or single_device_rules()
+        self.mesh = self.rules.mesh
+        if device is None:
+            device = "cuda" if self.mesh is None else _mesh_device(self.mesh)
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.dtype)
-        self.remat = remat
+        self.remat = self.rules.remat if remat is None else remat
+        if self.mesh is None:
+            self.ops = PlainOps(self)
+        else:
+            from repro_torch.models.sharded import ShardedPath
+            self.ops = ShardedPath(self)
 
     # ----- params -----
 
@@ -208,19 +402,25 @@ class Model:
         peak is the tree and one part in fp32 (0.54 GB), not the tree and
         the whole leaf in fp32 (35.4 GB for moonshot-v1-16b-a3b's [48, 64,
         2048, 1408] ``w_gate``; 0.97 GB for one layer of qwen2-vl-72b's
-        [L, 8192, 29568] one)."""
+        [L, 8192, 29568] one). On a mesh each leaf is drawn in the same
+        parts on the generator's device (the CPU's, or the card's) and the
+        rank keeps the intersection of each part with its slice, so every
+        rank and every mesh shape holds slices of the weights one device
+        draws from the same seed there."""
         dtype = dtype or self.compute_dtype
+
+        dev = generator.device
 
         def uniform(shape, lo, hi):
             return lo + (hi - lo) * torch.rand(shape, generator=generator,
-                                               device=self.device)
+                                               device=dev)
 
         def draw(init: tuple, shape) -> torch.Tensor:
             kind = init[0]
             if kind == "ones":
-                return torch.ones(shape, device=self.device)
+                return torch.ones(shape, device=dev)
             if kind == "zeros":
-                return torch.zeros(shape, device=self.device)
+                return torch.zeros(shape, device=dev)
             if kind == "a_log":  # A uniform in [1, 16] (Mamba2 default)
                 return torch.log(uniform(shape, 1.0, 16.0))
             if kind == "dt_bias":
@@ -228,35 +428,41 @@ class Model:
                 dt = torch.exp(uniform(shape, math.log(1e-3), math.log(1e-1)))
                 return dt + torch.log(-torch.expm1(-dt))
             return torch.randn(shape, generator=generator,
-                               device=self.device).mul_(init[1])
-
-        def fill(out: torch.Tensor, init: tuple) -> None:
-            rows = _INIT_PART * out.shape[0] // out.numel()
-            if rows:
-                for part in out.split(rows):
-                    part.copy_(draw(init, part.shape))
-                return
-            for row in out:
-                fill(row, init)
+                               device=dev).mul_(init[1])
 
         def make(leaf: Leaf) -> torch.Tensor:
             out = torch.empty(leaf.shape, device=self.device,
                               dtype=torch.float32 if leaf.fp32 else dtype)
-            fill(out, leaf.init)
+            for index, shape in init_parts(leaf.shape):
+                out[index].copy_(draw(leaf.init, shape))
             return out
 
+        if self.mesh is not None:
+            return self.ops.init(dtype, draw)
         return map_schema(make, param_schema(self.cfg))
+
+    def param_schema(self) -> dict:
+        """``param_schema`` under this model's rules."""
+        return param_schema(self.cfg, self.rules)
+
+    def param_specs(self) -> dict:
+        """The parameters' specs (``Rules.param_specs``)."""
+        return self.rules.param_specs(self.cfg)
 
     def init_like(self, *, dtype: torch.dtype | None = None) -> dict:
         """``init``'s tree as meta tensors (names, shapes and dtypes, no
-        memory): what a checkpoint restore is asked to fill."""
+        memory): what a checkpoint restore is asked to fill. On a mesh,
+        DTensors of meta local shards with the parameters' placements."""
         dtype = dtype or self.compute_dtype
 
         def make(leaf: Leaf) -> torch.Tensor:
-            return torch.empty(leaf.shape, device="meta",
-                               dtype=torch.float32 if leaf.fp32 else dtype)
+            dt = torch.float32 if leaf.fp32 else dtype
+            if self.mesh is not None:
+                return self.rules.empty_dtensor(leaf.shape, leaf.spec, dt,
+                                                "meta")
+            return torch.empty(leaf.shape, device="meta", dtype=dt)
 
-        return map_schema(make, param_schema(self.cfg))
+        return map_schema(make, self.param_schema())
 
     def serving_params(self, params: dict) -> dict:
         """``params`` (fp32 masters, or a serving tree) as ``init`` makes
@@ -264,8 +470,9 @@ class Model:
         dtype, ``Leaf.fp32`` ones in fp32. A master is rounded once, as
         the reference rounds it at each use."""
         def cast(leaf: Leaf, t: torch.Tensor) -> torch.Tensor:
-            return t.to(self.device, torch.float32 if leaf.fp32
-                        else self.compute_dtype)
+            dt = torch.float32 if leaf.fp32 else self.compute_dtype
+            return t.to(dt) if self.mesh is not None else \
+                t.to(self.device, dt)
 
         return map_schema(cast, param_schema(self.cfg), params)
 
@@ -277,20 +484,29 @@ class Model:
 
     # ----- layers -----
 
+    def _proj(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """x @ w, the parameter cast to x's dtype where it is used."""
+        return self.ops.mm(x, self.ops.use(w, x.dtype))
+
+    def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return L.rms_norm(x, self.ops.use(w, x.dtype), self.cfg.norm_eps)
+
+    def _act(self, b: int, s: int = 0):
+        """``act_btd`` of a [B, S, D] residual: sequence-sharded (with
+        ``seq_sharded_acts``) in the attention families only, as the
+        reference's ``_act_seq`` (the SSM scan needs its whole sequence)."""
+        seq = s if self.cfg.arch_type in TRANSFORMER_ARCH_TYPES else 0
+        return self.rules.act_btd(b, seq)
+
     def _qkv(self, p: dict, a: torch.Tensor):
-        cfg = self.cfg
-        b, s, _ = a.shape
+        """q, k, v [B, S, heads * head_dim], before RoPE."""
         dt = a.dtype
-        q = a @ p["wq"].to(dt)
-        k = a @ p["wk"].to(dt)
-        v = a @ p["wv"].to(dt)
-        if cfg.qkv_bias:
-            q = q + p["bq"].to(dt)
-            k = k + p["bk"].to(dt)
-            v = v + p["bv"].to(dt)
-        return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
-                k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
-                v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+        q, k, v = (self._proj(a, p[n]) for n in ("wq", "wk", "wv"))
+        if self.cfg.qkv_bias:
+            q = q + self.ops.use(p["bq"], dt)
+            k = k + self.ops.use(p["bk"], dt)
+            v = v + self.ops.use(p["bv"], dt)
+        return q, k, v
 
     def _rope(self, x: torch.Tensor, positions: torch.Tensor,
               mrope_pos: torch.Tensor | None) -> torch.Tensor:
@@ -304,19 +520,40 @@ class Model:
         return L.apply_rope(x, positions, cfg.rope_theta)
 
     def _attention(self, p: dict, h: torch.Tensor, positions: torch.Tensor,
-                   mrope_pos: torch.Tensor | None = None):
+                   mrope_pos: torch.Tensor | None = None,
+                   cache: dict | None = None, ring=None) -> torch.Tensor:
         """The attention sublayer over a whole sequence (prefill, train):
-        returns (h + attention, k, v), k/v after RoPE for the cache. The
+        returns h + attention. With ``cache`` (this call's views of the
+        ring) the rotated k/v go into it at ``ring`` (``ops.ring``'s). The
         causal mask is the kernel's, over the 1-D ``positions``, whatever
         ``mrope_pos`` rotates by, as in the reference."""
-        cfg = self.cfg
         b, s, _ = h.shape
-        a = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
-        q, k, v = self._qkv(p, a)
+        q, k, v = self._qkv(p, self._norm(h, p["attn_norm"]))
+        out = self.ops.seq_attention(q, k, v, positions, mrope_pos, cache,
+                                     ring)
+        y = self._proj(out.reshape(b, s, -1), p["wo"])
+        return h + self.ops.put(y, self._act(b, s))
+
+    def _decode_attend(self, q, k, v, cache: dict, pos: int,
+                       positions: torch.Tensor, mrope_pos, *,
+                       shard: int = 0, shards: int = 1, reduce=None):
+        """One token (q, k, v [B, 1, H, D]) against the ring's slots on
+        this device: all of them, or shard ``shard`` of ``shards`` along
+        the slots, whose partial softmax ``reduce`` combines
+        (``attention.distributed_decode_attention``). The token's k/v go
+        to the slot ``pos`` mod the ring's length, on the shard that holds
+        it."""
         q = self._rope(q, positions, mrope_pos)
         k = self._rope(k, positions, mrope_pos)
-        out = attention_op(q, k, v, causal=True, window=cfg.sliding_window)
-        return h + out.reshape(b, s, -1) @ p["wo"].to(h.dtype), k, v
+        w_loc = cache["k"].shape[1]
+        slot = pos % (w_loc * shards) - shard * w_loc
+        if 0 <= slot < w_loc:
+            cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+            cache["slot_pos"][slot] = pos
+        return attn.distributed_decode_attention(
+            q, cache["k"], cache["v"], cache["slot_pos"], pos,
+            window=self.cfg.sliding_window, reduce=reduce)
 
     def _train_layer(self, kind: str, p: dict, h: torch.Tensor,
                      positions: torch.Tensor,
@@ -325,18 +562,21 @@ class Model:
         Returns (h, the MoE block's aux, or None without one)."""
         if kind == "mamba":
             return self.mamba_sublayer(p, h, None, mode="train"), None
-        h = self._attention(p, h, positions, mrope_pos)[0]
+        h = self._attention(p, h, positions, mrope_pos)
         return self._mlp(p, h) if "mlp_norm" in p else (h, None)
 
     def _mlp(self, p: dict, h: torch.Tensor):
         """The MLP sublayer, SwiGLU or, with ``cfg.moe``, the MoE block
         over every token of the call. Returns (h, aux or None)."""
-        m = L.rms_norm(h, p["mlp_norm"], self.cfg.norm_eps)
+        b, s = h.shape[:2]
+        m = self._norm(h, p["mlp_norm"])
+        aux = None
         if self.cfg.moe:
-            y, aux = moe_lib.moe_block(m, p["router"], p["w_gate"], p["w_up"],
-                                       p["w_down"], moe=self.cfg.moe)
-            return h + y, aux
-        return h + L.swiglu(m, p["w_gate"], p["w_up"], p["w_down"]), None
+            y, aux = self.ops.moe(p, m)
+        else:
+            g = F.silu(self._proj(m, p["w_gate"]))
+            y = self._proj(g * self._proj(m, p["w_up"]), p["w_down"])
+        return h + self.ops.put(y, self._act(b, s)), aux
 
     def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
         """The first layer's input: ``batch["embeddings"]`` [B, S, D] (a
@@ -344,27 +584,34 @@ class Model:
         layer, as the reference casts it, or else the embedding rows of
         ``batch["tokens"]`` [B, S]."""
         if "embeddings" in batch:
-            return batch["embeddings"].to(self.compute_dtype)
-        return L.embed(batch["tokens"].long(), params["embed"],
-                       self.compute_dtype)
+            e = batch["embeddings"]
+            h = self.ops.shard_input(e, self.rules.act_btd(e.shape[0]))
+            h = h.to(self.compute_dtype)
+        else:
+            h = self.ops.embed(params["embed"], batch["tokens"])
+        return self.ops.put(h, self._act(h.shape[0], h.shape[1]))
 
     def _logits(self, params: dict, h: torch.Tensor,
                 unembed: torch.Tensor | None) -> torch.Tensor:
-        h = L.rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        """fp32 logits [B, S, V] (vocab-sharded on a mesh, ``act_logits``)
+        of bf16 operands, as ``layers.unembed``."""
+        h = self._norm(h, params["final_norm"])
         if unembed is None:
             unembed = self.unembed_table(params)
-        return L.unembed(h, unembed)
+        logits = self.ops.mm(h.float(), unembed.float())
+        return self.ops.put(logits, self.rules.act_logits(
+            h.shape[0], self.cfg.vocab_size))
 
     def unembed_table(self, params: dict) -> torch.Tensor:
         """The unembedding table [d, V] in fp32, made from ``params`` now.
         The entry points take it as ``unembed=`` so that a caller who
         unembeds often (the serving engine) upcasts the table once per set
         of weights, not on every call (151936 x 2048 at full width)."""
-        table = (params["embed"].T if self.cfg.tie_embeddings
+        table = (params["embed"].t() if self.cfg.tie_embeddings
                  else params["lm_head"])
         # fp32 masters round to the compute dtype first, as the reference's
         # unembed casts the table to the activations' dtype
-        return table.to(self.compute_dtype).float()
+        return self.ops.use(table, self.compute_dtype).float()
 
     def mamba_sublayer(self, p: dict, h: torch.Tensor, cache: dict | None,
                        *, mode: str) -> torch.Tensor:
@@ -375,48 +622,15 @@ class Model:
         layer's views of the SSM caches, in place. Each projection is cast
         to h's dtype where it is used, as the reference casts it. Returns h
         with the block's output added."""
-        cfg, s_cfg = self.cfg, self.cfg.ssm
-        b, s, d = h.shape
-        di = s_cfg.expand * d
-        nh, pd = di // s_cfg.head_dim, s_cfg.head_dim
-        g, n = s_cfg.ngroups, s_cfg.state_dim
-        dtc = h.dtype
-        a = L.rms_norm(h, p["norm"], cfg.norm_eps)
-        z = a @ p["z_proj"].to(dtc)
-        x = a @ p["x_proj"].to(dtc)
-        Bm = a @ p["B_proj"].to(dtc)
-        Cm = a @ p["C_proj"].to(dtc)
-        dtr = a @ p["dt_proj"].to(dtc)
-        A = -torch.exp(p["A_log"])
-        if mode in ("train", "prefill"):
-            x, cx = ssm_lib.causal_conv(x, p["conv_x_w"], p["conv_x_b"])
-            Bm, cb = ssm_lib.causal_conv(Bm, p["conv_B_w"], p["conv_B_b"])
-            Cm, cc = ssm_lib.causal_conv(Cm, p["conv_C_w"], p["conv_C_b"])
-            dt = F.softplus(dtr.float() + p["dt_bias"])
-            y, state = ssd_op(x.reshape(b, s, nh, pd), dt, A,
-                              Bm.reshape(b, s, g, n), Cm.reshape(b, s, g, n),
-                              p["ssm_D"], chunk=s_cfg.chunk_size)
-            y = y.reshape(b, s, di)
-        elif mode == "decode":
-            x1, cx = ssm_lib.conv_decode_step(cache["conv_x"], x[:, 0],
-                                              p["conv_x_w"], p["conv_x_b"])
-            B1, cb = ssm_lib.conv_decode_step(cache["conv_B"], Bm[:, 0],
-                                              p["conv_B_w"], p["conv_B_b"])
-            C1, cc = ssm_lib.conv_decode_step(cache["conv_C"], Cm[:, 0],
-                                              p["conv_C_w"], p["conv_C_b"])
-            dt1 = F.softplus(dtr[:, 0].float() + p["dt_bias"])
-            y1, state = ssm_lib.ssd_decode_step(
-                cache["ssm"], x1.reshape(b, nh, pd), dt1, A,
-                B1.reshape(b, g, n), C1.reshape(b, g, n), p["ssm_D"])
-            y = y1.reshape(b, 1, di)
-        else:
+        if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mamba_sublayer: mode {mode!r}")
-        if mode != "train":
-            for name, new in (("ssm", state), ("conv_x", cx), ("conv_B", cb),
-                              ("conv_C", cc)):
-                cache[name].copy_(new)
-        gated = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-        return h + gated @ p["out_proj"].to(dtc)
+        a = self._norm(h, p["norm"])
+        z, x, Bm, Cm, dtr = (self._proj(a, p[n]) for n in (
+            "z_proj", "x_proj", "B_proj", "C_proj", "dt_proj"))
+        y = self.ops.ssm(p, x, Bm, Cm, dtr, cache, mode)
+        gated = self._norm(y * F.silu(z), p["gate_norm"])
+        out = self._proj(gated, p["out_proj"])
+        return h + self.ops.put(out, self.rules.act_btd(h.shape[0]))
 
     def _schedule(self, params: dict) -> list[tuple[str, dict, int]]:
         """The layer stack in order, as (kind, parameters, cache index):
@@ -438,6 +652,11 @@ class Model:
             out.append(("mamba", p, i))
         return out
 
+    def _views(self, caches: dict, names: tuple[str, ...], i: int) -> dict:
+        """Entry i of the stacked caches ``names``: views, written in
+        place."""
+        return {name: self.ops.view(caches[name], i) for name in names}
+
     # ----- entry points -----
 
     def prefill(self, params: dict, batch: dict, *, cache_len: int,
@@ -452,24 +671,15 @@ class Model:
         mrope_pos = batch.get("mrope_pos")
         positions = torch.arange(s, device=self.device)
         caches = self.init_cache(b, cache_len)
-        if "k" in caches:
-            # Ring slot g holds position p0 + (g - p0) mod w, p0 = max(0,
-            # s - w): the last w positions; slots past the prompt stay
-            # empty (-1, zeros). The filled slots are the first min(s, w),
-            # known on the host: no data-dependent shape, no read back.
-            w = self.cache_window(cache_len)
-            p0 = max(0, s - w)
-            slots = torch.arange(min(s, w), device=self.device)
-            src = p0 + torch.remainder(slots - p0, w)
-            caches["slot_pos"][:, slots] = src.to(torch.int32)
+        ring = (self.ops.ring(caches, s, self.cache_window(cache_len))
+                if "k" in caches else None)
         for kind, p, i in self._schedule(params):
             if kind == "mamba":
-                h = self.mamba_sublayer(p, h, _views(caches, SSM_CACHE, i),
-                                        mode="prefill")
+                h = self.mamba_sublayer(p, h, self._views(caches, SSM_CACHE,
+                                                          i), mode="prefill")
                 continue
-            h, k, v = self._attention(p, h, positions, mrope_pos)
-            caches["k"][i][:, slots] = k[:, src]
-            caches["v"][i][:, slots] = v[:, src]
+            h = self._attention(p, h, positions, mrope_pos,
+                                self._views(caches, KV_CACHE, i), ring)
             if "mlp_norm" in p:
                 h = self._mlp(p, h)[0]
         return self._logits(params, h[:, -1:], unembed)[:, 0], caches
@@ -483,27 +693,24 @@ class Model:
         Writes the token's k/v (or SSM and conv states) into ``caches`` in
         place (the reference donates the cache buffer) and returns
         (logits [B, V] fp32, caches)."""
-        cfg = self.cfg
-        h = L.embed(tokens.long(), params["embed"], self.compute_dtype)
-        b = h.shape[0]
+        b = tokens.shape[0]
+        h = self.ops.put(self.ops.embed(params["embed"], tokens),
+                         self._act(b))
         positions = torch.arange(pos, pos + 1, device=self.device)
         mrope_pos = (torch.full((b, 1, 3), pos, dtype=torch.int32,
-                                device=self.device) if cfg.mrope else None)
+                                device=self.device) if self.cfg.mrope
+                     else None)
         for kind, p, i in self._schedule(params):
             if kind == "mamba":
-                h = self.mamba_sublayer(p, h, _views(caches, SSM_CACHE, i),
-                                        mode="decode")
+                h = self.mamba_sublayer(p, h, self._views(caches, SSM_CACHE,
+                                                          i), mode="decode")
                 continue
-            a = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
-            q, k, v = self._qkv(p, a)
-            q = self._rope(q, positions, mrope_pos)
-            k = self._rope(k, positions, mrope_pos)
-            layer_cache = _views(caches, KV_CACHE, i)
-            attn.cache_append(layer_cache, k, v, pos)
-            out = attn.decode_attention(
-                q, layer_cache["k"], layer_cache["v"],
-                layer_cache["slot_pos"], pos, window=cfg.sliding_window)
-            h = h + out.reshape(b, 1, -1) @ p["wo"].to(h.dtype)
+            q, k, v = self._qkv(p, self._norm(h, p["attn_norm"]))
+            out = self.ops.decode_attention(q, k, v,
+                                            self._views(caches, KV_CACHE, i),
+                                            pos, positions, mrope_pos)
+            y = self._proj(out.reshape(b, 1, -1), p["wo"])
+            h = h + self.ops.put(y, self._act(b))
             if "mlp_norm" in p:
                 h = self._mlp(p, h)[0]
         return self._logits(params, h, unembed)[:, 0], caches
@@ -512,12 +719,13 @@ class Model:
 
     def _layer_params(self, params: dict) -> list[dict]:
         """Each layer's parameters: ``params["layers"]`` as stacked [L, ...]
-        leaves, sliced, or already a list of per-layer dicts (the training
-        step's leaf views, ``repro_torch.train.step``)."""
+        leaves, sliced (on a mesh, DTensor views of the local shards), or
+        already a list of per-layer dicts (the training step's leaf views,
+        ``repro_torch.train.step``)."""
         layers = params["layers"]
         if isinstance(layers, (list, tuple)):
             return list(layers)
-        return [{name: t[i] for name, t in layers.items()}
+        return [{name: self.ops.view(t, i) for name, t in layers.items()}
                 for i in range(self.cfg.num_layers)]
 
     def apply_layers(self, params: dict, h: torch.Tensor, *, mode: str,
@@ -537,7 +745,7 @@ class Model:
             raise ValueError(f"apply_layers: mode {mode!r}; only 'train' runs "
                              "here (prefill and decode_step have their own "
                              "loops)")
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux = None
         for kind, p, _ in self._schedule(params):
             if self.remat:
                 h, aux_i = checkpoint(self._train_layer, kind, p, h,
@@ -548,7 +756,9 @@ class Model:
                 h, aux_i = self._train_layer(kind, p, h, positions,
                                              mrope_pos)
             if aux_i is not None:
-                aux = aux + aux_i
+                aux = aux_i if aux is None else aux + aux_i
+        aux = (torch.zeros((), dtype=torch.float32, device=self.device)
+               if aux is None else self.ops.value(aux))
         return h, aux / self.cfg.num_layers
 
     def train_loss(self, params: dict, batch: dict):
@@ -560,17 +770,15 @@ class Model:
         ``router_aux_weight`` times the layers' mean load-balance aux, as
         the reference's ``train_loss``. The masters are cast to the
         compute dtype where they are used, inside each (checkpointed)
-        layer, so remat keeps no copies of them."""
-        labels = batch["labels"].long()
+        layer, so remat keeps no copies of them. On a mesh the results
+        are plain 0-d tensors, the same on every rank."""
         h = self._embed_inputs(params, batch)
-        positions = torch.arange(h.shape[1], device=h.device)
+        positions = torch.arange(h.shape[1], device=self.device)
         h, aux = self.apply_layers(params, h, mode="train",
                                    positions=positions,
                                    mrope_pos=batch.get("mrope_pos"))
         logits = self._logits(params, h, None)
-        lse = torch.logsumexp(logits, dim=-1)
-        label_logit = logits.gather(-1, labels[..., None])[..., 0]
-        ce = (lse - label_logit).mean()
+        ce = self.ops.cross_entropy(logits, batch["labels"])
         loss = ce
         if self.cfg.moe:
             loss = ce + self.cfg.moe.router_aux_weight * aux
@@ -612,7 +820,11 @@ class Model:
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         """Zero caches (slot_pos -1); the SSM state is fp32, every other
-        state or k/v leaf is in the compute dtype."""
+        state or k/v leaf is in the compute dtype. On a mesh, DTensors with
+        the reference's ``cache_specs``."""
+        if self.mesh is not None:
+            return self.ops.init_cache(batch, cache_len)
+
         def make(name, shape):
             if name == "slot_pos":
                 return torch.full(shape, -1, dtype=torch.int32,
@@ -624,7 +836,3 @@ class Model:
         return {name: make(name, shape) for name, shape in
                 self.cache_shapes(batch, cache_len).items()}
 
-
-def _views(caches: dict, names: tuple[str, ...], i: int) -> dict:
-    """Entry i of the stacked caches ``names``: views, written in place."""
-    return {name: caches[name][i] for name in names}

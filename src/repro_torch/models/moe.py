@@ -1,6 +1,13 @@
-"""Mixture-of-experts block on one device: the counterpart of the JAX
-package's ``models/moe.py`` (its ``"tp"`` block with the ``pmean`` and
-``psum`` over a mesh of one device, which are identities).
+"""Mixture-of-experts block: the counterpart of the JAX package's
+``models/moe.py``. ``moe_block`` is its ``moe_block_local`` over the
+tokens and expert weights one rank holds; on one device all of them. On a
+mesh the model runs it inside an island (``models/sharded.py``) with the
+reference's collectives: under ``"tp"`` each rank holds every expert's
+slice of the hidden dim, under ``"ep"`` E / tp whole experts
+(``expert_offset``, ``local_experts``); the partial outputs are summed
+over the model axis (all of them in the serving layout) and the aux
+averaged over the data axes. Capacity counts the rank's tokens, as the
+reference's counts its data shard's.
 
 Dispatch is the reference's sort-based dropping scheme: the T·k
 assignments of the call's T tokens are stably sorted by expert, each
@@ -119,9 +126,14 @@ def capacity_for(tokens: int, moe: MoEConfig) -> int:
 
 
 def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
-              w_up: torch.Tensor, w_down: torch.Tensor, *, moe: MoEConfig):
+              w_up: torch.Tensor, w_down: torch.Tensor, *, moe: MoEConfig,
+              expert_offset: int = 0, local_experts: int | None = None):
     """The block over x [..., D] (every leading position one token of the
-    call): router_w [D, E], w_gate / w_up [E, D, F], w_down [E, F, D].
+    call): router_w [D, E], w_gate / w_up [E, D, F], w_down [E, F, D]
+    (F may be a slice of the hidden dim, whose output is then a partial
+    sum). ``local_experts``: the weights are experts [expert_offset,
+    expert_offset + local_experts) only, and assignments to the others
+    contribute nothing here (the reference's ``"ep"`` block on one rank).
     Returns (y, x's shape and dtype; the fp32 load-balance aux)."""
     shape = x.shape
     d = shape[-1]
@@ -129,12 +141,16 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     t = x.shape[0]
     e, k = moe.num_experts, moe.experts_per_token
     n, cap = t * k, capacity_for(t, moe)
+    e_loc = e if local_experts is None else local_experts
     with record_function("moe.router"):
         probs, gate, idx = router_topk(x.float(), router_w, k)
         aux = load_balance_aux(probs, idx, e)
     with record_function("moe.dispatch"):
         order, se, st, pos, keep = _dispatch_indices(idx, t, e, cap)
-        slots = e * cap
+        if local_experts is not None:
+            keep = keep & (se >= expert_offset) & (
+                se < expert_offset + local_experts)
+        slots = e_loc * cap
         # each token's k places in the sorted order, ascending: its
         # experts in the order the reference's scatter-add meets them;
         # and, the other way, the (token, place) of each sorted position
@@ -143,7 +159,7 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
         # each sorted position's buffer slot (slots: dropped), the slots of
         # each token's places, and each slot's token and (token, place)
         # (t and n: empty), written through indices that are all distinct
-        slot = torch.where(keep, se * cap + pos, slots)
+        slot = torch.where(keep, (se - expert_offset) * cap + pos, slots)
         token_slots = slot[where]
         dest = torch.where(keep, slot,
                            slots + torch.arange(n, device=x.device))
@@ -152,7 +168,8 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
         slot_token[dest] = st
         slot_place = torch.full_like(slot_token, n)
         slot_place[dest] = flat
-        xe = _Rows.apply(x, slot_token[:slots], token_slots).view(e, cap, d)
+        xe = _Rows.apply(x, slot_token[:slots], token_slots).view(e_loc, cap,
+                                                                  d)
     with record_function("moe.experts"):
         ye = _expert_ffn(xe, w_gate, w_up, w_down).view(slots, d)
     with record_function("moe.combine"):

@@ -43,10 +43,11 @@ def attention_flops(b: int, hq: int, s: int, d: int) -> int:
     return 4 * d * (s * (s + 1) // 2) * b * hq
 
 
-def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(q, k) pairs one head attends: k < Sk, k <= q if causal, k > q -
-    window if windowed."""
-    r = np.arange(sq)
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int,
+                   q_offset: int = 0) -> int:
+    """(q, k) pairs one head attends, row r at position q = r +
+    ``q_offset``: k < Sk, k <= q if causal, k > q - window if windowed."""
+    r = np.arange(sq) + q_offset
     hi = np.minimum(r, sk - 1) if causal else np.full(sq, sk - 1)
     lo = np.maximum(r - window + 1, 0) if window else np.zeros(sq, int)
     return int(np.clip(hi - lo + 1, 0, None).sum())
@@ -127,18 +128,18 @@ def _steps(chains: np.ndarray, slots: int) -> int:
 
 def flash_cost(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, *,
                causal: bool = True, window: int = 0, block_q: int = 128,
-               block_k: int = 64) -> tuple[float, float, int]:
+               block_k: int = 64, q_offset: int = 0) -> tuple[float, float, int]:
     """The flash forward at (``block_q``, ``block_k``): (FLOPs of a step,
     bytes of a step, steps). A block takes one (batch, q head, q tile) and
     walks the key tiles its rows can see, by the kernel's rules
     (csrc/flash_attention.cu): 4 d FLOPs for every (q, k) of each whole
     tile, the Q tile and the O tile once, a K and a V tile for each key
-    tile. A block of 64 q rows is one consumer warpgroup, two to an SM;
+    tile; row r stands at position r + ``q_offset``. A block of 64 q rows is one consumer warpgroup, two to an SM;
     larger ones are one to an SM. ``hkv`` does not change the cost: every
     block reads its own K and V tiles."""
     del hkv
     q_tiles = -(-sq // block_q)
-    q_lo = np.arange(q_tiles) * block_q
+    q_lo = np.arange(q_tiles) * block_q + q_offset
     kt_end = np.full(q_tiles, -(-sk // block_k))
     if causal:
         kt_end = np.minimum(kt_end, (q_lo + block_q - 1) // block_k + 1)

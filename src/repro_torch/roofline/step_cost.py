@@ -28,6 +28,15 @@ Conventions, as the reference's where it has one:
     allocates inside its operator are not seen (the flash backward's fp32
     scratch, at most 0.4 GB at the cells' shapes); the SSD backward's
     workspace is an argument of its operator and is.
+  DTensors (a sharded step): the mode steps aside for every operator on
+    DTensors (``NotImplemented``, as ``CommDebugMode`` does), so DTensor
+    runs it and what it runs on the local shards comes back through the
+    mode: FLOPs, bytes and storages are this rank's, and the functional
+    collectives DTensor issues are counted by kind (``collectives``), by
+    the reference's ring convention (``roofline/hlo.py``): an all-gather
+    the bytes it receives (output - input), a reduce-scatter those it
+    sends away (input - output), an all-reduce twice its input, an
+    all-to-all its input.
 """
 
 from __future__ import annotations
@@ -47,7 +56,34 @@ ALLOC_UNIT = 512  # bytes: the CUDA caching allocator's rounding
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+    """The tensors of a tree, each DTensor as its local shard."""
+    from torch.distributed.tensor import DTensor
+    return [t._local_tensor if isinstance(t, DTensor) else t
+            for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+# the functional collectives, by kind, and how their bytes count
+_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _collective_bytes(kind: str, ins: list, outs: list) -> int:
+    i = sum(map(_nbytes, ins))
+    o = sum(map(_nbytes, outs))
+    if kind == "all-gather":
+        return max(o - i, 0)
+    if kind == "reduce-scatter":
+        return max(i - o, 0)
+    if kind == "all-reduce":
+        return 2 * i
+    return i
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -68,6 +104,7 @@ class StepCount(TorchDispatchMode):
         self.flops: dict[str, float] = defaultdict(float)
         self.bytes = 0.0
         self.by_op: dict[str, dict] = {}
+        self.collective_bytes: dict[str, float] = defaultdict(float)
         tensors = _tensors(args)
         self.device = tensors[0].device.type if tensors else None
         self._live: dict[int, int] = {}
@@ -105,6 +142,9 @@ class StepCount(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # DTensor runs it on the shards
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         outs = _tensors(out)
@@ -120,6 +160,9 @@ class StepCount(TorchDispatchMode):
         op["calls"] += 1
         op["bytes"] += nbytes
         self.bytes += nbytes
+        kind = _COLLECTIVES.get(func.overloadpacket.__name__)
+        if kind is not None:
+            self.collective_bytes[kind] += _collective_bytes(kind, ins, outs)
         formula = flop_registry.get(func.overloadpacket)
         if formula is not None:
             flops = float(formula(*args, **kwargs, out_val=out))
@@ -140,6 +183,12 @@ class StepCount(TorchDispatchMode):
                 "flops_fp32": split.pop("flops_float32"), **split,
                 "bytes": self.bytes,
                 "by_op": dict(sorted(self.by_op.items()))}
+
+    def collectives(self) -> dict:
+        """Bytes by collective kind on this rank, and their ``total``."""
+        out = dict(sorted(self.collective_bytes.items()))
+        out["total"] = sum(out.values())
+        return out
 
     def memory(self) -> dict:
         return {"argument_size_in_bytes": self.argument_bytes,

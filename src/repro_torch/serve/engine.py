@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serve.step import make_decode_step, make_prefill
@@ -130,6 +131,11 @@ class ServeEngine:
     @staticmethod
     def _sample(logits: torch.Tensor, requests: list[Request],
                 gen: torch.Generator) -> np.ndarray:
+        """The next token of each row. On a mesh the vocab-sharded logits
+        are gathered first, and every rank draws the same tokens from its
+        own generator of the same seed."""
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
         logits = logits.float().cpu()
         out = np.argmax(logits.numpy(), axis=-1).astype(np.int32)
         for i, r in enumerate(requests):

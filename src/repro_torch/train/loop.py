@@ -1,6 +1,7 @@
 """Training loop on the synthetic stream with periodic checkpoints through
 the striped DFS (``repro_torch.ckpt``): the JAX package's ``train/loop.py``
-without its tuning profile (ROADMAP A.8) and without sharding (A.7)."""
+without its tuning profile (ROADMAP A.8), on one device or on the model's
+mesh (one process per device)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.data.loader import Loader
+from repro_torch.data.loader import Loader, ShardedLoader
 from repro_torch.data.synthetic import SyntheticStream
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -39,7 +40,10 @@ def train_loop(model: Model, *, batch: int, seq_len: int, steps: int,
     tensors of the model's schema when omitted); no random init is drawn.
     ``restore_specs`` (PartitionSpec-like trees for params and optimizer
     state) and ``restore_coords`` plan a partial restore; on one device
-    they restore whole tensors.
+    they restore whole tensors. On a mesh the restore reads this rank's
+    slices, at its own ``coords_of_rank(rank)`` unless ``restore_coords``
+    names others: the reference runs one process for all devices and
+    plans with rank 0's coordinates, the port one process per device.
 
     Options that cannot act raise ValueError: ``resume_from``, ``ckpt_every``
     or ``full_every`` without a checkpointer (the run would silently train
@@ -77,6 +81,9 @@ def train_loop(model: Model, *, batch: int, seq_len: int, steps: int,
         if opt_state is None:
             opt_state = adamw_init(params)
         specs = None if restore_specs is None else tuple(restore_specs)
+        if model.mesh is not None and restore_coords is None:
+            import torch.distributed as dist
+            restore_coords = model.rules.coords_of_rank(dist.get_rank())
         params, opt_tail = checkpointer.restore_planned(
             resume_from, params, opt_state, specs=specs,
             coords=restore_coords, async_tail=True, sched=restore_sched,
@@ -90,8 +97,10 @@ def train_loop(model: Model, *, batch: int, seq_len: int, steps: int,
             opt_state = adamw_init(params)
 
     step_fn = make_train_step(model, opt_cfg)
-    loader = Loader(SyntheticStream(model.cfg.vocab_size, seed), batch,
-                    seq_len, model.device)
+    stream = SyntheticStream(model.cfg.vocab_size, seed)
+    loader = (Loader(stream, batch, seq_len, model.device)
+              if model.mesh is None else
+              ShardedLoader(stream, model.rules, batch, seq_len))
     if opt_tail is not None:
         # the tail streams while the kernels build (a no-op once built);
         # the port's step updates params and opt_state in place, so it

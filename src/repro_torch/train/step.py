@@ -1,6 +1,5 @@
 """The train step: loss -> grad -> clip -> AdamW, the JAX package's
-``train/step.py`` without jit and without sharding specs (one device;
-sharding is ROADMAP A.7).
+``train/step.py`` without jit, on one device or on a mesh.
 
 The gradient goes through ``torch.autograd`` into one stacked gradient
 buffer per parameter leaf. The model sees per-layer leaf views of the
@@ -11,6 +10,15 @@ masters under autograd instead (``t[i]`` of a leaf that requires grad)
 would make every layer's ``select`` backward allocate a zero tensor of the
 whole stacked leaf and add it in: 36 memsets and adds over ~11 GB of
 qwen2.5-3b's layer masters per step, and a 3.25 GB transient.
+
+On a mesh (``Model(cfg, make_rules(mesh))``) the parameters, the gradient
+buffers and the views are DTensors with the parameters' placements. A
+view's gradient arrives with the placements autograd gives it (a partial
+sum across ranks where the island or product says so); a hook redistributes
+it to the parameter's placements as it arrives (a reduce-scatter or an
+all-reduce) and adds it into the buffer, so a block used more than once
+sums every use. AdamW then updates the DTensors in place and ``grad_norm``
+reduces across ranks.
 """
 
 from __future__ import annotations
@@ -19,8 +27,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models.model import Model
+from repro_torch.models.sharded import view_of
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      tree_map)
 
@@ -33,8 +44,26 @@ class TrainState:
 
 
 def _leaf_view(t: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    if isinstance(t, DTensor):
+        return _dtensor_leaf_view(t, grad)
     view = t.detach().requires_grad_()
     view.grad = grad
+    return view
+
+
+def _dtensor_leaf_view(t: DTensor, grad: DTensor) -> DTensor:
+    """A leaf DTensor of ``t``'s storage whose every gradient is added, in
+    ``grad``'s placements, into ``grad``'s local storage."""
+    view = t.detach().requires_grad_()
+
+    def add(v):
+        g = v.grad
+        if tuple(g.placements) != tuple(grad.placements):
+            g = g.redistribute(grad.device_mesh, grad.placements)
+        grad.to_local().add_(g.to_local())
+        v.grad = None
+
+    view.register_post_accumulate_grad_hook(add)
     return view
 
 
@@ -55,12 +84,16 @@ def loss_and_grads(model: Model, params: dict, batch: dict, grads: dict):
              for name, t in params.items() if name != "layers"}
     stacked, stacked_grads = params["layers"], grads["layers"]
     views["layers"] = [
-        {name: _leaf_view(t[i], stacked_grads[name][i])
+        {name: _leaf_view(_layer(t, i), _layer(stacked_grads[name], i))
          for name, t in stacked.items()}
         for i in range(model.cfg.num_layers)]
     loss, metrics = model.train_loss(views, batch)
     loss.backward()
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def _layer(t: torch.Tensor, i: int) -> torch.Tensor:
+    return view_of(t, i) if isinstance(t, DTensor) else t[i]
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
@@ -75,8 +108,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         grads = tree_map(torch.zeros_like, params)
         loss, metrics = loss_and_grads(model, params, batch, grads)
         lr = lr_fn(opt_state["step"]) if lr_fn is not None else opt_cfg.lr
-        params, opt_state, opt_metrics = adamw_update(
-            params, grads, opt_state, opt_cfg, lr=lr)
+        with implicit_replication():
+            params, opt_state, opt_metrics = adamw_update(
+                params, grads, opt_state, opt_cfg, lr=lr)
+        if isinstance(opt_metrics["grad_norm"], DTensor):
+            opt_metrics["grad_norm"] = opt_metrics["grad_norm"].full_tensor()
         del grads
         metrics = dict(metrics, loss=loss,
                        lr=torch.as_tensor(lr, dtype=torch.float32),

@@ -272,24 +272,48 @@ def _runtime(pkg, reg, hdfs, workdir, **kw):
 
 
 def _summary(res, rt) -> dict:
-    """What must be the same in both packages: stage and task names,
-    critical paths, gating counts, whether the hot record was used, and
-    the scheduler's bytes by resource and priority after the deferred
-    work drained."""
+    """What must be the same in both packages, whichever thread finishes
+    first: stage and task names, critical paths (each node's chain ends in
+    its gating task, and every task before it is one that task waits on),
+    gating counts, whether the hot record was used, and the scheduler's
+    bytes after the deferred work drained: the DFS's by priority and the
+    registry's deferred bytes. The image's critical bytes are
+    ``_image_critical``'s."""
     rt.drain_deferred()
     crit = res.notes["critical_path"]
+    snap = rt.io_sched.snapshot() if rt.io_sched is not None else None
     return {
         "prefetch_used": res.notes["prefetch_used"],
         "gating_counts": res.notes["gating_counts"],
         "chains": {node: a["chain"] for node, a in crit.items()},
         "tasks": {node: sorted(a["tasks"]) for node, a in crit.items()},
         "stages": {node: sorted(s) for node, s in res.node_stage_s.items()},
-        # the DFS's and the registry's bytes; a block's "peer" bytes
-        # depend on which node's thread won its singleflight, in either
-        # package, so they are no property of the inputs
-        "io": ({r: {p: v["bytes"][p] for p in ("critical", "deferred")}
-                for r, v in rt.io_sched.snapshot().items() if r != "peer"}
-               if rt.io_sched is not None else None)}
+        # a block's "peer" bytes depend on which node's thread won its
+        # singleflight, in either package, so they are no property of the
+        # inputs
+        "io": ({r: ({p: v["bytes"][p] for p in ("critical", "deferred")}
+                    if r == "dfs" else {"deferred": v["bytes"]["deferred"]})
+                for r, v in snap.items() if r != "peer"}
+               if snap is not None else None),
+        "image_critical": ({r: snap[r]["bytes"]["critical"]
+                            for r in ("registry", "peer") if r in snap}
+                           if snap is not None else None)}
+
+
+def _image_critical(record: dict, *runs: dict) -> None:
+    """The image's critical bytes by resource: which node's thread wins a
+    block's singleflight decides whether another node takes it from the
+    registry or from a peer, in either package (the warm boot's registry
+    bytes were one hot set in most runs and two in a few, its peer bytes
+    two to four). What the inputs fix: every such count is a whole number
+    of the hot set, the record run's registry bytes, and the registry
+    serves each node at most once. Takes the counts out of the runs."""
+    unit = record["image_critical"]["registry"]
+    assert unit > 0
+    for run in (record, *runs):
+        got = run.pop("image_critical")
+        assert all(v % unit == 0 for v in got.values()), got
+        assert 1 <= got["registry"] // unit <= len(run["tasks"]), got
 
 
 def _baseline_record_warm(pkg: str, root: Path) -> list:
@@ -313,6 +337,9 @@ def test_baseline_record_and_warm_boots_as_the_reference(tmp_path):
     image, the warm run by the throttled params wave."""
     jax_runs = _baseline_record_warm("repro", tmp_path / "jax")
     port_runs = _baseline_record_warm("repro_torch", tmp_path / "port")
+    for base, record, warm, _ in (jax_runs, port_runs):
+        assert base.pop("image_critical") is None
+        _image_critical(record, warm)
     assert port_runs == jax_runs
     base, record, warm, env_stats = port_runs
     assert [r["prefetch_used"] for r in (base, record, warm)] == [
@@ -321,8 +348,6 @@ def test_baseline_record_and_warm_boots_as_the_reference(tmp_path):
     assert warm["gating_counts"] == {"ckpt.params_wave": 3}
     assert env_stats == {"dfs_archive_fetches": 1, "local_cache_hits": 2}
     assert warm["io"]["dfs"]["critical"] > 0
-    assert warm["io"]["registry"]["critical"] == \
-        record["io"]["registry"]["critical"]
 
 
 @pytest.mark.parametrize("pkg", PKGS)
@@ -446,6 +471,9 @@ def test_tune_restore_is_off_the_critical_path_as_the_reference(tmp_path):
                          + rt.tune_store.stats["bytes_read"])
                 assert moved > 0
                 summary["io"]["dfs"]["deferred"] -= moved
+                # the registry's critical bytes, as before; a block's "peer"
+                # bytes depend on which node's thread won its singleflight
+                summary["image_critical"].pop("peer", None)
                 runs.append(summary)
             out.append(runs)
     assert out[0] == out[1]

@@ -345,8 +345,8 @@ def test_restore_plans_equal_the_references(shape, spec, sizes, coords, gap):
 
 def test_checkpointer_plans_equal_the_references(tmp_path, fp32_pair):
     """Both packages plan the same waves on one checkpoint; specs on a
-    one-device mesh restore whole tensors, a larger mesh raises in the
-    port (ROADMAP.md A.7)."""
+    one-device mesh restore whole tensors, on a larger one the host's
+    slices, the same slices and reads in both."""
     _, jp, _, tp = fp32_pair
     jtrees, ttrees = _trees(jp, tp)
     ck = Checkpointer(HdfsCluster(tmp_path / "h"), **GEOMETRY)
@@ -372,9 +372,15 @@ def test_checkpointer_plans_equal_the_references(tmp_path, fp32_pair):
                                    axis_sizes={"data": 1})
     assert len(mine) == sum(1 for _, t in flat_with_names(ttrees[0])
                             if t.dim())
-    with pytest.raises(NotImplementedError, match="A.7"):
-        ck.plan_restore(4, *ttrees[:2], specs=(specs,),
-                        axis_sizes={"data": 2}, coords={"data": 1})
+    sharded = dict(axis_sizes={"data": 2}, coords={"data": 1})
+    _, plans = ck.plan_restore(4, *ttrees[:2], specs=(specs,), **sharded)
+    _, jplans = jck.plan_restore(4, *jtrees[:2], specs=(jspecs,), **sharded)
+    assert [[dataclasses.astuple(t) for t in p.tensors] for p in plans] == [
+        [dataclasses.astuple(t) for t in p.tensors] for p in jplans]
+    assert [[(r.offset, r.length) for r in p.reads] for p in plans] == [
+        [(r.offset, r.length) for r in p.reads] for p in jplans]
+    _, whole = ck.plan_restore(4, *ttrees[:2])
+    assert plans[0].payload_bytes < whole[0].payload_bytes
 
 
 def test_row_shards_restore_as_the_references(tmp_path, fp32_pair):

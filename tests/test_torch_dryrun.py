@@ -1,8 +1,8 @@
 """The port's dry run (``repro_torch.launch.dryrun``) on the CPU: its
 records against the JAX package's schema (``tests/test_dryrun.py``'s
 assertions, on one card: ``collectives`` is ``{"total": 0}``), its pairs
-against the reference's, the refusal of the production meshes (ROADMAP
-A.7), the launch-profile check, and the live-storage tracking its peak
+against the reference's, the production meshes running (ROADMAP A.7),
+the launch-profile check, and the live-storage tracking its peak
 memory comes from (``roofline/step_cost.StepCount``).
 
 The full-size sweep of all 33 pairs runs with ``--all`` (about two
@@ -117,10 +117,17 @@ def test_pairs_are_the_references():
 
 @pytest.mark.parametrize("flag", ["--multi-pod", "--both-meshes"])
 def test_production_meshes_are_refused(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main([flag, "--all"])
-    assert e.value.code not in (0, None)
-    assert "A.7" in capsys.readouterr().err
+    """Refused until the port sharded (A.7); now each production mesh runs
+    the pair in a process of its own over a fake group, one line each
+    (tests/test_torch_sharding_dryrun.py checks the records)."""
+    dryrun.main([flag, "--arch", "mamba2-370m", "--shape", "decode_32k",
+                 "--tiny"])
+    out = capsys.readouterr().out
+    meshes = ["16x16", "2x16x16"] if flag == "--both-meshes" else \
+        ["2x16x16"]
+    assert f"{len(meshes)} ok, 0 failed" in out
+    for mesh in meshes:
+        assert f" {mesh} " in out
 
 
 def test_launch_profile_drift(tmp_path, monkeypatch, capsys):

@@ -438,7 +438,7 @@ def test_meta_tensors_take_the_default_config_under_a_profile():
 
 # ------------------------------------------ the operators' autograd ---
 
-def _attention_grads(q, k, v, do, causal, window):
+def _attention_grads(q, k, v, do, causal, window, q_offset=0):
     """dq, dk, dv of the plain attention in fp32, model layout, by the
     backward's formulas (a kernel implementation runs below autograd, so
     it cannot call it): dV = P^T dO, dS = P o (dP - rowsum(dP o P)),
@@ -448,7 +448,8 @@ def _attention_grads(q, k, v, do, causal, window):
     b, hq, sq, d = qt.shape
     hkv = kt.shape[1]
     qg, dog = (t.reshape(b, hkv, hq // hkv, sq, d) for t in (qt, dot))
-    p = torch.softmax(_masked_scores(qt, kt, causal, window), dim=-1)
+    p = torch.softmax(_masked_scores(qt, kt, causal, window, q_offset),
+                      dim=-1)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vt)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(d)
@@ -467,16 +468,17 @@ def plain_kernels():
     backward call's deterministic flag or workspace size."""
     calls = []
 
-    def flash_fwd(q, k, v, causal, window, block_q, block_k, return_lse):
+    def flash_fwd(q, k, v, causal, window, q_offset, block_q, block_k,
+                  return_lse):
         out, lse = attention_lse_reference(
             *(t.transpose(1, 2) for t in (q, k, v)), causal=causal,
-            window=window)
+            window=window, q_offset=q_offset)
         return (out.transpose(1, 2).contiguous(),
                 lse if return_lse else q.new_empty((0,), dtype=torch.float32))
 
-    def flash_bwd(q, k, v, lse, do, causal, window, deterministic):
+    def flash_bwd(q, k, v, lse, do, causal, window, q_offset, deterministic):
         calls.append(("flash_attention_bwd", deterministic))
-        return _attention_grads(q, k, v, do, causal, window)
+        return _attention_grads(q, k, v, do, causal, window, q_offset)
 
     def ssd_fwd(x, dt, A, B, C, D, chunk):
         return ssd_chunked_reference(x, dt, A, B, C, D, chunk=chunk)
@@ -515,8 +517,8 @@ def test_flash_operator_autograd_gives_the_plain_gradients(plain_kernels,
         return ops.attention_op(q, k, v, window=window)
 
     def through_op(q, k, v):
-        return ops.flash_attention_fwd_op(q, k, v, True, window, 128, 64,
-                                          True)[0]
+        return ops.flash_attention_fwd_op(q, k, v, True, window, 0, 128,
+                                          64, True)[0]
 
     want = _grads(plain, (q, k, v), do)
     got = _grads(through_op, (q, k, v), do)

@@ -164,7 +164,8 @@ def on_card(monkeypatch):
     calls = []
     monkeypatch.setattr(ops, "card_backend", lambda device=None: CARD)
 
-    def flash_rec(q, k, v, causal, window, block_q, block_k, return_lse):
+    def flash_rec(q, k, v, causal, window, q_offset, block_q, block_k,
+                  return_lse):
         calls.append(("flash_attention", block_q, block_k))
         return q, None
 
