@@ -22,6 +22,16 @@ Phases, one line or more each; any failure exits non-zero:
      across two calls. The SSD backward: all six gradients against
      autograd of the plain version at the training shape and its edges,
      two calls bit-equal, its workspace, time and bound.
+     ssd knobs: the SSD kernels' bf16-intra instances, the card's
+     Rules(ssd_compute_dtype="bfloat16"): ptxas of each (no spill), the
+     forward at the serving prefill's shapes and the backward at the
+     training shapes against the plain fp32 version within 1.5x the plain
+     bf16 version's own error (SSD_KNOB_BUDGET), apart from the default
+     instance, the backward two calls bit-equal; their times in turns
+     with the default's. After phase 7, mamba2-370m at full width under
+     the knob: a prefill and the first step's gradients held to the
+     default path's within the phase's budget, 3 steps; the launches the
+     default path's, on the bf16-intra instances.
      moe: moonshot-v1-16b-a3b's MoE block (PyTorch, no kernel of its own)
      at its training shape: two forward + backward calls bit-equal under
      deterministic algorithms; its time and its scopes' split.
@@ -411,6 +421,31 @@ SSD_BWD_CASES = [("train", TRAIN_BATCHES[MAMBA], TRAIN_SEQ, 32, 64, 1, 128),
 # line's)
 SSD_BWD_TIMED = ("train", "zamba2")
 SSD_BWD_JAX_CASES = [("jaxdt", 2, 512, 8, 64, 1, 128)]
+# [ssd knobs]: the SSD kernels' bf16-intra instances, the card's
+# Rules(ssd_compute_dtype="bfloat16"), which round M (and, backward, Q) to
+# bf16 once. Each is held to the plain fp32 version by the worst row
+# (floored at GRAD_ROW_FLOOR of the median row, as the gradients' gates:
+# the JAX tests' draws leave rows of y that cancel) within SSD_KNOB_BUDGET
+# times the plain bf16 version's own worst row against plain fp32 at the
+# same inputs, or within the default instance's gate where that is larger
+# (an output the knob leaves as it was: the final state, dD); and apart
+# from the default instance by more than SSD_Y_ROW_RTOL, so that the flag
+# provably reaches the kernel. Emulated on the CPU at B = 2, S = 1024, H =
+# 4, P = 64, N = 128 (tests/test_torch_ssd_knobs.py): y 3.4e-2 against the
+# plain bf16 version's 7.6e-2; dx 1.07e-1 against 8.2e-2. Under the JAX
+# tests' draws (ssd_inputs), whose dt ~ 1 makes y and dx lean on M; under
+# the model's one bf16 part of M moves dx by ~5e-3, less than the apart
+# gate. The forward at the serving prefill's shapes, the backward at the
+# training shapes (mamba2-370m's, zamba2-1.2b's); then mamba2-370m at full
+# width under the knob: a prefill of KNOB_PREFILL and KNOB_TRAIN_STEPS
+# steps at TRAIN_BATCHES x TRAIN_SEQ.
+SSD_KNOB_BUDGET = 1.5
+SSD_KNOB_FWD_CASES = [("main", BATCH, PROMPT_LENS[1], 32, 64, 1, 128),
+                      ("zamba2", BATCH, PROMPT_LENS[1], 64, 64, 1, 64)]
+SSD_KNOB_BWD_CASES = [
+    ("train", TRAIN_BATCHES[MAMBA], TRAIN_SEQ, 32, 64, 1, 128),
+    ("zamba2", TRAIN_BATCHES[ZAMBA], TRAIN_SEQ, 64, 64, 1, 64)]
+KNOB_PREFILL, KNOB_TRAIN_STEPS = (BATCH, PROMPT_LENS[1]), 3
 # [tune kernels] and [tune boot]: the forward kernels' shapes on the main
 # paths, the serving prefills (8 prompts padded to 1024) and musicgen-large's
 # training step; (name, B, S, Hq, Hkv, D, window) for flash, (name, B, S, H,
@@ -929,6 +964,284 @@ def phase_ssd_bwd_kernels(card: str) -> dict:
             "max_abs_err": worst, **timed[SSD_BWD_TIMED[0]]}
 
 
+def knob_ptxas() -> None:
+    """ptxas's registers and spills of every bf16-intra instance beside
+    its default one: a spill, or a forward instance past the 168-register
+    cap of two 6-warp blocks an SM, fails."""
+    from repro_torch.kernels import build
+    entries = ptxas_entries(build.build().ptxas_log)
+    bad = []
+    for name, (regs, spill) in sorted(entries.items()):
+        one = re.search(r"(ssd_fwd_kernelILi\d+ELi\d+ELi\d+|"
+                        r"ssd_bwd_grad_kernelILi\d+ELi\d+)ELi1EE", name)
+        if not one:
+            continue
+        default = entries.get(name.replace(one.group(0),
+                                           one.group(1) + "ELi2EE"), [None])
+        cap = 168 if "fwd" in one.group(1) else 255
+        ok = spill == 0 and regs is not None and regs <= cap
+        if not ok:
+            bad.append(one.group(1))
+        say("ssd knobs", f"ptxas {one.group(1)} bf16-intra: {regs} registers"
+            f", {spill} bytes spilled (the default instance: {default[0]} "
+            f"registers) {'ok' if ok else 'FAIL'}")
+    if not bad:
+        return
+    fail("ssd knobs", f"bf16-intra instances that spill or pass the cap: "
+         f"{bad}")
+
+
+def phase_ssd_knobs_kernels(card: str) -> tuple[dict, dict, float]:
+    """The bf16-intra instances of the SSD forward (at the serving
+    prefill's shapes) and backward (at the training shapes) against the
+    plain versions, by SSD_KNOB_BUDGET's gates; the backward two calls
+    bit-equal; each one's time beside the default instance's (in turns:
+    default, bf16, bf16, default), the plain bf16 version's and its bound;
+    ptxas's report of every instance. Returns the kernels-line entries of
+    both and the phase's budget (the largest of its gates), which the
+    model's run under the knob is held to."""
+    import torch
+    from repro_torch.kernels.ref import (row_rel_err, ssd_backward_reference,
+                                         ssd_chunked_reference)
+    from repro_torch.kernels.ssd import (ssd_chunked_bwd_kernel,
+                                         ssd_chunked_bwd_kernel_bf16,
+                                         ssd_chunked_kernel,
+                                         ssd_chunked_kernel_bf16)
+
+    knob_ptxas()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+
+    def row(a, r):
+        return row_rel_err(a, r, floor=GRAD_ROW_FLOOR)
+
+    def turns(default, knob, iters):
+        """(knob ms, default ms), each the mean of two timings taken in
+        turns: default, knob, knob, default."""
+        ms = {"default": [], "knob": []}
+        for way in ("default", "knob", "knob", "default"):
+            ms[way].append(cuda_ms(knob if way == "knob" else default,
+                                   iters=iters))
+        return statistics.mean(ms["knob"]), statistics.mean(ms["default"])
+
+    budget, failed, entries = 0.0, [], {}
+    worst = 0.0
+    for name, b, s, h, p, g, n in SSD_KNOB_FWD_CASES:
+        args = ssd_inputs(gen, b, s, h, p, g, n)
+        y32, st32 = ssd_chunked_reference(*args, chunk=256)
+        y16, _ = ssd_chunked_reference(*args, chunk=256, compute_dtype=bf16)
+        y1, st1 = ssd_chunked_kernel_bf16(*args)
+        y2, _ = ssd_chunked_kernel(*args)
+        torch.cuda.synchronize()
+        ref_err = row(y16, y32)
+        gate = max(SSD_KNOB_BUDGET * ref_err, SSD_Y_ROW_RTOL)
+        err, apart = row(y1, y32), row(y1, y2)
+        st_err = row_rel_err(st1, st32)
+        worst = max(worst, (y1.float() - y32.float()).abs().max().item())
+        ok = (math.isfinite(err) and err <= gate and apart > SSD_Y_ROW_RTOL
+              and math.isfinite(st_err) and st_err <= SSD_STATE_ROW_RTOL)
+        budget = max(budget, gate)
+        if not ok:
+            failed.append(f"ssd {name}")
+        say("ssd knobs", f"ssd_bf16 {name} B={b} S={s} H={h} P={p} G={g} "
+            f"N={n}: y worst row against plain fp32 {err:.3e} (gate {gate:.3e}"
+            f" = max({SSD_KNOB_BUDGET} x the plain bf16 version's {ref_err:.3e}"
+            f", {SSD_Y_ROW_RTOL})); against the default instance {apart:.3e} "
+            f"(must exceed {SSD_Y_ROW_RTOL}); final state {st_err:.3e} (tol "
+            f"{SSD_STATE_ROW_RTOL}) {'ok' if ok else 'FAIL'}")
+        if name == "main":
+            ms, default_ms = turns(lambda: ssd_chunked_kernel(*args),
+                                   lambda: ssd_chunked_kernel_bf16(*args), 20)
+            plain_ms = cuda_ms(lambda: ssd_chunked_reference(
+                *args, chunk=256, compute_dtype=bf16), iters=5, warmup=1)
+            bound_ms, bound_by = ssd_bound(b, s, h, p, g, n)
+            say("ssd knobs", f"ssd_bf16 {name}: {ms:.4f} ms, the default "
+                f"instance {default_ms:.4f} ms (in turns), plain bf16 "
+                f"{plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {100 * bound_ms / ms:.1f}% reached), on {card}")
+            entries["ssd_bf16"] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=None)
+        del args, y32, y16, y1, y2, st1, st32
+
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    worst_bwd = 0.0
+    for name, b, s, h, p, g, n in SSD_KNOB_BWD_CASES:
+        args = ssd_inputs(gen, b, s, h, p, g, n)
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(bf16)
+        got = [ssd_chunked_bwd_kernel_bf16(*args, dy) for _ in range(2)]
+        two = ssd_chunked_bwd_kernel(*args, dy)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(*got))
+        g32 = ssd_backward_reference(*args, dy, chunk=256)
+        g16 = ssd_backward_reference(*args, dy, chunk=256, compute_dtype=bf16)
+        errs, gates, apart = [], [], 0.0
+        for k1, k2, r16, r32 in zip(got[0], two, g16, g32):
+            ref_err = row(r16, r32)
+            errs.append(row(k1, r32))
+            gates.append(max(SSD_KNOB_BUDGET * ref_err, GRAD_ROW_RTOL))
+            apart = max(apart, row(k1, k2))
+            worst_bwd = max(worst_bwd, (k1.float() - r32).abs().max().item())
+        ok = same and apart > SSD_Y_ROW_RTOL and all(
+            math.isfinite(e) and e <= t for e, t in zip(errs, gates))
+        budget = max([budget] + gates)
+        if not ok:
+            failed.append(f"ssd_bwd {name}")
+        say("ssd knobs", f"ssd_bwd_bf16 {name} B={b} S={s} H={h} P={p} G={g} "
+            f"N={n}: worst row against plain fp32 " + ", ".join(
+                f"{k} {e:.3e} (gate {t:.3e})"
+                for k, e, t in zip(names, errs, gates))
+            + f"; against the default instance {apart:.3e} (must exceed "
+            f"{SSD_Y_ROW_RTOL}); two calls bit-equal: {same} "
+            f"{'ok' if ok else 'FAIL'}")
+        del got, two, g32, g16
+        if name == "train":
+            ms, default_ms = turns(
+                lambda: ssd_chunked_bwd_kernel(*args, dy),
+                lambda: ssd_chunked_bwd_kernel_bf16(*args, dy), 10)
+            plain_ms = cuda_ms(lambda: ssd_backward_reference(
+                *args, dy, chunk=256, compute_dtype=bf16), iters=2, warmup=1)
+            bound_ms, bound_by = ssd_bwd_bound(b, s, h, p, g, n)
+            say("ssd knobs", f"ssd_bwd_bf16 {name}: {ms:.4f} ms, the default "
+                f"instance {default_ms:.4f} ms (in turns), plain bf16 "
+                f"{plain_ms:.4f} ms, library: none, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {100 * bound_ms / ms:.1f}% reached), on {card}")
+            entries["ssd_bwd_bf16"] = dict(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by, library_ms=None)
+        del args, dy
+    if failed:
+        fail("ssd knobs", f"bf16-intra instances outside their gates: "
+             f"{failed}")
+    say("ssd knobs", f"the phase's bf16 budget: {budget:.3e}")
+    fwd = {"name": "ssd_bf16", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd.cu",
+           "replaces": "src/repro/kernels/ssd.py:27", "launches": None,
+           "max_abs_err": worst, **entries["ssd_bf16"]}
+    bwd = {"name": "ssd_bwd_bf16", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_bwd.cu",
+           "replaces": "src/repro/models/ssm.py:37", "launches": None,
+           "max_abs_err": worst_bwd, **entries["ssd_bwd_bf16"]}
+    return fwd, bwd, budget
+
+
+def phase_ssd_knobs_model(card: str, budget: float) -> dict:
+    """mamba2-370m at full width under Rules(ssd_compute_dtype="bfloat16")
+    beside the default rules, on the same weights: a prefill of
+    KNOB_PREFILL (bf16) and the first training step's gradients (fp32
+    masters) held to the default path's within the kernel phase's
+    ``budget`` by the worst row (floored at GRAD_ROW_FLOOR); then
+    KNOB_TRAIN_STEPS AdamW steps under the knob. The launches must be the
+    default path's, on the bf16-intra instances: one forward a layer a
+    prefill; two forwards (remat) and a backward a layer a step. Returns
+    the bf16-intra instances' launches over the prefill and the steps."""
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.checkpoint import flat_with_names
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import Loader
+    from repro_torch.data.synthetic import SyntheticStream
+    from repro_torch.kernels.ref import row_rel_err
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig, tree_map
+    from repro_torch.sharding.rules import single_device_rules
+    from repro_torch.train.step import (init_train_state, loss_and_grads,
+                                        make_train_step)
+
+    free_card()
+    cfg = get_config(MAMBA)
+    layers = cfg.num_layers
+    knob = Model(cfg, single_device_rules(ssd_compute_dtype="bfloat16"),
+                 device="cuda")
+    plain = Model(cfg, device="cuda")
+    counters = launch_counters()
+
+    def counted(fn, want: dict, what: str):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        full = dict(dict.fromkeys(counters, 0), **want)
+        if counts != full:
+            fail("ssd knobs", f"{MAMBA} {what}: launches {counts}, expected "
+                 f"{full}")
+        return out, counts
+
+    b, s = KNOB_PREFILL
+    params = knob.init(torch.Generator(device="cuda").manual_seed(0))
+    unembed = knob.unembed_table(params)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        ref, _ = counted(lambda: plain.prefill(
+            params, {"tokens": toks}, cache_len=CACHE_LEN,
+            unembed=unembed)[0], {"ssd": layers}, "default prefill")
+        t0 = time.perf_counter()
+        logits, prefill_counts = counted(lambda: knob.prefill(
+            params, {"tokens": toks}, cache_len=CACHE_LEN,
+            unembed=unembed)[0], {"ssd_bf16": layers}, "prefill")
+        prefill_s = time.perf_counter() - t0
+    row = row_rel_err(logits, ref, floor=GRAD_ROW_FLOOR)
+    ok = bool(torch.isfinite(logits).all()) and row <= budget
+    say("ssd knobs", f"{MAMBA} prefill B={b} S={s} under the knob: "
+        f"{prefill_counts['ssd_bf16']} bf16-intra launches ({layers} layers), "
+        f"{1e3 * prefill_s:.1f} ms; logits' worst row against the default "
+        f"path's {row:.3e} (the phase's budget {budget:.3e}) "
+        f"{'ok' if ok else 'FAIL'}, on {card}")
+    if not ok:
+        fail("ssd knobs", f"{MAMBA} prefill under the knob: row {row:.3e}")
+    del params, unembed, logits, ref
+
+    bsz = TRAIN_BATCHES[MAMBA]
+    state = init_train_state(knob, torch.Generator(device="cuda").manual_seed(0))
+    params, opt = state.params, state.opt
+    loader = Loader(SyntheticStream(cfg.vocab_size, 0), bsz, TRAIN_SEQ, "cuda")
+    batch = loader(0)
+    grads = {}
+    for name, model, want in (
+            ("default", plain, {"ssd": 2 * layers, "ssd_bwd": layers}),
+            ("knob", knob, {"ssd_bf16": 2 * layers,
+                            "ssd_bwd_bf16": layers})):
+        grads[name] = tree_map(torch.zeros_like, params)
+        counted(lambda: loss_and_grads(model, params, batch, grads[name]),
+                want, f"{name} first step's gradients")
+    errs = {name: row_rel_err(a, r, floor=GRAD_ROW_FLOOR)
+            for (name, a), (_, r) in zip(flat_with_names(grads["knob"]),
+                                         flat_with_names(grads["default"]))}
+    ok = all(math.isfinite(e) and e <= budget for e in errs.values())
+    top = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    say("ssd knobs", f"{MAMBA} first step B={bsz} S={TRAIN_SEQ}: the "
+        f"gradient leaves' worst row against the default path's, the "
+        f"largest four of {len(errs)}: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in top)
+        + f" (the phase's budget {budget:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("ssd knobs", f"{MAMBA} gradients under the knob: {errs}")
+    del grads
+    step_fn = make_train_step(knob, AdamWConfig(lr=TRAIN_LR))
+    total, losses, times = {}, [], []
+    for step in range(KNOB_TRAIN_STEPS):
+        data = loader(step)
+        t0 = time.perf_counter()
+        (params, opt, metrics), counts = counted(
+            lambda: step_fn(params, opt, data),
+            {"ssd_bf16": 2 * layers, "ssd_bwd_bf16": layers}, f"step {step}")
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    if not all(math.isfinite(x) for x in losses):
+        fail("ssd knobs", f"{MAMBA} non-finite loss under the knob: {losses}")
+    say("ssd knobs", f"{MAMBA} {KNOB_TRAIN_STEPS} steps B={bsz} S={TRAIN_SEQ}"
+        f" under the knob: loss {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times)} ms; bf16-intra "
+        f"launches a step {2 * layers} forward, {layers} backward, on {card}")
+    del params, opt, state, step_fn
+    free_card()
+    return {"ssd_bf16": prefill_counts["ssd_bf16"],
+            "ssd_bwd_bf16": total["ssd_bwd_bf16"]}
+
+
 def ptxas_entries(log: str) -> dict:
     """ptxas's report by kernel entry (mangled name): [registers, bytes of
     spill stores]."""
@@ -1043,7 +1356,7 @@ def phase_tune_kernels(card: str) -> None:
                     f"{SSD_Y_ROW_RTOL}), final state {st_row:.3e} (tol "
                     f"{SSD_STATE_ROW_RTOL})"), ms, bound,
                    instance_ptxas(entries, f"ssd_fwd_kernelILi{p}ELi{n}ELi"
-                                           f"{chunk}EE"),
+                                           f"{chunk}ELi2EE"),
                    ssd.shared_memory_bytes(p, n, chunk),
                    pred[(("chunk", chunk),)],
                    f", {ssd_flops(b, s, h, p, g, n, tile=chunk) / ms / 1e9:.1f}"
@@ -1246,12 +1559,16 @@ def launch_counters() -> dict:
     """Every kernel wrapper, by the name the kernels line gives it."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
-    from repro_torch.kernels.ssd import ssd_chunked_bwd_kernel, ssd_chunked_kernel
+    from repro_torch.kernels.ssd import (
+        ssd_chunked_bwd_kernel, ssd_chunked_bwd_kernel_bf16,
+        ssd_chunked_kernel, ssd_chunked_kernel_bf16)
     return {"flash_attention": flash_attention, "ssd": ssd_chunked_kernel,
             "flash_attention_bwd": flash_attention_bwd,
             "flash_attention_bwd_deterministic":
                 flash_attention_bwd_deterministic,
-            "ssd_bwd": ssd_chunked_bwd_kernel}
+            "ssd_bwd": ssd_chunked_bwd_kernel,
+            "ssd_bf16": ssd_chunked_kernel_bf16,
+            "ssd_bwd_bf16": ssd_chunked_bwd_kernel_bf16}
 
 
 class Routes:
@@ -2945,7 +3262,9 @@ def phase_boot(card: str) -> None:
     gate(launches == {"flash_attention": 2 * layers,
                       "flash_attention_bwd": layers,
                       "flash_attention_bwd_deterministic": 0,
-                      "ssd_chunked_kernel": 0, "ssd_chunked_bwd_kernel": 0},
+                      "ssd_chunked_kernel": 0, "ssd_chunked_bwd_kernel": 0,
+                      "ssd_chunked_kernel_bf16": 0,
+                      "ssd_chunked_bwd_kernel_bf16": 0},
          f"train warm: launches {launches}")
     done = first_line(warm, "done: loss")
     loss = float(done[1].split()[4]) if done else float("nan")
@@ -3013,6 +3332,8 @@ def main() -> int:
     flash = timed("kernels flash", phase_kernels, card)
     ssd = timed("kernels ssd", phase_ssd_kernels, card)
     ssd_bwd = timed("kernels ssd_bwd", phase_ssd_bwd_kernels, card)
+    ssd_bf16, ssd_bwd_bf16, knob_budget = timed(
+        "ssd knobs kernels", phase_ssd_knobs_kernels, card)
     flash_bwd, flash_bwd_det = timed("kernels flash_bwd",
                                      phase_flash_bwd_kernels, card)
     timed("tune kernels", phase_tune_kernels, card)
@@ -3041,12 +3362,16 @@ def main() -> int:
                for arch in archs]
     for entry in (flash_bwd, ssd_bwd):
         entry["launches"] = sum(c[entry["name"]] for c in trained)
+    knob_launches = timed("ssd knobs model", phase_ssd_knobs_model, card,
+                          knob_budget)
+    for entry in (ssd_bf16, ssd_bwd_bf16):
+        entry["launches"] = knob_launches[entry["name"]]
     timed("shard kernels", phase_shard_kernels, card)
     timed("shard model", phase_shard_model, card)
     flash_bwd_det["launches"] = timed("resume", phase_resume, card)
     timed("boot", phase_boot, card)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, flash_bwd_det,
-                                  ssd_bwd]}),
+                                  ssd_bwd, ssd_bf16, ssd_bwd_bf16]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

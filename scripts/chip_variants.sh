@@ -10,7 +10,7 @@
 # EXPR one sed expression. Each copy goes to build/variants/NAME (git-ignored)
 # with src/ and chip_smoke.py; all copies build at once, then each runs
 # chip_smoke.py's device and build phases and the kernel phases of FILE
-# (ssd.cu: the SSD phase; ssd_bwd.cu: the SSD backward's;
+# (ssd.cu: the SSD phase; ssd_bwd.cu: the SSD backward's; both also [ssd knobs]' kernels;
 # flash_attention.cu: the forward's and the backward's, which checks the
 # forward's LSE; flash_attention_bwd.cu: the backward's; both also the
 # sequence shards' of [shard]), one after another. Prints per variant the changed lines,
@@ -37,9 +37,11 @@ wait
 for name in "${names[@]}"; do
   d=build/variants/$name
   case "$(cat "$d/FILE")" in
-    ssd.cu) phases="c.phase_ssd_kernels(card)"; kernel=ssd_fwd_kernelILi64ELi128 ;;
+    ssd.cu) phases="c.phase_ssd_kernels(card); c.phase_ssd_knobs_kernels(card)"
+      kernel=ssd_fwd_kernelILi64ELi128 ;;
     ssd_bwd.cu)
-      phases="c.phase_ssd_bwd_kernels(card)"; kernel="ssd_bwd_[a-z]*_kernelILi64ELi128" ;;
+      phases="c.phase_ssd_bwd_kernels(card); c.phase_ssd_knobs_kernels(card)"
+      kernel="ssd_bwd_[a-z]*_kernelILi64ELi128" ;;
     flash_attention.cu)
       phases="c.phase_kernels(card); c.phase_flash_bwd_kernels(card); c.phase_shard_kernels(card)"
       kernel=flash_fwd_kernelILi128 ;;
@@ -51,7 +53,7 @@ card = c.phase_device(); c.phase_build(); $phases" > run.log 2>&1)
   rc=$?
   echo "== $name"
   grep -A2 "$kernel" "$d/build.log" | grep -E "spill|registers"
-  grep -E "^\[(kernels|shard)\]" "$d/run.log" | cut -c1-420
+  grep -E "^\[(kernels|shard|ssd knobs)\]" "$d/run.log" | cut -c1-420
   grep -E "^\[profile\].* \*[a-z_]*\* " "$d/run.log" | cut -c1-160
   grep -E "Error|error" "$d/run.log" | tail -3
   echo "== $name exit $rc"

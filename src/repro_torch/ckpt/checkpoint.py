@@ -777,6 +777,33 @@ class Checkpointer:
                                     sched=sched, priority=priority,
                                     device=device)
 
+    def restore_bytes_for_shard(self, step: int, fraction: float, *,
+                                specs=None, rules=None, axis_sizes=None,
+                                coords=None,
+                                shard_slices: Optional[dict] = None) -> int:
+        """Planned bytes for a host reading ``fraction`` of every sharded
+        entry of ``step``: sharded entries count at ``fraction``, the rest
+        (read whole by every host) at 1. Which entries are sharded comes
+        from ``specs`` (against ``axis_sizes``, or ``rules``' sizes) or
+        ``shard_slices``, as ``plan_restore`` reads them; with neither,
+        every entry but a scalar is taken as sharded. The reference's
+        method of the same name."""
+        index = self.load_index(step)
+        if rules is not None and not axis_sizes:
+            axis_sizes = rules.axis_sizes
+        likes = (None,) * len(specs) if specs is not None else ()
+        sliced = self._dim_slices(index, likes, specs=specs,
+                                  axis_sizes=axis_sizes, coords=coords,
+                                  shard_slices=shard_slices)
+        have_info = specs is not None or shard_slices
+        total = 0.0
+        for e in index.entries.values():
+            if e.name in sliced or (not have_info and e.shape):
+                total += e.nbytes * fraction
+            else:
+                total += e.nbytes
+        return int(total)
+
 
 class _PlainWriter:
     """A non-striped data file, gathered and written whole (the

@@ -68,6 +68,16 @@
 // away, never multiplied, so exp(cs_i - cs_j) > 1 above the diagonal
 // cannot turn into inf * 0.
 //
+// The bf16-intra instance (kMParts = 1) is the card's counterpart of the
+// reference's ssd_compute_dtype = "bfloat16", which rounds C B^T, the decay
+// matrix and x dt to bf16 inside a chunk and keeps the decays, the states
+// and the inter-chunk term fp32: here M is rounded to bf16 once per tile
+// and the state and x w keep their hi + lo parts. On the inputs above it
+// errs 3.4e-2 in y against the fp32 scan, half the reference's own bf16
+// error (7.6e-2), and leaves the final state as it was (2.5e-5). It does
+// not repeat the reference's roundings: those are per product over chunks
+// of 256, this one per tile of kTile.
+//
 // Cumulative sum: warp 0, lane l holding position l: d_l = dt_l * A
 // rounded, then an inclusive Hillis-Steele scan over the kTile lanes (v_l =
 // v_{l-k} + v_l for k = 1, 2, 4, ... < kTile), cs_l = v_l; at kTile = 16
@@ -82,8 +92,8 @@
 
 namespace {
 
-// hi + lo parts of each fp32 operand of a tensor-core product
-constexpr int kMParts = 2;      // M = (C B^T) exp(cs_i - cs_j) dt_j
+// hi + lo parts of each fp32 operand of a tensor-core product; M's,
+// kMParts, is the kernel's template parameter (2, or 1 for bf16-intra)
 constexpr int kStateParts = 2;  // the state, in C state^T
 constexpr int kXwParts = 2;     // x w, in the state update
 
@@ -190,7 +200,9 @@ __device__ __forceinline__ void split_frag(const float* c0, const float* c1,
   split2(c1[2], c1[3], hi[3], lo[3]);
 }
 
-template <int P, int N, int kTile>
+// kMParts: the parts of M = (C B^T) exp(cs_i - cs_j) dt_j in M x, 2 (hi +
+// lo, the default) or 1 (bf16-intra: one bf16 rounding of M).
+template <int P, int N, int kTile, int kMParts>
 __global__ void __launch_bounds__(Layout<P, N, kTile>::kThreads, 2)
 ssd_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ dt, const float* __restrict__ A,
@@ -466,7 +478,7 @@ ssd_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int P, int N, int kTile>
+template <int P, int N, int kTile, int kMParts>
 int launch(const void* x, const void* dt, const void* A, const void* Bm,
            const void* Cm, const void* D, void* y, void* final_state, int Bsz,
            int S, int H, int G, const long long* xs, const long long* dts,
@@ -474,11 +486,11 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
            cudaStream_t stream) {
   using L = Layout<P, N, kTile>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd_kernel<P, N, kTile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_fwd_kernel<P, N, kTile, kMParts>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, Bsz);
-  ssd_fwd_kernel<P, N, kTile><<<grid, L::kThreads, L::kBytes, stream>>>(
+  ssd_fwd_kernel<P, N, kTile, kMParts><<<grid, L::kThreads, L::kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), static_cast<const float*>(D),
@@ -488,7 +500,7 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int P, int kTile>
+template <int P, int kTile, int kMParts>
 int launch_p(int N, const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* D, void* y, void* final_state, int Bsz,
              int S, int H, int G, const long long* xs, const long long* dts,
@@ -496,13 +508,13 @@ int launch_p(int N, const void* x, const void* dt, const void* A, const void* Bm
              cudaStream_t stream) {
   switch (N) {
     case 16:
-      return launch<P, 16, kTile>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
+      return launch<P, 16, kTile, kMParts>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
                            dts, bs, cs, ys, stream);
     case 64:
-      return launch<P, 64, kTile>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
+      return launch<P, 64, kTile, kMParts>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
                            dts, bs, cs, ys, stream);
     case 128:
-      return launch<P, 128, kTile>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
+      return launch<P, 128, kTile, kMParts>(x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, xs,
                             dts, bs, cs, ys, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -511,8 +523,8 @@ int launch_p(int N, const void* x, const void* dt, const void* A, const void* Bm
 
 }  // namespace
 
-// The compiled (P, tile) pairs, each at N in {16, 64, 128}:
-// kernels/ssd.py's CONFIGS lists the tiles.
+// The compiled (P, tile) pairs, each at N in {16, 64, 128} and M in two
+// parts and in one: kernels/ssd.py's CONFIGS lists the tiles.
 #define SSD_TILES(X) X(32, 32) X(64, 32) X(32, 16) X(64, 16)
 
 // x: [B, S, H, P] bf16, dt: [B, S, H] fp32, A, D: [H] fp32 contiguous,
@@ -521,21 +533,28 @@ int launch_p(int N, const void* x, const void* dt, const void* A, const void* Bm
 // other strides multiples of 8 elements and 16-byte aligned bases; each
 // *_strides array holds the (batch, seq, head or group) strides in
 // elements (dt's third is its head stride). P in {32, 64}, N in
-// {16, 64, 128}, G dividing H; chunk, the tile along S, 32 or 16: any other
-// is cudaErrorInvalidValue. Returns a cudaError_t.
+// {16, 64, 128}, G dividing H; chunk, the tile along S, 32 or 16; m_parts
+// 2 (M as hi + lo) or 1 (the bf16-intra instance): any other is
+// cudaErrorInvalidValue. Returns a cudaError_t.
 extern "C" int repro_ssd_chunked_fwd_bf16(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* D, void* y, void* final_state, int Bsz, int S,
     int H, int P, int G, int N, const long long* x_strides,
     const long long* dt_strides, const long long* b_strides,
     const long long* c_strides, const long long* y_strides, int chunk,
-    void* stream) {
+    int m_parts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (S < 1 || G < 1 || H % G != 0) return static_cast<int>(cudaErrorInvalidValue);
-#define SSD_LAUNCH(p, tile)                                                     \
-  if (P == p && chunk == tile)                                                  \
-    return launch_p<p, tile>(N, x, dt, A, Bm, Cm, D, y, final_state, Bsz, S, H, G, \
-                             x_strides, dt_strides, b_strides, c_strides, y_strides, s);
+  if (S < 1 || G < 1 || H % G != 0 || (m_parts != 1 && m_parts != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool one_part = m_parts == 1;  // the bf16-intra instance
+#define SSD_LAUNCH(p, tile)                                                      \
+  if (P == p && chunk == tile)                                                   \
+    return one_part ? launch_p<p, tile, 1>(N, x, dt, A, Bm, Cm, D, y, final_state, \
+                                           Bsz, S, H, G, x_strides, dt_strides,   \
+                                           b_strides, c_strides, y_strides, s)    \
+                    : launch_p<p, tile, 2>(N, x, dt, A, Bm, Cm, D, y, final_state, \
+                                           Bsz, S, H, G, x_strides, dt_strides,   \
+                                           b_strides, c_strides, y_strides, s);
   SSD_TILES(SSD_LAUNCH)
 #undef SSD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -42,7 +42,7 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels.flash_attention import (
     DEFAULT_CONFIG, flash_attention_bwd_op, flash_attention_fwd_op)
 from repro_torch.kernels.ref import attention_reference, ssd_chunked_reference
-from repro_torch.kernels.ssd import (TILE, ssd_bwd_op,
+from repro_torch.kernels.ssd import (INTRA_PARTS, TILE, ssd_bwd_op,
                                      ssd_bwd_workspace_floats, ssd_fwd_op)
 from repro_torch.roofline.kernel_cost import (ssd_bwd_flops, ssd_flops,
                                               unmasked_pairs)
@@ -138,7 +138,10 @@ def attention_config(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
 def ssd_config(x: torch.Tensor, B: torch.Tensor) -> dict:
     """The SSD forward's launch config (its tile) for these card tensors,
     by ``_resolve`` from the profile or the default alone: the model's
-    chunk is the plain version's and never reaches it."""
+    chunk (the rules' ``ssm_chunk``) is the plain version's and never
+    reaches it. The bf16-intra instance takes the tile resolved here, under
+    the same key: the tile moves the result by rounding only, and the
+    profile's keys stay the reference's."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dtype = dtype_name(x.dtype)
@@ -201,6 +204,7 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _ssd_setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs[:6])
+    ctx.bf16_intra = inputs[7]  # the backward of the forward's instance
     ctx.set_materialize_grads(False)
 
 
@@ -215,14 +219,15 @@ def _ssd_backward(ctx, dy, dstate):
             "ssd_op: the SSD backward kernel takes no gradient of the "
             "final state; drop the state, or differentiate on the CPU")
     if dy is None:
-        return (None,) * 7
+        return (None,) * 8
     x, dt, A, B, C, D = ctx.saved_tensors
     b, s, h, p = x.shape
     workspace = torch.empty(
         (ssd_bwd_workspace_floats(b, s, h, p, B.shape[-1]),),
         dtype=torch.float32, device=x.device)
-    return (*ssd_bwd_op(x, dt, A, B, C, D, dy.contiguous(), workspace),
-            None)
+    return (*ssd_bwd_op(x, dt, A, B, C, D, dy.contiguous(), workspace,
+                        ctx.bf16_intra),
+            None, None)
 
 
 torch.library.register_autograd("repro_torch::ssd_fwd", _ssd_backward,
@@ -230,14 +235,25 @@ torch.library.register_autograd("repro_torch::ssd_fwd", _ssd_backward,
 
 
 def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-           B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *, chunk: int):
+           B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *, chunk: int,
+           compute_dtype: torch.dtype = torch.float32):
     """Model layout: x [B, S, H, P], dt [B, S, H], A/D [H], B/C [B, S, G, N]
     -> (y [B, S, H, P] in x's dtype, final_state [B, H, P, N] fp32).
     ``chunk`` is the plain version's chunk, as the JAX model passes it; the
-    kernel's tile along S comes from ``ssd_config``."""
+    kernel's tile along S comes from ``ssd_config``. ``compute_dtype`` is
+    the intra-chunk products' type (the reference's
+    ``Rules.ssd_compute_dtype``): the plain version's casts, or on the card
+    the kernels' instance of that name (``INTRA_PARTS``), whose backward
+    autograd then runs."""
+    name = dtype_name(compute_dtype)
+    if name not in INTRA_PARTS:
+        raise ValueError(f"ssd_op: compute_dtype {compute_dtype}; one of "
+                         f"{sorted(INTRA_PARTS)}")
     if x.device.type == "cpu":
-        return ssd_chunked_reference(x, dt, A, B, C, D, chunk=chunk)
-    return ssd_fwd_op(x, dt, A, B, C, D, ssd_config(x, B)["chunk"])
+        return ssd_chunked_reference(x, dt, A, B, C, D, chunk=chunk,
+                                     compute_dtype=compute_dtype)
+    return ssd_fwd_op(x, dt, A, B, C, D, ssd_config(x, B)["chunk"],
+                      name == "bfloat16")
 
 
 # The operators' FLOPs, for torch.utils.flop_counter and step_cost: the
@@ -259,8 +275,11 @@ def _flash_bwd_flops(q, k, v, lse, do, causal, window, q_offset, *args,
                                             q_offset)
 
 
+# The SSD operators' bf16-intra instances do the same least work as the
+# default ones (one bf16 part of M and Q is the kernel's arithmetic, not
+# the function's), and move the same bytes.
 @register_flop_formula(torch.ops.repro_torch.ssd_fwd)
-def _ssd_fwd_flops(x, dt, A, B, C, D, chunk, **kwargs) -> int:
+def _ssd_fwd_flops(x, dt, A, B, C, D, chunk, *args, **kwargs) -> int:
     b, s, h, p = x
     return ssd_flops(b, s, h, p, B[2], B[3], tile=chunk)
 

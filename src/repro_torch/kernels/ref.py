@@ -83,27 +83,33 @@ def ssd_reference(x, dt, A, B, C, D, init_state=None):
 
 def ssd_chunked_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                           B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                          *, chunk: int = 256):
+                          *, chunk: int = 256,
+                          compute_dtype: torch.dtype = torch.float32):
     """The SSD kernel's plain version: the chunked scan the JAX model runs,
-    ``ssd_chunked(..., return_state=True)``. x [B, S, H, P]; dt [B, S, H];
-    A, D [H]; B/C [B, S, G, N]. Returns (y in x's dtype, fp32 final state
-    [B, H, P, N])."""
-    return ssm.ssd_chunked(x, dt, A, B, C, D, chunk=chunk, return_state=True)
+    ``ssd_chunked(..., return_state=True, compute_dtype=)``. x
+    [B, S, H, P]; dt [B, S, H]; A, D [H]; B/C [B, S, G, N]. Returns (y in
+    x's dtype, fp32 final state [B, H, P, N])."""
+    return ssm.ssd_chunked(x, dt, A, B, C, D, chunk=chunk, return_state=True,
+                           compute_dtype=compute_dtype)
 
 
 def ssd_backward_reference(x: torch.Tensor, dt: torch.Tensor,
                            A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                            D: torch.Tensor, dy: torch.Tensor, *,
-                           chunk: int = 256):
+                           chunk: int = 256,
+                           compute_dtype: torch.dtype = torch.float32):
     """The SSD backward kernel's plain version: (dx, ddt, dA, dB, dC, dD) of
     ``ssd_chunked_reference``'s y for the output gradient ``dy`` (x's
-    shape), by ``torch.autograd`` in fp32 from the given (bf16) inputs. The
-    final state's gradient is not an input: the train path drops the
-    state. Returns fp32 tensors in the inputs' shapes."""
+    shape), by ``torch.autograd`` in fp32 from the given (bf16) inputs,
+    through the intra-chunk products' casts to ``compute_dtype``, as
+    ``jax.grad`` goes through the reference's. The final state's gradient
+    is not an input: the train path drops the state. Returns fp32 tensors
+    in the inputs' shapes."""
     with torch.enable_grad():
         leaves = [t.detach().float().requires_grad_()
                   for t in (x, dt, A, B, C, D)]
-        y, _ = ssd_chunked_reference(*leaves, chunk=chunk)
+        y, _ = ssd_chunked_reference(*leaves, chunk=chunk,
+                                     compute_dtype=compute_dtype)
         return torch.autograd.grad(y, leaves, dy.float())
 
 

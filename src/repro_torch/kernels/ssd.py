@@ -12,6 +12,16 @@ library (``CONFIGS``); ``kernels/ops.py`` resolves the tile from the tuning
 profile, and any other raises before a launch. Its plain version is
 ``repro_torch.kernels.ref.ssd_chunked_reference``.
 
+Each kernel is compiled twice, by the part count of its intra-tile
+products (``INTRA_PARTS``): M = (C B^T) exp(cs_i - cs_j) dt_j in the
+forward, M and Q in the backward's gradient pass, fed to the tensor cores
+as a bf16 hi + lo pair (the default) or as one bf16 part, the
+bf16-intra instance: the card's counterpart of the reference's
+``Rules.ssd_compute_dtype = "bfloat16"``, whose plain version is
+``ssd_chunked_reference(compute_dtype=torch.bfloat16)``. The state and x w
+keep both parts in both instances. ``ssd_chunked_kernel_bf16`` and
+``ssd_chunked_bwd_kernel_bf16`` launch it, each with its own launch count.
+
 The backward (``csrc/ssd_bwd.cu``) had no TPU kernel: it replaces
 ``jax.grad`` of the JAX model's ``ssd_chunked``. Three launches: two walks
 over the tiles (the state entering each tile, the state gradient leaving
@@ -45,8 +55,11 @@ from repro_torch.kernels import build
 
 TILE = 32  # positions per tile along S: the forward's default, the backward's
 # the forward's tiles compiled into the library, by state dim (every head
-# dim has them all; csrc/ssd.cu's instances)
+# dim has them all, each in both intra instances; csrc/ssd.cu's instances)
 CONFIGS = {16: (32, 16), 64: (32, 16), 128: (32, 16)}
+# the parts of the intra-tile products' fp32 operands, by the compute dtype
+# of the reference's intra-chunk products: the kernels' two instances
+INTRA_PARTS = {"float32": 2, "bfloat16": 1}
 SUPPORTED_HEAD_DIMS = (32, 64)
 SUPPORTED_STATE_DIMS = (16, 64, 128)
 _MAX_GRID_YZ = 65535
@@ -63,7 +76,7 @@ def _entry():
         p, i = ctypes.c_void_p, ctypes.c_int
         ptr = ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                       ptr, ptr, ptr, ptr, ptr, i, p]
+                       ptr, ptr, ptr, ptr, ptr, i, i, p]
         fn.restype = ctypes.c_int
         _bound = fn
     return _bound
@@ -86,7 +99,7 @@ def _bwd_entry():
         p, i = ctypes.c_void_p, ctypes.c_int
         ptr = ctypes.POINTER(ctypes.c_longlong)
         fn = lib.repro_ssd_chunked_bwd_bf16
-        fn.argtypes = [p] * 14 + [i] * 6 + [ptr] * 5 + [p]
+        fn.argtypes = [p] * 14 + [i] * 6 + [ptr] * 5 + [i, p]
         fn.restype = ctypes.c_int
         ws = lib.repro_ssd_chunked_bwd_workspace_bytes
         ws.argtypes = [i] * 5
@@ -164,6 +177,29 @@ def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B/C [B, S, G, N] bf16; D [H] fp32; all on one CUDA device; ``chunk``
     the tile along S, one of ``CONFIGS``.
     Returns (y [B, S, H, P] bf16, final_state [B, H, P, N] fp32)."""
+    out = _forward(x, dt, A, B, C, D, chunk, INTRA_PARTS["float32"])
+    _count(ssd_chunked_kernel, chunk)
+    return out
+
+
+def ssd_chunked_kernel_bf16(x: torch.Tensor, dt: torch.Tensor,
+                            A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                            D: torch.Tensor, *, chunk: int = TILE):
+    """``ssd_chunked_kernel``'s bf16-intra instance: M x with M rounded to
+    bf16 once (``INTRA_PARTS["bfloat16"]``); the same arguments and
+    returns."""
+    out = _forward(x, dt, A, B, C, D, chunk, INTRA_PARTS["bfloat16"])
+    _count(ssd_chunked_kernel_bf16, chunk)
+    return out
+
+
+def _count(wrapper, chunk: int) -> None:
+    wrapper.launches += 1
+    by_config = wrapper.config_launches
+    by_config[chunk] = by_config.get(chunk, 0) + 1
+
+
+def _forward(x, dt, A, B, C, D, chunk: int, m_parts: int):
     check_config(B.shape[-1], chunk)
     _check("ssd_chunked_kernel", x, dt, A, B, C, D)
     b, s, h, p = x.shape
@@ -177,19 +213,17 @@ def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         err = _entry()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                        B.data_ptr(), C.data_ptr(), D.data_ptr(),
                        y.data_ptr(), state.data_ptr(), b, s, h, p, g, n,
-                       *strides, chunk, stream)
+                       *strides, chunk, m_parts, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunked_kernel: launch failed, cudaError "
                            f"{err}")
-    ssd_chunked_kernel.launches += 1
-    by_config = ssd_chunked_kernel.config_launches
-    by_config[chunk] = by_config.get(chunk, 0) + 1
     return y, state
 
 
-ssd_chunked_kernel.launches = 0
-# the launches by chunk
-ssd_chunked_kernel.config_launches = {}
+# each instance's launches, and its launches by chunk
+for _fn in (ssd_chunked_kernel, ssd_chunked_kernel_bf16):
+    _fn.launches = 0
+    _fn.config_launches = {}
 
 
 def ssd_bwd_workspace_bytes(b: int, s: int, h: int, p: int, n: int) -> int:
@@ -219,6 +253,27 @@ def ssd_chunked_bwd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     given. Returns (dx [B, S, H, P] bf16, ddt [B, S, H] fp32,
     dA [H] fp32, dB [B, S, G, N] bf16, dC [B, S, G, N] bf16, dD [H] fp32),
     the same bits from call to call."""
+    out = _backward(x, dt, A, B, C, D, dy, workspace,
+                    INTRA_PARTS["float32"])
+    ssd_chunked_bwd_kernel.launches += 1
+    return out
+
+
+def ssd_chunked_bwd_kernel_bf16(x: torch.Tensor, dt: torch.Tensor,
+                                A: torch.Tensor, B: torch.Tensor,
+                                C: torch.Tensor, D: torch.Tensor,
+                                dy: torch.Tensor, *,
+                                workspace: torch.Tensor | None = None):
+    """``ssd_chunked_bwd_kernel``'s bf16-intra instance, the gradient of
+    ``ssd_chunked_kernel_bf16``'s y: M and Q rounded to bf16 once; the same
+    arguments and returns, two calls bit-equal."""
+    out = _backward(x, dt, A, B, C, D, dy, workspace,
+                    INTRA_PARTS["bfloat16"])
+    ssd_chunked_bwd_kernel_bf16.launches += 1
+    return out
+
+
+def _backward(x, dt, A, B, C, D, dy, workspace, m_parts: int):
     _check("ssd_chunked_bwd_kernel", x, dt, A, B, C, D, dy)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -245,36 +300,39 @@ def ssd_chunked_bwd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in (x, dt, A, B, C, D, dy, dx, ddt, dA,
                                           dB, dC, dD, workspace)),
-                 b, s, h, p, g, n, *strides, stream)
+                 b, s, h, p, g, n, *strides, m_parts, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunked_bwd_kernel: launch failed, "
                            f"cudaError {err}")
-    ssd_chunked_bwd_kernel.launches += 1
     return dx, ddt, dA, dB, dC, dD
 
 
 ssd_chunked_bwd_kernel.launches = 0
+ssd_chunked_bwd_kernel_bf16.launches = 0
 
 
+# bf16_intra: the bf16-intra instance (INTRA_PARTS["bfloat16"])
 torch.library.define(
     "repro_torch::ssd_fwd",
     "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor D, "
-    "int chunk) -> (Tensor, Tensor)")
+    "int chunk, bool bf16_intra=False) -> (Tensor, Tensor)")
 torch.library.define(
     "repro_torch::ssd_bwd",
     "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor D, "
-    "Tensor dy, Tensor(a!) workspace) -> (Tensor, Tensor, Tensor, Tensor, "
-    "Tensor, Tensor)")
+    "Tensor dy, Tensor(a!) workspace, bool bf16_intra=False) -> (Tensor, "
+    "Tensor, Tensor, Tensor, Tensor, Tensor)")
 
 
 @torch.library.impl("repro_torch::ssd_fwd", "cuda")
-def _ssd_fwd_cuda(x, dt, A, B, C, D, chunk):
-    """``ssd_chunked_kernel`` as an operator: (y, final_state)."""
-    return ssd_chunked_kernel(x, dt, A, B, C, D, chunk=chunk)
+def _ssd_fwd_cuda(x, dt, A, B, C, D, chunk, bf16_intra=False):
+    """``ssd_chunked_kernel`` (``bf16_intra``: its bf16-intra instance) as
+    an operator: (y, final_state)."""
+    fwd = ssd_chunked_kernel_bf16 if bf16_intra else ssd_chunked_kernel
+    return fwd(x, dt, A, B, C, D, chunk=chunk)
 
 
 @torch.library.register_fake("repro_torch::ssd_fwd")
-def _(x, dt, A, B, C, D, chunk):
+def _(x, dt, A, B, C, D, chunk, bf16_intra=False):
     check_config(B.shape[-1], chunk)
     b, _, h, p = x.shape
     return (torch.empty_like(x, memory_format=torch.contiguous_format),
@@ -282,14 +340,15 @@ def _(x, dt, A, B, C, D, chunk):
 
 
 @torch.library.impl("repro_torch::ssd_bwd", "cuda")
-def _ssd_bwd_cuda(x, dt, A, B, C, D, dy, workspace):
-    """``ssd_chunked_bwd_kernel`` as an operator, its scratch given:
-    (dx, ddt, dA, dB, dC, dD)."""
-    return ssd_chunked_bwd_kernel(x, dt, A, B, C, D, dy, workspace=workspace)
+def _ssd_bwd_cuda(x, dt, A, B, C, D, dy, workspace, bf16_intra=False):
+    """``ssd_chunked_bwd_kernel`` (``bf16_intra``: its bf16-intra instance)
+    as an operator, its scratch given: (dx, ddt, dA, dB, dC, dD)."""
+    bwd = ssd_chunked_bwd_kernel_bf16 if bf16_intra else ssd_chunked_bwd_kernel
+    return bwd(x, dt, A, B, C, D, dy, workspace=workspace)
 
 
 @torch.library.register_fake("repro_torch::ssd_bwd")
-def _(x, dt, A, B, C, D, dy, workspace):
+def _(x, dt, A, B, C, D, dy, workspace, bf16_intra=False):
     b, s, h, _ = x.shape
     f32 = dict(dtype=torch.float32)
     return (torch.empty_like(x, memory_format=torch.contiguous_format),

@@ -155,8 +155,11 @@ def kernel_launches() -> dict:
     """Each kernel wrapper's launch count in this process."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_deterministic)
-    from repro_torch.kernels.ssd import ssd_chunked_bwd_kernel, ssd_chunked_kernel
+    from repro_torch.kernels.ssd import (
+        ssd_chunked_bwd_kernel, ssd_chunked_bwd_kernel_bf16,
+        ssd_chunked_kernel, ssd_chunked_kernel_bf16)
     return {fn.__name__: fn.launches
             for fn in (flash_attention, flash_attention_bwd,
                        flash_attention_bwd_deterministic, ssd_chunked_kernel,
-                       ssd_chunked_bwd_kernel)}
+                       ssd_chunked_bwd_kernel, ssd_chunked_kernel_bf16,
+                       ssd_chunked_bwd_kernel_bf16)}

@@ -23,8 +23,13 @@ as the reference divides its analytic count; bytes and the peak of the
 live storages are the rank's own; the collectives' bytes by kind are
 those of the functional collectives DTensor issues (in place of the
 reference's ``roofline/hlo.py``), priced at ``LINK_BW``.
-``--moe-sharding``, ``--serving-layout``, ``--seq-sharded-acts`` and
-``--param-gather-dtype`` are the reference's knobs (``sharding/rules.py``).
+``--moe-sharding``, ``--serving-layout``, ``--seq-sharded-acts``,
+``--param-gather-dtype``, ``--ssd-compute-dtype``, ``--ssm-chunk`` and
+``--no-remat`` are the reference's knobs (``sharding/rules.py``), taken
+on one card and on the meshes and recorded in each result line, as the
+reference records them. On the meta device the SSD operator's
+bf16-intra instance is priced as the default one: the same least work,
+the same bytes.
 
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k
@@ -56,6 +61,7 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.roofline.analysis import analyze, format_table
 from repro_torch.roofline.step_cost import StepCount
 from repro_torch.serve.step import make_decode_step, make_prefill
+from repro_torch.sharding.rules import single_device_rules
 from repro_torch.train.step import make_train_step
 
 # long_500k needs sub-quadratic attention / bounded state: SSM, hybrid
@@ -66,8 +72,9 @@ MESH, CHIPS = "1", 1
 CARD_BYTES = 80e9  # one H100's device memory
 # the production meshes: name -> (multi_pod, devices)
 MESHES = {"16x16": (False, 256), "2x16x16": (True, 512)}
+# the Rules fields the CLI sets (--no-remat sets remat)
 KNOBS = ("moe_sharding", "serving_layout", "seq_sharded_acts",
-         "param_gather_dtype")
+         "param_gather_dtype", "ssd_compute_dtype", "ssm_chunk", "remat")
 
 
 def combos():
@@ -133,13 +140,14 @@ def build_step(model: Model, shape: ShapeConfig, *, tiny: bool = False,
 
 def run_one(arch: str, shape_id: str | None = None, *, tiny: bool = False,
             cfg: ModelConfig | None = None, shape: ShapeConfig | None = None,
-            cache_len: int | None = None, verbose: bool = True,
-            tag: str = "") -> dict:
+            cache_len: int | None = None, knobs: dict | None = None,
+            verbose: bool = True, tag: str = "") -> dict:
     """One dry run: ``arch``'s config (tiny, or ``cfg``) at ``shape_id``'s
-    shape (or ``shape``), as the reference's record on one card."""
+    shape (or ``shape``) under the rules' ``knobs`` (``KNOBS``), as the
+    reference's record on one card."""
     cfg = cfg or (get_tiny(arch) if tiny else get_config(arch))
     shape = shape or SHAPES[shape_id]
-    model = Model(cfg, device="meta")
+    model = Model(cfg, single_device_rules(**(knobs or {})), device="meta")
 
     t0 = time.perf_counter()
     fn, args, step_kind = build_step(model, shape, tiny=tiny,
@@ -160,6 +168,7 @@ def run_one(arch: str, shape_id: str | None = None, *, tiny: bool = False,
     out = {
         "arch": arch, "shape": shape.name, "mesh": MESH, "chips": CHIPS,
         "step_kind": step_kind, "tiny": tiny, "tag": tag,
+        **{k: getattr(model.rules, k) for k in KNOBS},
         "remat": model.remat, "trace_s": round(t_trace, 2),
         "memory": mem,
         "cost": cost,
@@ -191,7 +200,7 @@ def run_sharded(arch: str, shape_id: str, mesh_name: str, *,
     multi_pod, chips = MESHES[mesh_name]
     cfg = get_tiny(arch) if tiny else get_config(arch)
     shape = SHAPES[shape_id]
-    one = run_one(arch, shape_id, tiny=tiny,
+    one = run_one(arch, shape_id, tiny=tiny, knobs=knobs,
                   verbose=False)["cost_analytic_global"]
     # the mesh's device type is the CPU's: DTensor's redistribution cost
     # model asks torch.<device type>.device_count(), which meta lacks; the
@@ -280,15 +289,23 @@ def run_meshes(todo: list, meshes: list, *, tiny: bool, knobs: dict,
                    "--pairs", json.dumps(todo), "--tag", tag]
             if tiny:
                 cmd.append("--tiny")
-            for k, v in knobs.items():
-                flag = "--" + k.replace("_", "-")
-                cmd += [flag] if v is True else ([] if v is False
-                                                 else [flag, str(v)])
-            subprocess.run(cmd, check=False)
+            subprocess.run(cmd + knob_args(knobs), check=False)
             if os.path.exists(out):
                 with open(out) as f:
                     records += [json.loads(line) for line in f]
     return records
+
+
+def knob_args(knobs: dict) -> list:
+    """The CLI flags that set ``knobs`` (``KNOBS``' fields)."""
+    out = []
+    for k, v in knobs.items():
+        if k == "remat":
+            out += [] if v else ["--no-remat"]
+            continue
+        flag = "--" + k.replace("_", "-")
+        out += [flag] if v is True else ([] if v is False else [flag, str(v)])
+    return out
 
 
 def check_launch_profile(path: str, *, environ=None) -> list:
@@ -319,6 +336,14 @@ def main(argv=None):
     ap.add_argument("--seq-sharded-acts", action="store_true")
     ap.add_argument("--param-gather-dtype", choices=["float32", "bfloat16"],
                     default="float32")
+    ap.add_argument("--ssd-compute-dtype", choices=["float32", "bfloat16"],
+                    default="float32",
+                    help="the SSD scan's intra-chunk products (the card's "
+                         "bf16-intra kernel instances)")
+    ap.add_argument("--ssm-chunk", type=int, default=0,
+                    help="the plain SSD scan's chunk (0: the config's)")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="keep each layer's activations for the backward")
     ap.add_argument("--mesh-worker", choices=sorted(MESHES),
                     help=argparse.SUPPRESS)
     ap.add_argument("--worker-out", help=argparse.SUPPRESS)
@@ -334,7 +359,8 @@ def main(argv=None):
                     help="exit 2 on any launch-profile drift")
     args = ap.parse_args(argv)
 
-    knobs = {k: getattr(args, k) for k in KNOBS}
+    knobs = {k: getattr(args, k) for k in KNOBS if k != "remat"}
+    knobs["remat"] = not args.no_remat
     if args.mesh_worker:
         todo = [tuple(p) for p in json.loads(args.pairs)]
         raise SystemExit(1 if mesh_worker(
@@ -379,7 +405,8 @@ def main(argv=None):
         todo = []
     for arch, shape_id in todo:
         try:
-            res = run_one(arch, shape_id, tiny=args.tiny, tag=args.tag)
+            res = run_one(arch, shape_id, tiny=args.tiny, knobs=knobs,
+                          tag=args.tag)
             results.append(res)
             if args.out:
                 with open(args.out, "a") as f:

@@ -229,8 +229,8 @@ def map_schema(fn, schema: dict, *trees: dict) -> dict:
             for name, leaf in schema.items()}
 
 
-def ssm_mix(s_cfg, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-            dtr: torch.Tensor, w: dict, cache: dict | None,
+def ssm_mix(s_cfg, r: Rules, x: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor, dtr: torch.Tensor, w: dict, cache: dict | None,
             mode: str) -> torch.Tensor:
     """The middle of a Mamba2 block, on the heads ``x`` holds (all of them
     on one device, a rank's on a mesh): the causal convs of x, B and C,
@@ -238,7 +238,9 @@ def ssm_mix(s_cfg, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     whole sequence, or the one-token conv and state steps with ``mode``
     "decode". ``w`` holds the block's fp32 ``conv_*``, ``dt_bias``,
     ``A_log`` and ``ssm_D``; ``cache`` (None in training) takes the new
-    SSM and conv states in place. Returns y [B, S, heads * head_dim]."""
+    SSM and conv states in place. The scan takes the rules' SSD knobs as
+    the reference's ``mamba_sublayer`` does: ``ssm_chunk or chunk_size``
+    and ``ssd_compute_dtype``. Returns y [B, S, heads * head_dim]."""
     b, s = x.shape[:2]
     pd, g, n = s_cfg.head_dim, s_cfg.ngroups, s_cfg.state_dim
     nh = x.shape[-1] // pd
@@ -250,7 +252,8 @@ def ssm_mix(s_cfg, x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         dt = F.softplus(dtr.float() + w["dt_bias"])
         y, state = ssd_op(x.reshape(b, s, nh, pd), dt, A,
                           Bm.reshape(b, s, g, n), Cm.reshape(b, s, g, n),
-                          w["ssm_D"], chunk=s_cfg.chunk_size)
+                          w["ssm_D"], chunk=r.ssm_chunk or s_cfg.chunk_size,
+                          compute_dtype=getattr(torch, r.ssd_compute_dtype))
     elif mode == "decode":
         x1, cx = ssm_lib.conv_decode_step(cache["conv_x"], x[:, 0],
                                           w["conv_x_w"], w["conv_x_b"])
@@ -349,7 +352,8 @@ class PlainOps:
                                  p["w_down"], moe=self.cfg.moe)
 
     def ssm(self, p, x, Bm, Cm, dtr, cache, mode):
-        return ssm_mix(self.cfg.ssm, x, Bm, Cm, dtr, p, cache, mode)
+        return ssm_mix(self.cfg.ssm, self.model.rules, x, Bm, Cm, dtr, p,
+                       cache, mode)
 
     def cross_entropy(self, logits: torch.Tensor, labels) -> torch.Tensor:
         """Mean over positions of logsumexp(logits) - logits[label]."""

@@ -501,7 +501,7 @@ class ShardedPath:
         def body(xl, Bl, Cl, dl, *rest):
             w = dict(zip(_SSM_WEIGHTS, rest))
             caches = dict(zip(names, rest[len(_SSM_WEIGHTS):])) or None
-            return ssm_mix(s_cfg, xl, Bl, Cl, dl, w, caches, mode)
+            return ssm_mix(s_cfg, r, xl, Bl, Cl, dl, w, caches, mode)
 
         return self._island(
             body, self._pl(heads),

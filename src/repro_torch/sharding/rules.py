@@ -30,9 +30,23 @@ on the sharded path; ``remat`` recomputes each layer in the backward pass
 on either path. ``q_chunk``, ``k_chunk`` and ``skip_masked_blocks`` shape
 the reference's jnp scan; the port's attention runs the flash kernels,
 which tile by their own launch configs and always skip masked tiles, so
-they have no effect here. ``ssd_compute_dtype`` and ``ssm_chunk`` change
-the reference's numerics and are not ported (ROADMAP A): a value other
-than the default raises ``NotImplementedError``.
+they have no effect here. The two SSD knobs, as the reference's
+``mamba_sublayer`` reads them:
+
+  * ``ssd_compute_dtype`` ("float32" | "bfloat16") is the type of the
+    scan's intra-chunk products. On the CPU the plain version casts C B^T,
+    the decay matrix and x dt to it, as the reference does, the decays,
+    the per-chunk states and the inter-chunk term staying fp32. On the
+    card "bfloat16" launches the SSD kernels' bf16-intra instance: the
+    intra-tile product M = (C B^T) exp(cs_i - cs_j) dt_j (and, backward,
+    Q) fed to the tensor cores as one bf16 part instead of a hi + lo
+    pair; the state and x w keep both parts, as the reference keeps them
+    fp32. It does not repeat the reference's roundings bit for bit.
+  * ``ssm_chunk`` (0: the config's ``chunk_size``) is the plain version's
+    chunk, on the CPU and on the mesh. Like ``q_chunk`` / ``k_chunk`` it
+    blocks the work and moves the result by rounding only; on the card it
+    is not the kernel's tile, which its launch config resolves
+    (``kernels/ops.py``'s ``ssd_config``), and the kernel still launches.
 """
 
 from __future__ import annotations
@@ -58,8 +72,11 @@ class Rules:
     # cast fp32 master params to bf16 BEFORE the FSDP gather, so the
     # gathers move half the bytes
     param_gather_dtype: str = "float32"     # "float32" | "bfloat16"
-    # the reference's SSD numerics knobs; not ported (ROADMAP A)
-    ssd_compute_dtype: str = "float32"
+    # the SSD scan's intra-chunk products: the plain version's casts on the
+    # CPU, the kernels' bf16-intra instance on the card
+    ssd_compute_dtype: str = "float32"      # "float32" | "bfloat16"
+    # the plain version's SSD chunk (0: the config's chunk_size); never the
+    # kernel's tile
     ssm_chunk: int = 0
     # DECODE-ONLY serving layout: params pure-TP over BOTH mesh axes,
     # batch replicated across data, KV cache sequence dim over all axes
@@ -73,11 +90,11 @@ class Rules:
         if self.param_gather_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"Rules: param_gather_dtype {self.param_gather_dtype!r}")
-        if self.ssd_compute_dtype != "float32" or self.ssm_chunk != 0:
-            raise NotImplementedError(
-                "Rules: ssd_compute_dtype and ssm_chunk change the "
-                "reference's SSD numerics and are not ported (ROADMAP A); "
-                "the port's SSD kernels run fp32 at their own tile")
+        if self.ssd_compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"Rules: ssd_compute_dtype {self.ssd_compute_dtype!r}")
+        if self.ssm_chunk < 0:
+            raise ValueError(f"Rules: ssm_chunk {self.ssm_chunk} < 0")
 
     # ----- axis sizes -----
 

@@ -209,3 +209,72 @@ def test_ssd_backward_workspace_is_counted():
     assert op["calls"] == cfg.num_layers and op["bytes"] > cfg.num_layers * ws
     mem = rec["memory"]
     assert mem["peak_memory_in_bytes"] > mem["argument_size_in_bytes"] + ws
+
+
+def _reference_record_keys() -> tuple[set, dict]:
+    """The keys of the reference's ``run_one`` record (its ``out`` dict)
+    and its argparse flags' defaults, read from its source (the module sets
+    XLA_FLAGS when imported)."""
+    tree = ast.parse((REPO / "src/repro/launch/dryrun.py").read_text())
+    keys, flags = set(), {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", "") == "out" and \
+                isinstance(node.value, ast.Dict):
+            keys |= {k.value for k in node.value.keys
+                     if isinstance(k, ast.Constant)}
+        if isinstance(node, ast.Call) and \
+                getattr(node.func, "attr", "") == "add_argument":
+            kw = {k.arg: k.value for k in node.keywords}
+            default = kw.get("default", kw.get("action"))
+            flags[node.args[0].value] = (
+                default.value if isinstance(default, ast.Constant) else None)
+    return keys, flags
+
+
+def test_ssd_knobs_and_no_remat_are_recorded_as_the_reference(tmp_path):
+    """``--ssd-compute-dtype bfloat16 --ssm-chunk 64 --no-remat`` on a tiny
+    pair: the flags are the reference's (names, defaults), and the record
+    holds ``ssd_compute_dtype``, ``ssm_chunk`` and ``remat`` as the
+    reference's record names them, with the flags' values."""
+    keys, flags = _reference_record_keys()
+    fields = ("ssd_compute_dtype", "ssm_chunk", "remat")
+    assert set(fields) <= keys
+    assert {f: flags[f] for f in ("--ssd-compute-dtype", "--ssm-chunk",
+                                  "--no-remat")} == {
+        "--ssd-compute-dtype": "float32", "--ssm-chunk": 0,
+        "--no-remat": "store_true"}
+    out = tmp_path / "dr.jsonl"
+    dryrun.main(["--arch", "mamba2-370m", "--shape", "train_4k", "--tiny",
+                 "--ssd-compute-dtype", "bfloat16", "--ssm-chunk", "64",
+                 "--no-remat", "--out", str(out)])
+    (rec,) = [json.loads(line) for line in out.read_text().splitlines()]
+    _check_record(rec, tiny=True)
+    assert {f: rec[f] for f in fields} == {
+        "ssd_compute_dtype": "bfloat16", "ssm_chunk": 64, "remat": False}
+    dryrun.main(["--arch", "mamba2-370m", "--shape", "train_4k", "--tiny",
+                 "--out", str(out)])
+    default = json.loads(out.read_text().splitlines()[-1])
+    assert {f: default[f] for f in fields} == {
+        "ssd_compute_dtype": "float32", "ssm_chunk": 0, "remat": True}
+    # the mesh workers are handed the same flags
+    assert dryrun.knob_args(dict(ssd_compute_dtype="bfloat16", ssm_chunk=64,
+                                 remat=False)) == [
+        "--ssd-compute-dtype", "bfloat16", "--ssm-chunk", "64", "--no-remat"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2.5-3b"])
+def test_no_remat_raises_a_train_pairs_peak(arch):
+    """Without remat every layer's activations stay for the backward: a
+    tiny training pair's counted peak rises; the FLOPs fall by the
+    recompute. The SSD knobs leave a step's FLOPs and bytes as they are
+    (the operators price both instances alike)."""
+    recs = {name: dryrun.run_one(arch, "train_4k", tiny=True, knobs=knobs,
+                                 verbose=False)
+            for name, knobs in (("remat", {}), ("none", {"remat": False}),
+                                ("bf16", {"ssd_compute_dtype": "bfloat16"}))}
+    peak = {k: r["memory"]["peak_memory_in_bytes"] for k, r in recs.items()}
+    assert recs["none"]["remat"] is False and recs["remat"]["remat"] is True
+    assert peak["none"] > peak["remat"]
+    assert recs["none"]["cost"]["flops"] < recs["remat"]["cost"]["flops"]
+    assert recs["bf16"]["cost"] == recs["remat"]["cost"]

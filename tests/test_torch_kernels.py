@@ -43,7 +43,10 @@ from repro_torch.kernels.ref import (attention_backward_reference,
                                      attention_reference, row_rel_err,
                                      ssd_backward_reference,
                                      ssd_chunked_reference)
-from repro_torch.kernels.ssd import ssd_chunked_bwd_kernel, ssd_chunked_kernel
+from repro_torch.kernels.ssd import (ssd_chunked_bwd_kernel,
+                                     ssd_chunked_bwd_kernel_bf16,
+                                     ssd_chunked_kernel,
+                                     ssd_chunked_kernel_bf16)
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import tree_map
 from repro_torch.train.step import loss_and_grads
@@ -131,6 +134,26 @@ def test_ssd_kernel_refuses_cpu_tensors():
     assert y.shape == args[0].shape and y.dtype == torch.bfloat16
     assert st.shape == (1, 2, 32, 16) and st.dtype == torch.float32
     assert ssd_chunked_kernel.launches == before
+
+
+def test_bf16_intra_instances_refuse_cpu_tensors():
+    """The bf16-intra wrappers never compute on the CPU either: ssd_op's
+    compute_dtype picks the plain version's casts there, no launch; an
+    unknown compute dtype raises."""
+    args = _ssd_inputs(1, 40, 2, 32, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunked_kernel_bf16(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunked_bwd_kernel_bf16(*args, args[0])
+    before = ssd_chunked_kernel_bf16.launches, ssd_chunked_kernel.launches
+    y, st = ssd_op(*args, chunk=32, compute_dtype=torch.bfloat16)
+    ry, rst = ssd_chunked_reference(*args, chunk=32,
+                                    compute_dtype=torch.bfloat16)
+    assert torch.equal(y, ry) and torch.equal(st, rst)
+    assert (ssd_chunked_kernel_bf16.launches,
+            ssd_chunked_kernel.launches) == before
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ssd_op(*args, chunk=32, compute_dtype=torch.float16)
 
 
 def test_build_without_nvcc_raises():
@@ -685,6 +708,33 @@ def test_ssd_op_differentiates_through_the_kernels_on_card(cuda):
     y, state = ssd_op(*leaves, chunk=256)
     with pytest.raises(NotImplementedError, match="final state"):
         (y.float().sum() + state.sum()).backward()
+
+
+@pytest.mark.gpu
+def test_ssd_op_bf16_compute_runs_the_bf16_intra_instances_on_card(cuda):
+    """ssd_op(compute_dtype=bf16) launches the forward's bf16-intra
+    instance and autograd the backward's, once each, never the default
+    ones; each moves y and dx off the default instance's (one bf16 part
+    of M, under the JAX tests' draws) and stays finite; two backward
+    calls bit-equal."""
+    args = _ssd_inputs(2, 300, 8, 64, 2, 128, device=cuda, seed=5)
+    dy = torch.randn(args[0].shape, device=cuda).bfloat16()
+    leaves = [t.detach().requires_grad_() for t in args]
+    kernels = (ssd_chunked_kernel, ssd_chunked_bwd_kernel,
+               ssd_chunked_kernel_bf16, ssd_chunked_bwd_kernel_bf16)
+    before = [k.launches for k in kernels]
+    y, _ = ssd_op(*leaves, chunk=256, compute_dtype=torch.bfloat16)
+    torch.autograd.backward(y, dy)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kernels, before)] == [0, 0, 1, 1]
+    y2, _ = ssd_chunked_kernel(*args)
+    dx2 = ssd_chunked_bwd_kernel(*args, dy)[0]
+    assert torch.isfinite(y.float()).all()
+    assert row_rel_err(y, y2) > SSD_Y_ROW_RTOL
+    assert row_rel_err(leaves[0].grad, dx2) > SSD_Y_ROW_RTOL
+    first = ssd_chunked_bwd_kernel_bf16(*args, dy)
+    second = ssd_chunked_bwd_kernel_bf16(*args, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu

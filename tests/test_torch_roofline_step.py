@@ -378,7 +378,7 @@ def _attention_stub(q, k, v, *, causal=True, window=0):
     return q + (k.sum(2, keepdim=True) + v.sum(2, keepdim=True)) * 0
 
 
-def _ssd_stub(x, dt, A, B, C, D, *, chunk):
+def _ssd_stub(x, dt, A, B, C, D, *, chunk, compute_dtype=torch.float32):
     """No matmul; y depends on every input, as through the plain version."""
     b, s, h, p = x.shape
     zero = (dt.sum(-1) + B.sum((2, 3)) + C.sum((2, 3))
@@ -480,10 +480,10 @@ def plain_kernels():
         calls.append(("flash_attention_bwd", deterministic))
         return _attention_grads(q, k, v, do, causal, window, q_offset)
 
-    def ssd_fwd(x, dt, A, B, C, D, chunk):
+    def ssd_fwd(x, dt, A, B, C, D, chunk, bf16_intra=False):
         return ssd_chunked_reference(x, dt, A, B, C, D, chunk=chunk)
 
-    def ssd_bwd(x, dt, A, B, C, D, dy, workspace):
+    def ssd_bwd(x, dt, A, B, C, D, dy, workspace, bf16_intra=False):
         calls.append(("ssd_bwd", workspace.numel()))
         return ssd_backward_tiles(x, dt, A, B, C, D, dy)
 

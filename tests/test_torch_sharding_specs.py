@@ -138,6 +138,12 @@ def test_placements_and_unported_knobs():
     assert port.placements((None, None)) == [Replicate()] * 3
     with pytest.raises(ValueError):
         port.placements((("data", "pod"),))
-    for kw in ({"ssd_compute_dtype": "bfloat16"}, {"ssm_chunk": 64}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    # the SSD knobs are taken as the reference takes them; bad values raise
+    # as moe_sharding's and param_gather_dtype's do
+    for kw in ({"ssd_compute_dtype": "bfloat16"}, {"ssm_chunk": 64},
+               {"ssd_compute_dtype": "bfloat16", "ssm_chunk": 16}):
+        r = Rules(mesh=None, **kw)
+        assert all(getattr(r, k) == v for k, v in kw.items())
+    for kw in ({"ssd_compute_dtype": "float16"}, {"ssm_chunk": -1}):
+        with pytest.raises(ValueError):
             Rules(mesh=None, **kw)

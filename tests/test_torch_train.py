@@ -181,8 +181,11 @@ def test_adamw_matches_reference(clipped):
     g_scale = 0.5 if clipped else 0.012
     for _ in range(3):
         g = _random_tree(rng, g_scale)
+        # the reference gets its own copy: jnp.asarray may alias the numpy
+        # buffer, which the port's in-place clip rewrites while the jitted
+        # update may still be reading it
         jp, js, jm = jax.jit(jadamw.adamw_update, static_argnums=3)(
-            jp, jax.tree.map(jnp.asarray, g), js, jcfg)
+            jp, jax.tree.map(jnp.array, g), js, jcfg)
         ids = id(tp), id(ts)
         tp, ts, tm = adamw.adamw_update(
             tp, adamw.tree_map(torch.from_numpy, g), ts, cfg)

@@ -169,7 +169,7 @@ def on_card(monkeypatch):
         calls.append(("flash_attention", block_q, block_k))
         return q, None
 
-    def ssd_rec(x, dt, A, B, C, D, chunk):
+    def ssd_rec(x, dt, A, B, C, D, chunk, bf16_intra=False):
         calls.append(("ssd", chunk))
         return x, None
 
