@@ -152,6 +152,15 @@ Phases, one line or more each; any failure exits non-zero:
      the launch to the first step or the first token; and, against a
      fresh process that resumes the same checkpoint without the runtime,
      what the runtime's own reads of the checkpoint cost the warm boot.
+  witness: in the same training workdir, one more warm boot of
+     qwen2.5-3b at full width taking one step, in a fresh process under
+     the port's lock witness and I/O witness (python -m
+     repro_torch.analysis.witness, installed before anything of the port
+     is imported; not timed): the locks witnessed, the observed lock-order
+     edges and cycles against the port's static lint graph, the DFS bytes
+     by priority, bytes moved that accounting missed, priority inversions
+     and the kernels' launches. Any cycle, unaccounted byte or inversion,
+     or a step without its 72 / 36 flash launches, fails.
 The line before the last lists the kernels as JSON (the forward kernels
 with their launches on the main path by launch config); the last line is
 the result as JSON. Exits non-zero without a CUDA card.
@@ -3113,12 +3122,12 @@ def phase_resume(card: str) -> int:
 
 
 
-def run_launcher(tag: str, args: list[str]) -> dict:
+def run_launcher(tag: str, args: list[str], phase: str = "boot") -> dict:
     """Runs ``python -u args`` (PYTHONPATH=src) as a fresh process,
-    echoing its output and the time since the launch at which each line
-    arrived; kills it after BOOT_CHILD_TIMEOUT_S. Returns its exit code,
-    its lines with their arrival times, and its ``boot:``, ``boot-end:``
-    and ``kernels:`` lines parsed."""
+    echoing its output under ``[phase]`` and the time since the launch at
+    which each line arrived; kills it after BOOT_CHILD_TIMEOUT_S. Returns
+    its exit code, its lines with their arrival times, and its ``boot:``,
+    ``boot-end:``, ``witness-report:`` and ``kernels:`` lines parsed."""
     import threading
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     t0 = time.perf_counter()
@@ -3132,7 +3141,7 @@ def run_launcher(tag: str, args: list[str]) -> dict:
         for line in proc.stdout:
             line = line.rstrip("\n")
             lines.append((time.perf_counter() - t0, line))
-            say("boot", f"  {tag} {lines[-1][0]:7.2f}s | {line}")
+            say(phase, f"  {tag} {lines[-1][0]:7.2f}s | {line}")
         rc = proc.wait()
     finally:
         watchdog.cancel()
@@ -3141,7 +3150,7 @@ def run_launcher(tag: str, args: list[str]) -> dict:
             proc.wait()
     out = {"rc": rc, "lines": lines, "wall_s": time.perf_counter() - t0}
     for t, line in lines:
-        for key in ("boot", "boot-end"):
+        for key in ("boot", "boot-end", "witness-report"):
             if line.startswith(key + ": "):
                 out[key] = json.loads(line[len(key) + 2:])
                 out[key + "_at"] = t
@@ -3217,6 +3226,11 @@ def phase_boot(card: str) -> None:
         control = run_launcher(
             "resume alone", ["-c", RESUME_ALONE, str(train_dir), str(lib),
                              QWEN, str(TRAIN_BATCH), str(TRAIN_SEQ)])
+        witnessed = run_launcher(
+            "witnessed", ["-m", "repro_torch.analysis.witness",
+                          "repro_torch.launch.train", *BOOT_TRAIN_ARGS,
+                          "--steps", "1", "--workdir", str(train_dir)],
+            phase="witness")
         for tag in ("serve cold", "serve warm"):
             runs[tag] = run_launcher(
                 tag, ["-m", "repro_torch.launch.serve", *BOOT_SERVE_ARGS,
@@ -3311,6 +3325,57 @@ def phase_boot(card: str) -> None:
     if problems:
         fail("boot", "; ".join(problems))
     say("boot", "ok")
+    check_witness(witnessed, layers, card)
+
+
+def check_witness(run: dict, layers: int, card: str) -> None:
+    """[witness]: the warm full-width training boot that ran under the
+    port's lock witness and I/O witness (``python -m
+    repro_torch.analysis.witness``, installed before the port's imports):
+    no lock-order cycle, no byte that accounting missed, no priority
+    inversion, and the step through the flash kernels."""
+    report, end = run.get("witness-report"), run.get("boot-end")
+    if report is None or end is None:
+        fail("witness", f"exit code {run['rc']} and no report, see the "
+             "lines above")
+    locks, io = report["locks"], report["io"]
+    launches = end["launches"]
+    dfs = io["sched_bytes_by_resource"].get("dfs", {})
+    say("witness", f"locks witnessed {locks['locks_witnessed']}, observed "
+        f"edges {len(locks['observed_edges'])}, cycles "
+        f"{len(locks['cycles'])} (static graph's roots src/repro_torch); "
+        f"static gap {len(locks['static_gap'])}, possibly stale "
+        f"{len(locks['possibly_stale'])}")
+    say("witness", f"DFS bytes by priority: critical "
+        f"{dfs.get('critical', 0)}, deferred {dfs.get('deferred', 0)} "
+        f"(scheduler-metered); observed read {io['observed_read']} B, "
+        f"accounted {io['accounted_read']} B; observed write "
+        f"{io['observed_write']} B, accounted {io['accounted_write']} B")
+    say("witness", f"unaccounted bytes read {io['unaccounted_read']}, "
+        f"written {io['unaccounted_write']}; priority inversions "
+        f"{len(io['inversions'])} in {io['slot_grants']} slot grants")
+    say("witness", f"kernel launches {launches}; the run's wall "
+        f"{run['wall_s']:.2f} s (not a boot timing), on {card}")
+    problems = []
+    if locks["cycles"]:
+        problems.append(f"lock-order cycles {locks['cycles']}")
+    if io["unaccounted_read"] or io["unaccounted_write"]:
+        problems.append(f"unaccounted bytes read {io['unaccounted_read']}, "
+                        f"written {io['unaccounted_write']}")
+    if io["inversions"]:
+        problems.append(f"priority inversions {io['inversions']}")
+    if not (launches["flash_attention"] == 2 * layers
+            and launches["flash_attention_bwd"] == layers):
+        problems.append(f"flash launches {launches}, expected "
+                        f"{2 * layers} forward and {layers} backward")
+    if not dfs.get("critical"):
+        problems.append("no DFS byte read at CRITICAL: the boot restored "
+                        "nothing through the scheduler")
+    if run["rc"] != 0:
+        problems.append(f"exit code {run['rc']}")
+    if problems:
+        fail("witness", "; ".join(problems))
+    say("witness", "ok")
 
 
 def main() -> int:

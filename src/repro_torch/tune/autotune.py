@@ -226,12 +226,14 @@ def _setting(backend: str, dtype: str | None):
 def tune_attention(*, b: int = 1, hq: int = 4, hkv: int = 2,
                    sq: int = 128, sk: int | None = None, d: int = 64,
                    dtype: str | None = None, causal: bool = True,
-                   window: int = 0, backend: str = CPU_BACKEND,
+                   window: int = 0, backend: str | None = None,
                    repeats: int = 3, prune_keep: int = 4, profile=None,
                    seed: int = 0):
     """Sweep the flash forward's block shapes for one workload; returns
-    ``(key, entry)`` and records into ``profile`` when given. On the CPU
-    the plain version (``chunked_attention``) is causal only."""
+    ``(key, entry)`` and records into ``profile`` when given. ``backend``
+    None is the card's (``card_backend()``); ``CPU_BACKEND`` sweeps the
+    plain version (``chunked_attention``), which is causal only."""
+    backend = card_backend() if backend is None else backend
     on_card, device, dtype, tdt = _setting(backend, dtype)
     sk = sq if sk is None else sk
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -275,11 +277,13 @@ def tune_attention(*, b: int = 1, hq: int = 4, hkv: int = 2,
 
 def tune_ssd(*, b: int = 1, s: int = 128, h: int = 2, p: int = 32,
              g: int = 1, n: int = 32, dtype: str | None = None,
-             backend: str = CPU_BACKEND, repeats: int = 3,
+             backend: str | None = None, repeats: int = 3,
              prune_keep: int = 4, profile=None, seed: int = 1):
     """Sweep the SSD scan's chunk (on the card, its tile) for one
     workload; y and the final state are both held to the plain
-    version."""
+    version. ``backend`` None is the card's; ``CPU_BACKEND`` sweeps the
+    plain version's chunks."""
+    backend = card_backend() if backend is None else backend
     on_card, device, dtype, tdt = _setting(backend, dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
 

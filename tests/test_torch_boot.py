@@ -16,7 +16,6 @@ import importlib
 import json
 import os
 import stat
-import sys
 import threading
 import time
 from pathlib import Path
@@ -688,20 +687,11 @@ def test_card_environment_is_the_kernel_library(tmp_path, monkeypatch,
 # ------------------------------------------------------------ witnesses ---
 
 @pytest.fixture
-def port_lock_witness(monkeypatch):
-    """The JAX package's lock witness, its caller filter keeping the
-    port's frames (it keeps only ``src/repro/`` ones), for this test only:
-    locks the port constructs meanwhile record their acquisition orders."""
-    from repro.analysis import witness
+def port_lock_witness():
+    """The port's lock witness, for this test only: locks the port
+    constructs meanwhile record their acquisition orders."""
+    from repro_torch.analysis import witness
     saved = (witness.RECORDER, {n: getattr(threading, n) for n in witness._REAL})
-
-    def caller_site(depth: int = 2):
-        f = sys._getframe(depth)
-        fname = f.f_code.co_filename.replace(os.sep, "/")
-        i = fname.rfind("src/repro_torch/")
-        return None if i < 0 else (fname[i:], f.f_lineno)
-
-    monkeypatch.setattr(witness, "_caller_site", caller_site)
     witness.install()
     try:
         yield witness

@@ -608,14 +608,17 @@ def test_the_witness_catches_an_unscheduled_read(tmp_path, fp32_pair,
 
 
 def test_lint_finds_nothing_new_in_the_port():
-    """The lock-order and I/O-discipline lint over the port: its findings
-    are exactly the copies of the reference's reviewed, suppressed ones
-    (analysis_baseline.json): the plain reader's ``priority``, accepted
+    """The port's lock-order and I/O-discipline lint over the port: its
+    findings are exactly its reviewed, suppressed ones
+    (analysis_baseline_torch.json, the copies of the reference's
+    analysis_baseline.json): the plain reader's ``priority``, accepted
     for signature parity and not forwarded (a plain file is read whole
     under the caller's slot), and three intentional singleflights that
     block same-key callers under a per-key lock."""
-    from repro.analysis.cli import run_analysis
-    report = run_analysis(roots=[ROOT / "src" / "repro_torch"])
+    from repro_torch.analysis.cli import run_analysis
+    report = run_analysis(
+        baseline_path=ROOT / "analysis_baseline_torch.json")
+    assert report.new == [] and report.stale == []
     reviewed = json.loads(
         (ROOT / "analysis_baseline.json").read_text())["suppressions"]
     assert {(f.check, f.function, f.detail) for f in report.findings} == {

@@ -354,7 +354,8 @@ def test_sweep_prunes_to_keep_and_the_default(keep):
     with the default; the winner is the fastest measured."""
     p0 = autotune.stats["pruned"]
     _, entry = autotune.tune_attention(sq=256, d=16, hq=2, hkv=1,
-                                       prune_keep=keep, repeats=1)
+                                       prune_keep=keep, repeats=1,
+                                       backend=autotune.CPU_BACKEND)
     assert entry["candidates"] == 16
     assert entry["measured"] in (keep, keep + 1)
     assert autotune.stats["pruned"] - p0 == 16 - entry["measured"]
@@ -363,7 +364,33 @@ def test_sweep_prunes_to_keep_and_the_default(keep):
 
 def test_cpu_attention_sweep_is_causal_only():
     with pytest.raises(ValueError, match="causal"):
-        autotune.tune_attention(sq=32, d=16, causal=False)
+        autotune.tune_attention(sq=32, d=16, causal=False,
+                                backend=autotune.CPU_BACKEND)
+
+
+@pytest.mark.parametrize("sweep", ["tune_attention", "tune_ssd"])
+def test_bare_sweep_asks_for_the_card(sweep, monkeypatch):
+    """Called bare, a sweep resolves the card's backend, as
+    ``tune_workload`` does: on a torch without CUDA that raises before
+    any plain version is swept; with the card's name stubbed it still
+    asks for the card and sweeps nothing on the CPU."""
+    swept = []
+    for plain in ("chunked_attention", "ssd_chunked_reference"):
+        monkeypatch.setattr(autotune, plain,
+                            lambda *a, _p=plain, **k: swept.append(_p))
+    if not torch.cuda.is_available():
+        with pytest.raises(AssertionError, match="CUDA"):
+            getattr(autotune, sweep)()
+    asked = []
+
+    def no_card():
+        asked.append(True)
+        raise RuntimeError("no card here")
+
+    monkeypatch.setattr(autotune, "card_backend", no_card)
+    with pytest.raises(RuntimeError, match="no card here"):
+        getattr(autotune, sweep)()
+    assert asked == [True] and swept == []
 
 
 def test_card_backend_names_the_card(monkeypatch):
