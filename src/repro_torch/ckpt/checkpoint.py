@@ -32,6 +32,7 @@ failed read, or a failed copy to the device, raises; nothing falls back to the h
 
 from __future__ import annotations
 
+import contextvars
 import os
 import re
 import threading
@@ -49,6 +50,7 @@ from repro_torch.ckpt.index import TensorIndex
 from repro_torch.ckpt.plan import (RestorePlan, _checked_pread_many,
                                    build_restore_plan, dim_slices_for_spec)
 from repro_torch.core.pipeline import CRITICAL, DEFERRED
+from repro_torch.core.profiler import span
 from repro_torch.dfs.hdfs import HdfsCluster
 from repro_torch.dfs.striped import (StripedReader, StripedWriter,
                                      pread_many_fallback)
@@ -599,7 +601,7 @@ class Checkpointer:
         return index, plans
 
     def _restore_wave(self, reader, plan: RestorePlan, priority: int,
-                      device: torch.device, times: dict) -> dict:
+                      device: torch.device, times: Optional[dict]) -> dict:
         """{entry name: tensor on ``device``} (stored dtype, shard shape)
         for one wave, read by ``pread_many`` in groups of at most one ring
         slot. On the CPU contiguous reads land in the tensors directly and
@@ -608,18 +610,19 @@ class Checkpointer:
         each group is copied on to the card while the next one is read;
         only the ring is page-locked (page-locking a tensor-sized buffer
         per tensor took 5.41 of wave 0's 6.03 s for qwen2.5-3b). The
-        copies are not waited for here. Adds ``alloc_s`` and ``read_s``
-        to ``times``."""
+        copies are not waited for here. Spans ``ckpt.alloc`` (the device
+        buffers and the ring) and ``ckpt.read`` (each group's reads),
+        whose seconds it adds to ``times`` as ``alloc_s`` and ``read_s``
+        when given."""
         cuda = device.type == "cuda"
-        t0 = time.perf_counter()
-        bufs = [torch.empty(t.nbytes, dtype=torch.uint8, device=device)
-                for t in plan.tensors]
         slot_bytes = max([RING_BYTES] + [op.length for op in plan.reads])
-        ring = [torch.empty(slot_bytes, dtype=torch.uint8, pin_memory=True)
-                for _ in range(RING_SLOTS if cuda else 0)]
+        with span("ckpt.alloc", times, "alloc_s"):
+            bufs = [torch.empty(t.nbytes, dtype=torch.uint8, device=device)
+                    for t in plan.tensors]
+            ring = [torch.empty(slot_bytes, dtype=torch.uint8,
+                                pin_memory=True)
+                    for _ in range(RING_SLOTS if cuda else 0)]
         landed: list = [None] * RING_SLOTS   # a slot's copies, recorded
-        times["alloc_s"] = times.get("alloc_s", 0.0) + \
-            time.perf_counter() - t0
         groups: list[list] = [[]]
         for op in plan.reads:
             if groups[-1] and sum(o.length for o in groups[-1]) + \
@@ -642,11 +645,11 @@ class Checkpointer:
                     into.append(bufs[s.tensor][s.dest_off:s.dest_off + s.length]
                                 if op.contiguous
                                 else torch.empty(op.length, dtype=torch.uint8))
-            t0 = time.perf_counter()
-            _checked_pread_many(reader, [(op.offset, op.length) for op in ops],
-                                [t.numpy() for t in into], priority=priority)
-            times["read_s"] = times.get("read_s", 0.0) + \
-                time.perf_counter() - t0
+            with span("ckpt.read", times, "read_s"):
+                _checked_pread_many(reader,
+                                    [(op.offset, op.length) for op in ops],
+                                    [t.numpy() for t in into],
+                                    priority=priority)
             for op, src in zip(ops, into):
                 if cuda or not op.contiguous:
                     for s in op.segments:
@@ -664,14 +667,13 @@ class Checkpointer:
         return out
 
     @staticmethod
-    def _wait(device: torch.device, times: dict) -> None:
-        """Waits for a wave's copies to the card; adds the seconds waited
-        after its last read to ``times`` as ``copy_s``."""
+    def _wait(device: torch.device, times: Optional[dict]) -> None:
+        """Waits for a wave's copies to the card, a ``ckpt.copy_wait``
+        span; adds the seconds waited after its last read to ``times`` as
+        ``copy_s`` when given."""
         if device.type == "cuda":
-            t0 = time.perf_counter()
-            torch.cuda.current_stream(device).synchronize()
-            times["copy_s"] = times.get("copy_s", 0.0) + \
-                time.perf_counter() - t0
+            with span("ckpt.copy_wait", times, "copy_s"):
+                torch.cuda.current_stream(device).synchronize()
 
     @staticmethod
     def _assemble(likes: tuple, first_ti: int, results: dict,
@@ -741,19 +743,21 @@ class Checkpointer:
                                       wave0) if plans else {})
 
         def tail(prio: int) -> dict:
-            t0 = time.perf_counter()
-            res: dict = {}
-            for plan in plans[1:]:
-                res.update(self._restore_wave(reader, plan, prio, device, {}))
-            self._wait(device, {})
-            times.update(tail_s=time.perf_counter() - t0,
-                         tail_bytes=sum(p.payload_bytes for p in plans[1:]))
+            with span("ckpt.tail", times, "tail_s"):
+                res: dict = {}
+                for plan in plans[1:]:
+                    res.update(self._restore_wave(reader, plan, prio,
+                                                  device, None))
+                self._wait(device, None)
+            times["tail_bytes"] = sum(p.payload_bytes for p in plans[1:])
             return res
 
-        # the tail starts reading while wave 0's last copies land
+        # the tail starts reading while wave 0's last copies land, its
+        # spans in the caller's trace
         fut: Optional[Future] = None
         if async_tail and len(likes) > 1:
             fut = _pool("tail").submit(
+                contextvars.copy_context().run,
                 lambda: tuple(self._assemble(likes[1:], 1,
                                              tail(tail_priority), sliced)))
         self._wait(device, wave0)

@@ -1,22 +1,38 @@
-"""BootSeer's profiling system (§4.1, Fig. 8).
+"""BootSeer's profiling system (§4.1, Fig. 8), and the port's spans.
 
 Worker nodes emit stage-transition log lines ("print/echo instrumentation");
 a per-node LogParser extracts StageEvents; the central StageAnalysisService
 groups them into per-node and per-job stage durations, which power both the
 §3 characterization and the §5 evaluation.
+
+``span(name)`` marks work that repeats (a training step and its phases, a
+restore's reads) while a ``torch.profiler`` session records: a
+``record_function`` of that name on the profiler's timeline, beside the
+card's kernels, and a ``SpanRecord`` kept in memory (``spans()``) on the
+trace's clock, ``time.time_ns()``. Spans nest by context: a span's
+``trace`` is its root's id, its ``parent`` the span it ran inside, and work
+handed to another thread under ``contextvars.copy_context()`` keeps both.
+While nothing records a span is one flag check and a shared no-op context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
+import itertools
 import json
 import re
 import statistics
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+from contextvars import ContextVar
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Iterable, Optional, TextIO
+from typing import Iterable, NamedTuple, Optional, TextIO
+
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 from repro_torch.core.stages import GPU_CONSUMING, STAGE_ORDER, Stage
 
@@ -73,6 +89,107 @@ class StageLogger:
     def lines(self) -> str:
         return self.sink.getvalue() if isinstance(self.sink, io.StringIO) \
             else ""
+
+
+class SpanRecord(NamedTuple):
+    """One span: ``trace`` is its root's ``id`` (its own for a root),
+    ``parent`` the id of the span it ran inside (None for a root),
+    ``thread`` the native id of the thread it ran on, ``start_ns`` and
+    ``end_ns`` on ``time.time_ns()``."""
+    name: str
+    id: int
+    trace: int
+    parent: Optional[int]
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+SPAN_LIMIT = 1 << 16     # records kept; the oldest go first
+_span_lock = threading.Lock()
+_span_records: deque = deque(maxlen=SPAN_LIMIT)
+_span_dropped = 0
+_span_ids = itertools.count(1)
+# (trace, id) of the span the running code is inside
+_span_current: ContextVar[Optional[tuple]] = ContextVar(
+    "repro_torch_span", default=None)
+_SPAN_OFF = contextlib.nullcontext()
+
+
+def _add_seconds(times: dict, key: str, ns: int) -> None:
+    times[key] = times.get(key, 0.0) + ns / 1e9
+
+
+class _Timed:
+    """A span's duration added to ``times[key]``, nothing recorded."""
+    __slots__ = ("times", "key", "start")
+
+    def __init__(self, times: dict, key: str):
+        self.times, self.key = times, key
+
+    def __enter__(self):
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        _add_seconds(self.times, self.key,
+                     time.perf_counter_ns() - self.start)
+
+
+class _Span:
+    __slots__ = ("name", "times", "key", "scope", "token", "id", "trace",
+                 "parent", "start")
+
+    def __init__(self, name, times, key):
+        self.name, self.times, self.key = name, times, key
+
+    def __enter__(self):
+        self.scope = record_function(self.name)
+        self.scope.__enter__()
+        outer = _span_current.get()
+        self.id = next(_span_ids)
+        self.trace, self.parent = ((self.id, None) if outer is None
+                                   else outer)
+        self.token = _span_current.set((self.trace, self.id))
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _span_dropped
+        end = time.time_ns()
+        _span_current.reset(self.token)
+        self.scope.__exit__(*exc)
+        rec = SpanRecord(self.name, self.id, self.trace, self.parent,
+                         threading.get_native_id(), self.start, end)
+        with _span_lock:
+            if len(_span_records) == SPAN_LIMIT:
+                _span_dropped += 1
+            _span_records.append(rec)
+        if self.times is not None:
+            _add_seconds(self.times, self.key, end - self.start)
+
+
+def span(name: str, times: Optional[dict] = None, key: str = ""):
+    """A context that marks ``name``'s work while a ``torch.profiler``
+    session records (a ``record_function`` and a ``SpanRecord``). With
+    ``times`` it also adds its seconds to ``times[key]``, recorded or not:
+    from the record's two clock reads, or from ``time.perf_counter_ns()``
+    while nothing records; without, while nothing records, it is a shared
+    no-op."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _Span(name, times, key)
+    return _SPAN_OFF if times is None else _Timed(times, key)
+
+
+def spans() -> list[SpanRecord]:
+    """A copy of the kept records, oldest first."""
+    with _span_lock:
+        return list(_span_records)
+
+
+def spans_dropped() -> int:
+    """Records dropped to keep ``SPAN_LIMIT``, always the oldest."""
+    return _span_dropped
 
 
 def parse_log(text: str | Iterable[str]) -> list[StageEvent]:

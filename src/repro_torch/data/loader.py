@@ -1,13 +1,14 @@
 """Batch loaders: turn the synthetic stream into (tokens, labels) batches on
 the training device (``Loader``), or on a mesh, each rank holding its rows
 (``ShardedLoader``, the JAX package's, which ``device_put``s the batch with
-the step's input sharding)."""
+the step's input sharding). Each call is a ``data.load`` span."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.profiler import span
 from repro_torch.data.synthetic import SyntheticStream
 
 
@@ -22,11 +23,12 @@ class Loader:
     def __call__(self, step: int) -> dict:
         """{"tokens", "labels"}: [batch, seq_len] int32 on the device, the
         stream's row split as raw[:, :-1] / raw[:, 1:]."""
-        raw = self.stream.batch(step, self.batch, self.seq_len)
-        return {name: torch.from_numpy(np.ascontiguousarray(part)).to(
-                    self.device)
-                for name, part in (("tokens", raw[:, :-1]),
-                                   ("labels", raw[:, 1:]))}
+        with span("data.load"):
+            raw = self.stream.batch(step, self.batch, self.seq_len)
+            return {name: torch.from_numpy(np.ascontiguousarray(part)).to(
+                        self.device)
+                    for name, part in (("tokens", raw[:, :-1]),
+                                       ("labels", raw[:, 1:]))}
 
 
 class ShardedLoader:
@@ -49,11 +51,14 @@ class ShardedLoader:
         self.device = torch.device(device)
 
     def __call__(self, step: int) -> dict:
-        raw = self.stream.batch(step, self.batch, self.seq_len)
-        mine = self.rules.local_slices((self.batch, self.seq_len), self.spec)
-        out = {}
-        for name, part in (("tokens", raw[:, :-1]), ("labels", raw[:, 1:])):
-            local = torch.from_numpy(np.ascontiguousarray(part[mine]))
-            out[name] = self.rules.from_local(local.to(self.device),
-                                              self.spec, part.shape)
-        return out
+        with span("data.load"):
+            raw = self.stream.batch(step, self.batch, self.seq_len)
+            mine = self.rules.local_slices((self.batch, self.seq_len),
+                                           self.spec)
+            out = {}
+            for name, part in (("tokens", raw[:, :-1]),
+                               ("labels", raw[:, 1:])):
+                local = torch.from_numpy(np.ascontiguousarray(part[mine]))
+                out[name] = self.rules.from_local(local.to(self.device),
+                                                  self.spec, part.shape)
+            return out

@@ -30,9 +30,9 @@ at moonshot-v1-16b-a3b's training shape on the H100):
     ``index_add_`` or atomic scatter-add.
 Dropped assignments and empty slots read a zero row past the source.
 
-Plain functions on tensors; the scopes ``moe.router``, ``moe.dispatch``,
-``moe.experts`` and ``moe.combine`` name the block's parts in a
-``torch.profiler`` trace.
+Plain functions on tensors; the spans ``moe.router``, ``moe.dispatch``,
+``moe.experts`` and ``moe.combine`` (``repro_torch.core.profiler.span``)
+name the block's parts in a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -41,9 +41,9 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core.profiler import span
 
 
 def router_topk(x32: torch.Tensor, router_w: torch.Tensor, k: int):
@@ -142,10 +142,10 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     e, k = moe.num_experts, moe.experts_per_token
     n, cap = t * k, capacity_for(t, moe)
     e_loc = e if local_experts is None else local_experts
-    with record_function("moe.router"):
+    with span("moe.router"):
         probs, gate, idx = router_topk(x.float(), router_w, k)
         aux = load_balance_aux(probs, idx, e)
-    with record_function("moe.dispatch"):
+    with span("moe.dispatch"):
         order, se, st, pos, keep = _dispatch_indices(idx, t, e, cap)
         if local_experts is not None:
             keep = keep & (se >= expert_offset) & (
@@ -170,9 +170,9 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
         slot_place[dest] = flat
         xe = _Rows.apply(x, slot_token[:slots], token_slots).view(e_loc, cap,
                                                                   d)
-    with record_function("moe.experts"):
+    with span("moe.experts"):
         ye = _expert_ffn(xe, w_gate, w_up, w_down).view(slots, d)
-    with record_function("moe.combine"):
+    with span("moe.combine"):
         rows = _Rows.apply(ye, token_slots.view(-1),
                            slot_place[:slots, None]).view(t, k, d)
         sg = gate.gather(1, order[where] % k).to(ye.dtype)

@@ -10,6 +10,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.profiler import span
 from repro_torch.data.loader import Loader, ShardedLoader
 from repro_torch.data.synthetic import SyntheticStream
 from repro_torch.models.model import Model
@@ -17,13 +18,21 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.train.step import make_train_step
 
 
-def train_loop(model: Model, *, batch: int, seq_len: int, steps: int,
-               opt_cfg: Optional[AdamWConfig] = None, seed: int = 0,
-               log_every: int = 10, log_fn: Callable = print,
-               checkpointer=None, ckpt_every: int = 0, full_every: int = 0,
-               params=None, opt_state=None, start_step: int = 0,
-               resume_from: Optional[int] = None, restore_specs=None,
-               restore_coords: Optional[dict] = None, restore_sched=None):
+def train_loop(*args, **kwargs):
+    """``_train_loop`` (its arguments and result) as one ``loop`` span,
+    the root of a restart's spans; inside it ``loop.tail_wait`` covers the
+    kernels' build and the wait for the restored optimizer state."""
+    with span("loop"):
+        return _train_loop(*args, **kwargs)
+
+
+def _train_loop(model: Model, *, batch: int, seq_len: int, steps: int,
+                opt_cfg: Optional[AdamWConfig] = None, seed: int = 0,
+                log_every: int = 10, log_fn: Callable = print,
+                checkpointer=None, ckpt_every: int = 0, full_every: int = 0,
+                params=None, opt_state=None, start_step: int = 0,
+                resume_from: Optional[int] = None, restore_specs=None,
+                restore_coords: Optional[dict] = None, restore_sched=None):
     """Train on the synthetic stream. Returns (params, opt_state, history),
     history holding {"step", "loss", "grad_norm", "t"} every ``log_every``
     steps and at the last. Without ``params`` the model's fp32 masters are
@@ -105,10 +114,11 @@ def train_loop(model: Model, *, batch: int, seq_len: int, steps: int,
         # the tail streams while the kernels build (a no-op once built);
         # the port's step updates params and opt_state in place, so it
         # cannot warm up on the restored trees as the reference does
-        if model.device.type == "cuda":
-            from repro_torch.kernels import build
-            build.build()
-        (opt_state,) = opt_tail.result()
+        with span("loop.tail_wait"):
+            if model.device.type == "cuda":
+                from repro_torch.kernels import build
+                build.build()
+            (opt_state,) = opt_tail.result()
 
     history = []
     saves = 0       # saves this run: every full_every-th one is full

@@ -19,6 +19,11 @@ it to the parameter's placements as it arrives (a reduce-scatter or an
 all-reduce) and adds it into the buffer, so a block used more than once
 sums every use. AdamW then updates the DTensors in place and ``grad_norm``
 reduces across ranks.
+
+A step's spans (``repro_torch.core.profiler.span``): ``step``, the root,
+and inside it ``step.prepare`` (the zeroed gradient tree and the views),
+``step.forward``, ``step.backward`` and ``step.optimizer`` (the lr,
+clip and AdamW).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.core.profiler import span
 from repro_torch.models.model import Model
 from repro_torch.models.sharded import view_of
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
@@ -76,10 +82,10 @@ def _leaf_views(tree, grads):
     return _leaf_view(tree, grads)
 
 
-def loss_and_grads(model: Model, params: dict, batch: dict, grads: dict):
-    """``model.train_loss(params, batch)`` and its gradient, accumulated
-    into ``grads`` (a zeroed tree shaped like ``params``) in place. Returns
-    (loss, metrics), detached."""
+def model_views(model: Model, params: dict, grads: dict) -> dict:
+    """The tree the model trains on: leaf views of ``params``, the stacked
+    layer leaves as per-layer views, each view's gradient added into
+    ``grads`` (a zeroed tree shaped like ``params``) in place."""
     views = {name: _leaf_views(t, grads[name])
              for name, t in params.items() if name != "layers"}
     stacked, stacked_grads = params["layers"], grads["layers"]
@@ -87,9 +93,24 @@ def loss_and_grads(model: Model, params: dict, batch: dict, grads: dict):
         {name: _leaf_view(_layer(t, i), _layer(stacked_grads[name], i))
          for name, t in stacked.items()}
         for i in range(model.cfg.num_layers)]
-    loss, metrics = model.train_loss(views, batch)
-    loss.backward()
+    return views
+
+
+def backprop(model: Model, views: dict, batch: dict):
+    """``model.train_loss(views, batch)`` and its backward into the views'
+    gradient buffers. Returns (loss, metrics), detached."""
+    with span("step.forward"):
+        loss, metrics = model.train_loss(views, batch)
+    with span("step.backward"):
+        loss.backward()
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def loss_and_grads(model: Model, params: dict, batch: dict, grads: dict):
+    """``model.train_loss(params, batch)`` and its gradient, accumulated
+    into ``grads`` (a zeroed tree shaped like ``params``) in place. Returns
+    (loss, metrics), detached."""
+    return backprop(model, model_views(model, params, grads), batch)
 
 
 def _layer(t: torch.Tensor, i: int) -> torch.Tensor:
@@ -105,18 +126,25 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     one step."""
 
     def train_step(params, opt_state, batch):
-        grads = tree_map(torch.zeros_like, params)
-        loss, metrics = loss_and_grads(model, params, batch, grads)
-        lr = lr_fn(opt_state["step"]) if lr_fn is not None else opt_cfg.lr
-        with implicit_replication():
-            params, opt_state, opt_metrics = adamw_update(
-                params, grads, opt_state, opt_cfg, lr=lr)
-        if isinstance(opt_metrics["grad_norm"], DTensor):
-            opt_metrics["grad_norm"] = opt_metrics["grad_norm"].full_tensor()
-        del grads
-        metrics = dict(metrics, loss=loss,
-                       lr=torch.as_tensor(lr, dtype=torch.float32),
-                       **opt_metrics)
+        with span("step"):
+            with span("step.prepare"):
+                grads = tree_map(torch.zeros_like, params)
+                views = model_views(model, params, grads)
+            loss, metrics = backprop(model, views, batch)
+            del views
+            with span("step.optimizer"):
+                lr = lr_fn(opt_state["step"]) if lr_fn is not None \
+                    else opt_cfg.lr
+                with implicit_replication():
+                    params, opt_state, opt_metrics = adamw_update(
+                        params, grads, opt_state, opt_cfg, lr=lr)
+                if isinstance(opt_metrics["grad_norm"], DTensor):
+                    opt_metrics["grad_norm"] = \
+                        opt_metrics["grad_norm"].full_tensor()
+            del grads
+            metrics = dict(metrics, loss=loss,
+                           lr=torch.as_tensor(lr, dtype=torch.float32),
+                           **opt_metrics)
         return params, opt_state, metrics
 
     return train_step
