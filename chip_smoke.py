@@ -22,6 +22,18 @@ Phases, one line or more each; any failure exits non-zero:
      across two calls. The SSD backward: all six gradients against
      autograd of the plain version at the training shape and its edges,
      two calls bit-equal, its workspace, time and bound.
+     unembed_ce: the training loss's vocab-chunked operator at
+     UNEMBED_CE_CASES (mamba2-370m's benchmark cell, 16 x 2048 rows over
+     1024 x 50,432, and its phase 7 batch; a tied table at qwen2.5-3b's
+     training shape; fp32 operands): its fold and gradient kernels against their plain versions
+     on the case's chunks, the operator's loss, dh and dW against its plain
+     version by the row gates, one launch of each kernel per chunk, and
+     the peak it adds no more than its backward workspace and the two
+     gradients (the buffers a count of the step sees); at the cell's
+     shape each kernel's time on one chunk beside its plain version's,
+     logsumexp's and its bound, the chunk's three products, and the
+     operator's forward + backward beside its bound, its plain version and
+     the fp32 composition it replaced, with the peak each adds.
      ssd knobs: the SSD kernels' bf16-intra instances, the card's
      Rules(ssd_compute_dtype="bfloat16"): ptxas of each (no spill), the
      forward at the serving prefill's shapes and the backward at the
@@ -99,6 +111,8 @@ Phases, one line or more each; any failure exits non-zero:
      = 2, S = 2048, both on stand-in embeddings (qwen2-vl with vision-grid
      M-RoPE positions) and the stream's labels: 96 / 48 and 2 / 1 flash
      launches a step, and the flash backward's share of musicgen's step.
+     Every trained model's step also launches the loss's fold and
+     gradient kernels once per vocabulary chunk (loss_launches).
      roofline, in phases 5 and 7: each served model's prefill (a frontend
      family's from stand-in embeddings) and one decode step, and each
      trained model's step, counted on the card (roofline/step_cost.py:
@@ -145,7 +159,8 @@ Phases, one line or more each; any failure exits non-zero:
      record, nvcc builds the kernel library inside env.install, 2 steps,
      a 40.77 GB checkpoint) and warm (hot-block prefetch, the library
      restored from the env cache, byte-identical, no nvcc; resume, one
-     step of 72 forward and 36 backward flash launches), then mamba2-370m
+     step of 72 forward and 36 backward flash launches and the loss's
+     kernels once per vocabulary chunk), then mamba2-370m
      serving cold and warm (48 SSD launches per prefill, the same greedy
      tokens). Prints each runtime stage, the critical path, the bytes the
      I/O scheduler read at CRITICAL and DEFERRED, and the wall time from
@@ -255,6 +270,27 @@ LSE_ABS_TOL = 1e-3
 # mask, head or missing term moves whole rows by a sizeable fraction.
 TRAIN_GRAD_ROW_RTOL = 5e-2
 TRAIN_LOSS_RTOL = 1e-2
+# The loss operator against its plain version (the same chunk loop on the
+# card with ce_fold_reference / ce_grad_reference and fp32 products of the
+# widened operands). Both take exact products of the same bf16 values and
+# planes, sum them in fp32 in other orders (~1e-6 relative) and round dh
+# and dW to bf16 once, so an element lands one bf16 step away only where
+# its fp32 values straddle a rounding boundary: a sound row errs ~1e-4,
+# and the gate is one bf16 step, 2^-8 (the CPU tests' against the fp32
+# composition); a wrong chunk, column or scale moves whole rows. fp32
+# operands: fp32 sums in other orders, 1e-5. The loss, relatively: 1e-5.
+# Each kernel alone: the fold's log-sum-exp against the plain one's, whose
+# sums of ~5e4 exponentials differ in order only (~1e-6 of ~11), within
+# CE_LSE_ABS_TOL, and its label logits bit-equal (a copy); the gradient
+# pass's fp32 g against the plain one's by the worst row within
+# CE_GRAD_ROW_RTOL (expf against torch's exp, a few ulp; a wrong column,
+# lse or scale errs by O(1)), and its three planes summing to its own g
+# bit for bit (a lost plane, even lo at 2^-17 of g, breaks it).
+UNEMBED_CE_ROW_RTOL = 2.0 ** -8
+UNEMBED_CE_FP32_ROW_RTOL = 1e-5
+UNEMBED_CE_LOSS_RTOL = 1e-5
+CE_LSE_ABS_TOL = 1e-4
+CE_GRAD_ROW_RTOL = 1e-5
 
 QWEN, MAMBA, ZAMBA = "qwen2.5-3b", "mamba2-370m", "zamba2-1.2b"
 MOON, MIXTRAL = "moonshot-v1-16b-a3b", "mixtral-8x22b"
@@ -430,6 +466,19 @@ SSD_BWD_CASES = [("train", TRAIN_BATCHES[MAMBA], TRAIN_SEQ, 32, 64, 1, 128),
 # line's)
 SSD_BWD_TIMED = ("train", "zamba2")
 SSD_BWD_JAX_CASES = [("jaxdt", 2, 512, 8, 64, 1, 128)]
+# (name, rows, d, V, dtype, tied) of the training loss's vocab-chunked
+# operator (kernels/unembed_ce.py): mamba2-370m's benchmark cell (16 x
+# 2048 rows over 1024 x 50,432, 9 chunks; the timed shape), its phase 7
+# batch (8 x 2048, 5 chunks), a tied table (a transposed view of the
+# embedding) at qwen2.5-3b's training shape (2 x 2048 rows over 2048 x
+# 151,936) and fp32 operands
+# at odd widths (the kernels' 4-byte loads)
+UNEMBED_CE_CASES = [
+    ("cell", 16 * TRAIN_SEQ, 1024, 50432, "bfloat16", False),
+    ("train", TRAIN_BATCHES[MAMBA] * TRAIN_SEQ, 1024, 50432, "bfloat16",
+     False),
+    ("tied", TRAIN_BATCH * TRAIN_SEQ, 2048, 151936, "bfloat16", True),
+    ("fp32", 1000, 256, 1001, "float32", False)]
 # [ssd knobs]: the SSD kernels' bf16-intra instances, the card's
 # Rules(ssd_compute_dtype="bfloat16"), which round M (and, backward, Q) to
 # bf16 once. Each is held to the plain fp32 version by the worst row
@@ -1207,10 +1256,12 @@ def phase_ssd_knobs_model(card: str, budget: float) -> dict:
     loader = Loader(SyntheticStream(cfg.vocab_size, 0), bsz, TRAIN_SEQ, "cuda")
     batch = loader(0)
     grads = {}
+    loss = loss_launches(cfg, bsz, TRAIN_SEQ)
     for name, model, want in (
-            ("default", plain, {"ssd": 2 * layers, "ssd_bwd": layers}),
-            ("knob", knob, {"ssd_bf16": 2 * layers,
-                            "ssd_bwd_bf16": layers})):
+            ("default", plain, {"ssd": 2 * layers, "ssd_bwd": layers,
+                                **loss}),
+            ("knob", knob, {"ssd_bf16": 2 * layers, "ssd_bwd_bf16": layers,
+                            **loss})):
         grads[name] = tree_map(torch.zeros_like, params)
         counted(lambda: loss_and_grads(model, params, batch, grads[name]),
                 want, f"{name} first step's gradients")
@@ -1234,7 +1285,8 @@ def phase_ssd_knobs_model(card: str, budget: float) -> dict:
         t0 = time.perf_counter()
         (params, opt, metrics), counts = counted(
             lambda: step_fn(params, opt, data),
-            {"ssd_bf16": 2 * layers, "ssd_bwd_bf16": layers}, f"step {step}")
+            {"ssd_bf16": 2 * layers, "ssd_bwd_bf16": layers, **loss},
+            f"step {step}")
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         for k, v in counts.items():
@@ -1461,6 +1513,246 @@ def phase_tune_boot(card: str):
     return profile
 
 
+def unembed_ce_inputs(gen, rows: int, d: int, vocab: int, dtype, tied: bool):
+    """h [rows, d] ~ N(0, 1), as the final norm's output; the table [d, V]
+    ~ N(0, 0.05^2) (tied: a transposed view of a [V, d] embedding); labels
+    uniform over the vocabulary, int32."""
+    import torch
+    h = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    shape = (vocab, d) if tied else (d, vocab)
+    table = (0.05 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    return h, table.t() if tied else table, labels
+
+
+def peak_rise(fn) -> float:
+    """The bytes ``fn()`` adds to the card's peak over what it holds."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_unembed_ce_kernels(card: str) -> tuple[dict, dict]:
+    """The training loss's vocab-chunked operator (kernels/unembed_ce.py)
+    at UNEMBED_CE_CASES: each kernel against its plain version on the
+    case's own chunks (the fold over every chunk: log-sum-exp and label
+    logits; the gradient pass on the first: fp32 g, and its planes exact
+    to it), then the operator's loss, dh and dW against its plain version
+    by the row gates, one launch of each kernel per chunk, and the peak it
+    adds: its backward workspace and the two gradients, nothing beside.
+    At the cell's shape, each kernel's time on one chunk beside its plain
+    version's, the library's (logsumexp for the fold) and its bound, the
+    chunk's three products, and the operator's forward + backward beside
+    its bound, its plain version and the fp32 composition it replaced,
+    with the peak each adds. Returns the two kernels' kernels-line
+    entries."""
+    import torch
+    from repro_torch.kernels.ops import unembed_ce_chunked
+    from repro_torch.kernels.ref import (ce_fold_reference,
+                                         ce_grad_reference, row_rel_err)
+    from repro_torch.kernels.unembed_ce import (
+        ce_fold_kernel, ce_grad_kernel, unembed_ce_plain,
+        unembed_ce_workspace_floats, vocab_chunk)
+    from repro_torch.roofline.kernel_cost import (
+        ce_fold_bound, ce_grad_bound, unembed_ce_bound)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dce = torch.tensor(0.7, device="cuda")
+    failed = []
+    for name, rows, d, vocab, dname, tied in UNEMBED_CE_CASES:
+        dtype = getattr(torch, dname)
+        bf16 = dtype == torch.bfloat16
+        h, table, labels = unembed_ce_inputs(gen, rows, d, vocab, dtype, tied)
+        vc = vocab_chunk(rows, d, vocab, dtype)
+        chunks = -(-vocab // vc)
+
+        def product(v0, v1):
+            w_c = table[:, v0:v1]
+            return (torch.mm(h, w_c, out_dtype=torch.float32) if bf16
+                    else torch.mm(h, w_c))
+
+        state, ref_state = (torch.empty((3, rows), device="cuda")
+                            for _ in range(2))
+        lse, ref_lse = (torch.empty(rows, device="cuda") for _ in range(2))
+        for v0 in range(0, vocab, vc):
+            v1 = min(v0 + vc, vocab)
+            logits = product(v0, v1)
+            ce_fold_kernel(logits, labels, v0, state, lse, first=v0 == 0,
+                           last=v1 == vocab)
+            ce_fold_reference(logits, labels, v0, ref_state, ref_lse,
+                              first=v0 == 0, last=v1 == vocab)
+        lse_err = (lse - ref_lse).abs().max().item()
+        picked = torch.equal(state[2], ref_state[2])
+        logits = product(0, vc)
+        g = ce_grad_kernel(logits.clone(), labels, 0, lse, dce)
+        g_err = row_rel_err(g, ce_grad_reference(logits.clone(), labels, 0,
+                                                 lse, dce))
+        exact = True
+        if bf16:
+            planes = torch.empty((rows, 3, vc), dtype=torch.bfloat16,
+                                 device="cuda")
+            ce_grad_kernel(logits, labels, 0, lse, dce, planes=planes)
+            exact = torch.equal(planes.double().sum(dim=1), g.double())
+            del planes
+        del logits, g, state, ref_state, ref_lse
+
+        hv = h.clone().requires_grad_()
+        tv = table.clone().requires_grad_()
+        ws = 4 * unembed_ce_workspace_floats(rows, d, vocab, dtype, vc,
+                                             backward=True)
+        grads = (rows * d + d * vocab) * dtype.itemsize
+        out = {}
+
+        def op():
+            out["loss"] = unembed_ce_chunked(hv, tv, labels, vc)
+            (out["loss"] * dce).backward()
+
+        op()   # autograd's thread takes its cuBLAS workspace here, once
+        hv.grad = tv.grad = None
+        f0, g0 = ce_fold_kernel.launches, ce_grad_kernel.launches
+        rise = peak_rise(op)
+        launches = (ce_fold_kernel.launches - f0,
+                    ce_grad_kernel.launches - g0)
+        ref_loss, ref_dh, ref_dt = unembed_ce_plain(h, table, labels, dce,
+                                                    vc)
+        loss_err = abs(out["loss"].item() / ref_loss.item() - 1)
+        dh_err = row_rel_err(hv.grad, ref_dh, floor=GRAD_ROW_FLOOR)
+        dw_err = row_rel_err(tv.grad.t(), ref_dt.t(), floor=GRAD_ROW_FLOOR)
+        tol = UNEMBED_CE_ROW_RTOL if bf16 else UNEMBED_CE_FP32_ROW_RTOL
+        ok = (lse_err <= CE_LSE_ABS_TOL and picked
+              and g_err <= CE_GRAD_ROW_RTOL and exact
+              and loss_err <= UNEMBED_CE_LOSS_RTOL
+              and dh_err <= tol and dw_err <= tol
+              and launches == (chunks, chunks)
+              and tv.grad.stride() == table.stride()
+              and ws <= rise <= ws + grads + (4 << 20))
+        if not ok:
+            failed.append(name)
+        say("kernels", f"unembed_ce {name} T={rows} d={d} V={vocab} {dname}"
+            f"{' tied' if tied else ''}, {chunks} chunks of {vc}: "
+            f"ce_fold lse max abs err {lse_err:.3e} (tol {CE_LSE_ABS_TOL}), "
+            f"label logits bit-equal {picked}; ce_grad g worst row "
+            f"{g_err:.3e} (tol {CE_GRAD_ROW_RTOL}), planes sum to g "
+            f"exactly {exact}; operator: loss rel err {loss_err:.3e} (tol "
+            f"{UNEMBED_CE_LOSS_RTOL}), dh worst row {dh_err:.3e}, dW "
+            f"{dw_err:.3e} (tol {tol:.3e}, floor {GRAD_ROW_FLOOR} x "
+            f"median); launches fold/grad {launches[0]}/{launches[1]} "
+            f"(want {chunks}); peak rise {rise / 1e9:.3f} GB = the "
+            f"backward's workspace {ws / 1e9:.3f} GB + the gradients "
+            f"{grads / 1e9:.3f} GB (+ 4 MiB) at most "
+            f"{'ok' if ok else 'FAIL'}")
+        del h, table, labels, hv, tv, out, ref_dh, ref_dt
+    if failed:
+        fail("kernels", f"unembed_ce disagrees with plain: {failed}")
+
+    _, rows, d, vocab, _, _ = UNEMBED_CE_CASES[0]
+    h, table, labels = unembed_ce_inputs(gen, rows, d, vocab, torch.bfloat16,
+                                         False)
+    vc = vocab_chunk(rows, d, vocab, torch.bfloat16)
+    hv = h.clone().requires_grad_()
+    tv = table.clone().requires_grad_()
+
+    def op():
+        hv.grad = tv.grad = None
+        unembed_ce_chunked(hv, tv, labels, vc).backward()
+
+    def op_forward():
+        with torch.no_grad():
+            unembed_ce_chunked(h, table, labels, vc)
+
+    def composition():
+        hv.grad = tv.grad = None
+        logits = hv.float() @ tv.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, labels.long()[:, None])[:, 0]
+        (lse - picked).mean().backward()
+
+    timed = {}
+    for what, fn, iters in (("op", op, 10), ("forward", op_forward, 10),
+                            ("plain", lambda: unembed_ce_plain(
+                                h, table, labels, dce, vc), 2),
+                            ("composition", composition, 5)):
+        ms = cuda_ms(fn, iters=iters, warmup=1)
+        hv.grad = tv.grad = None
+        timed[what] = (ms, peak_rise(fn))
+    bound_ms, bound_by = unembed_ce_bound(rows, d, vocab)
+    flops = 16 * rows * d * vocab
+    say("kernels", f"unembed_ce cell T={rows} d={d} V={vocab}, {vc}-column "
+        f"chunks: forward + backward {timed['op'][0]:.3f} ms (forward "
+        f"{timed['forward'][0]:.3f}; {flops / timed['op'][0] / 1e9:.1f} "
+        f"TFLOP/s of its own {flops / 1e12:.2f} TFLOP), bound "
+        f"{bound_ms:.3f} ms ({bound_by}, bf16 tensor cores; "
+        f"{100 * bound_ms / timed['op'][0]:.1f}% reached); plain "
+        f"{timed['plain'][0]:.3f} ms; library: the fp32 composition it "
+        f"replaced {timed['composition'][0]:.3f} ms; peak rise "
+        f"{timed['op'][1] / 1e9:.3f} GB (composition "
+        f"{timed['composition'][1] / 1e9:.3f} GB, plain "
+        f"{timed['plain'][1] / 1e9:.3f} GB), on {card}")
+
+    # one full chunk: its product, each kernel, the two plane products
+    w_c = table[:, :vc]
+    logits = torch.mm(h, w_c, out_dtype=torch.float32)
+    state = torch.empty((3, rows), device="cuda")
+    lse = torch.logsumexp(logits, dim=-1)
+    planes = torch.empty((rows, 3, vc), dtype=torch.bfloat16, device="cuda")
+    ce_grad_kernel(logits, labels, 0, lse, dce, planes=planes)
+    w3 = w_c.t().repeat(3, 1)
+    h3 = h.repeat_interleave(3, dim=0)
+    chunk_flops = 2 * rows * d * vc
+    for what, fn, flops in (
+            ("logits product", lambda: torch.mm(h, w_c,
+                                                out_dtype=torch.float32),
+             chunk_flops),
+            ("dh product", lambda: torch.mm(planes.view(rows, 3 * vc), w3,
+                                            out_dtype=torch.float32),
+             3 * chunk_flops),
+            ("dW product", lambda: torch.mm(h3.t(), planes.view(3 * rows, vc),
+                                            out_dtype=torch.float32),
+             3 * chunk_flops)):
+        ms = cuda_ms(fn, iters=10)
+        say("kernels", f"unembed_ce cell, one chunk of {vc}: {what} "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, bf16 operands, "
+            f"fp32 accumulation and output), on {card}")
+    entries = []
+    for name, fn, plain, library, (bound_ms, bound_by) in (
+            ("ce_fold",
+             lambda: ce_fold_kernel(logits, labels, 0, state, lse,
+                                    first=True, last=False),
+             lambda: ce_fold_reference(logits, labels, 0, state, lse,
+                                       first=True, last=False),
+             lambda: torch.logsumexp(logits, dim=-1),
+             ce_fold_bound(rows, vc)),
+            ("ce_grad",
+             lambda: ce_grad_kernel(logits, labels, 0, lse, dce,
+                                    planes=planes),
+             lambda: ce_grad_reference(logits, labels, 0, lse, dce,
+                                       planes=planes),
+             None, ce_grad_bound(rows, vc))):
+        ms = cuda_ms(fn, iters=20)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        library_ms = None if library is None else cuda_ms(library, iters=10)
+        say("kernels", f"{name} cell, one chunk T={rows} x {vc}: {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, library "
+            + ("none" if library_ms is None
+               else f"(logsumexp) {library_ms:.4f} ms")
+            + f", bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.1f}% reached), on {card}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/unembed_ce.cu",
+            "replaces": "src/repro/models/model.py:643", "launches": None,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+    del h, table, labels, hv, tv, logits, planes, w3, h3
+    free_card()
+    return tuple(entries)
+
+
 def config_launches() -> dict:
     """The forward kernels' launches by launch config, as the kernels line
     names them."""
@@ -1571,13 +1863,15 @@ def launch_counters() -> dict:
     from repro_torch.kernels.ssd import (
         ssd_chunked_bwd_kernel, ssd_chunked_bwd_kernel_bf16,
         ssd_chunked_kernel, ssd_chunked_kernel_bf16)
+    from repro_torch.kernels.unembed_ce import ce_fold_kernel, ce_grad_kernel
     return {"flash_attention": flash_attention, "ssd": ssd_chunked_kernel,
             "flash_attention_bwd": flash_attention_bwd,
             "flash_attention_bwd_deterministic":
                 flash_attention_bwd_deterministic,
             "ssd_bwd": ssd_chunked_bwd_kernel,
             "ssd_bf16": ssd_chunked_kernel_bf16,
-            "ssd_bwd_bf16": ssd_chunked_bwd_kernel_bf16}
+            "ssd_bwd_bf16": ssd_chunked_bwd_kernel_bf16,
+            "ce_fold": ce_fold_kernel, "ce_grad": ce_grad_kernel}
 
 
 class Routes:
@@ -1650,6 +1944,18 @@ def prefill_launches(cfg) -> dict:
         calls = -(-cfg.num_layers // cfg.shared_attention_every)
     return {"flash_attention": calls,
             "ssd": cfg.num_layers if cfg.ssm else 0}
+
+
+def loss_launches(cfg, b: int, s: int) -> dict:
+    """The loss kernels' launches in one training step of ``cfg`` at B =
+    ``b`` x S = ``s`` on one card: the fold and the gradient pass once per
+    vocabulary chunk (the width from the shapes alone)."""
+    import torch
+    from repro_torch.kernels.unembed_ce import vocab_chunk
+    chunk = vocab_chunk(b * s, cfg.d_model, cfg.vocab_size,
+                        getattr(torch, cfg.dtype))
+    n = -(-cfg.vocab_size // chunk)
+    return {"ce_fold": n, "ce_grad": n}
 
 
 def vision_grid_pos(b: int, s: int, grid: tuple, device, start: int = 4):
@@ -2397,6 +2703,7 @@ def phase_train(card: str, arch: str, profile=None) -> dict:
     want.update({name: 2 * n for name, n in fwd.items()},
                 flash_attention_bwd=fwd["flash_attention"],
                 ssd_bwd=fwd["ssd"])
+    want.update(loss_launches(cfg, batch_size, TRAIN_SEQ))
     share_of = tuple(k for k, name in (("flash_bwd", "flash_attention"),
                                        ("ssd", "ssd")) if fwd[name])
     losses, gnorms, times, total = [], [], [], dict.fromkeys(counters, 0)
@@ -2414,7 +2721,8 @@ def phase_train(card: str, arch: str, profile=None) -> dict:
         if counts != want:
             fail("train", f"{arch} step {step}: kernel launches {counts}, "
                  f"expected {want} (per attention call and Mamba2 layer: "
-                 "forward + remat recompute, backward)")
+                 "forward + remat recompute, backward; the loss's fold and "
+                 "gradient pass once per vocabulary chunk)")
         for name, n in counts.items():
             total[name] += n
         losses.append(float(metrics["loss"]))
@@ -2851,7 +3159,13 @@ def _shard_train(card: str, arch: str, mesh) -> bool:
     want.update({k: 2 * n * SHARD_TRAIN_STEPS for k, n in fwd.items()},
                 flash_attention_bwd=fwd["flash_attention"] * SHARD_TRAIN_STEPS,
                 ssd_bwd=fwd["ssd"] * SHARD_TRAIN_STEPS)
-    ok = (worst <= TRAIN_LOSS_RTOL and p["launches"] == s["launches"] == want
+    # the plain path's loss is the vocab-chunked operator, the mesh's its
+    # own composition (no kernel)
+    want_plain = dict(want, **{k: n * SHARD_TRAIN_STEPS for k, n in
+                               loss_launches(cfg, TRAIN_BATCH,
+                                             TRAIN_SEQ).items()})
+    ok = (worst <= TRAIN_LOSS_RTOL and s["launches"] == want
+          and p["launches"] == want_plain
           and all(math.isfinite(x) for x in s["losses"])
           and all(math.isfinite(e) and e <= TRAIN_GRAD_ROW_RTOL
                   for e, _ in grad_errs.values())
@@ -3273,12 +3587,15 @@ def phase_boot(card: str) -> None:
     layers = get_config(QWEN).num_layers
     ssd_layers = get_config(MAMBA).num_layers
     launches = warm["boot-end"]["launches"]
+    chunks = loss_launches(get_config(QWEN), TRAIN_BATCH, TRAIN_SEQ)
     gate(launches == {"flash_attention": 2 * layers,
                       "flash_attention_bwd": layers,
                       "flash_attention_bwd_deterministic": 0,
                       "ssd_chunked_kernel": 0, "ssd_chunked_bwd_kernel": 0,
                       "ssd_chunked_kernel_bf16": 0,
-                      "ssd_chunked_bwd_kernel_bf16": 0},
+                      "ssd_chunked_bwd_kernel_bf16": 0,
+                      "ce_fold_kernel": chunks["ce_fold"],
+                      "ce_grad_kernel": chunks["ce_grad"]},
          f"train warm: launches {launches}")
     done = first_line(warm, "done: loss")
     loss = float(done[1].split()[4]) if done else float("nan")
@@ -3401,6 +3718,8 @@ def main() -> int:
         "ssd knobs kernels", phase_ssd_knobs_kernels, card)
     flash_bwd, flash_bwd_det = timed("kernels flash_bwd",
                                      phase_flash_bwd_kernels, card)
+    ce_fold, ce_grad = timed("kernels unembed_ce", phase_unembed_ce_kernels,
+                             card)
     timed("tune kernels", phase_tune_kernels, card)
     profile = timed("tune boot", phase_tune_boot, card)
     archs = (QWEN, MAMBA, ZAMBA, MOON, AUDIO, VLM)
@@ -3425,7 +3744,7 @@ def main() -> int:
     trained = [timed(f"train {arch}", phase_train, card, arch,
                      profile if arch == AUDIO else None)
                for arch in archs]
-    for entry in (flash_bwd, ssd_bwd):
+    for entry in (flash_bwd, ssd_bwd, ce_fold, ce_grad):
         entry["launches"] = sum(c[entry["name"]] for c in trained)
     knob_launches = timed("ssd knobs model", phase_ssd_knobs_model, card,
                           knob_budget)
@@ -3436,7 +3755,8 @@ def main() -> int:
     flash_bwd_det["launches"] = timed("resume", phase_resume, card)
     timed("boot", phase_boot, card)
     print(json.dumps({"kernels": [flash, ssd, flash_bwd, flash_bwd_det,
-                                  ssd_bwd, ssd_bf16, ssd_bwd_bf16]}),
+                                  ssd_bwd, ssd_bf16, ssd_bwd_bf16, ce_fold,
+                                  ce_grad]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

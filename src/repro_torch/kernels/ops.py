@@ -6,7 +6,12 @@ differentiates, and takes no launch config; a CUDA tensor goes to the
 hand-written kernel, which raises on anything it cannot take. No path falls
 back from the kernel to the plain version, and no kernel output that needs
 a gradient lacks one: on the card attention and the SSD scan differentiate
-through their backward kernels.
+through their backward kernels. The training loss's unembedding and
+cross-entropy (``unembed_cross_entropy``) is one operator on both devices,
+its chunk loop shared: the card's chunks run its kernels, the CPU's their
+plain versions, and its autograd (``unembed_ce_chunked``, an
+``autograd.Function`` that allocates both operators' workspaces) takes its
+backward operator on both.
 
 The kernels are reached as PyTorch operators (``torch.library``
 operators, defined beside their launchers): this module registers their
@@ -44,7 +49,12 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.ref import attention_reference, ssd_chunked_reference
 from repro_torch.kernels.ssd import (INTRA_PARTS, TILE, ssd_bwd_op,
                                      ssd_bwd_workspace_floats, ssd_fwd_op)
+from repro_torch.kernels.unembed_ce import (unembed_ce_bwd_op,
+                                            unembed_ce_fwd_op,
+                                            unembed_ce_workspace_floats,
+                                            vocab_chunk)
 from repro_torch.roofline.kernel_cost import (ssd_bwd_flops, ssd_flops,
+                                              unembed_ce_flops,
                                               unmasked_pairs)
 from repro_torch.tune.profile import attention_key, get_active_profile, ssd_key
 
@@ -256,6 +266,61 @@ def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       name == "bfloat16")
 
 
+def _unembed_ce_workspace(h: torch.Tensor, table: torch.Tensor, chunk: int,
+                          backward: bool) -> torch.Tensor:
+    return torch.empty((unembed_ce_workspace_floats(
+        h.shape[0], h.shape[1], table.shape[1], h.dtype, chunk,
+        backward=backward),), dtype=torch.float32, device=h.device)
+
+
+class _UnembedCE(torch.autograd.Function):
+    """The two operators with their workspaces, allocated here so that the
+    step's count and the dry run see them (an operator that takes a
+    mutable argument cannot carry ``register_autograd``). The backward is
+    the counterpart of ``jax.grad`` through the JAX model's unembedding
+    and log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, h, table, labels, chunk):
+        ce, lse = unembed_ce_fwd_op(
+            h, table, labels, _unembed_ce_workspace(h, table, chunk, False),
+            chunk)
+        ctx.save_for_backward(h, table, labels, lse)
+        ctx.chunk = chunk
+        return ce
+
+    @staticmethod
+    def backward(ctx, dce):
+        h, table, labels, lse = ctx.saved_tensors
+        dh, dtable = unembed_ce_bwd_op(
+            h, table, labels, lse, dce,
+            _unembed_ce_workspace(h, table, ctx.chunk, True), ctx.chunk)
+        return dh, dtable, None, None
+
+
+def unembed_ce_chunked(h: torch.Tensor, table: torch.Tensor,
+                       labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The vocab-chunked loss of h [T, d], table [d, V] and labels [T],
+    ``chunk`` columns at a time, with autograd: 0-d fp32."""
+    return _UnembedCE.apply(h, table, labels, chunk)
+
+
+def unembed_cross_entropy(h: torch.Tensor, table: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """The training loss's unembedding and cross-entropy: h [..., d] (the
+    final norm's output), table [d, V] in h's dtype (the compute dtype's
+    cast of the fp32 master, or a transposed view of the tied embedding's)
+    and labels [...] -> the mean over positions of logsumexp(logits) -
+    logits[label], 0-d fp32, the logits h @ table never made whole. The
+    vocabulary is walked in chunks of ``vocab_chunk`` columns, a width
+    from the shapes alone (``kernels/unembed_ce.py``); on the card the
+    chunks run the operator's kernels, on the CPU their plain versions."""
+    d = h.shape[-1]
+    h = h.reshape(-1, d)
+    return unembed_ce_chunked(h, table, labels.reshape(-1),
+                      vocab_chunk(h.shape[0], d, table.shape[1], h.dtype))
+
+
 # The operators' FLOPs, for torch.utils.flop_counter and step_cost: the
 # kernels' least work (roofline/kernel_cost.py), 4 d a visible (q, k) pair
 # forward and 10 d backward (S recomputed, dV, dP, dK, dQ).
@@ -288,3 +353,15 @@ def _ssd_fwd_flops(x, dt, A, B, C, D, chunk, *args, **kwargs) -> int:
 def _ssd_bwd_flops(x, dt, A, B, C, D, *args, **kwargs) -> int:
     b, s, h, p = x
     return ssd_bwd_flops(b, s, h, p, B[2], B[3])
+
+
+# The unembedding and cross-entropy's least work (the function's, not the
+# chunked operator's recomputation and planes), split by h's dtype.
+@register_flop_formula(torch.ops.repro_torch.unembed_ce_fwd)
+def _unembed_ce_fwd_flops(h, table, *args, **kwargs) -> int:
+    return unembed_ce_flops(h[0], h[1], table[1])
+
+
+@register_flop_formula(torch.ops.repro_torch.unembed_ce_bwd)
+def _unembed_ce_bwd_flops(h, table, *args, **kwargs) -> int:
+    return unembed_ce_flops(h[0], h[1], table[1], backward=True)

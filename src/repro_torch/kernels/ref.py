@@ -251,3 +251,61 @@ def row_rel_err(out: torch.Tensor, ref: torch.Tensor, *,
     norm = ref.float().norm(dim=-1)
     least = max(1e-30, floor * norm.median().item())
     return (diff / norm.clamp_min(least)).max().item()
+
+
+# ----- the vocab-chunked unembedding and cross-entropy (kernels/unembed_ce.py)
+
+def ce_fold_reference(logits: torch.Tensor, labels: torch.Tensor, v0: int,
+                      state: torch.Tensor, lse: torch.Tensor, *, first: bool,
+                      last: bool) -> None:
+    """``ce_fold_kernel``'s plain version, in place as the kernel: folds
+    the chunk ``logits`` [T, w] fp32 (columns ``v0`` .. v0 + w) into
+    ``state`` [3, T] (running max, running sum of exp, the label's logit,
+    NaN until the label's chunk; ``first`` starts it); ``last`` writes
+    each row's log-sum-exp into ``lse`` instead of the running pair."""
+    w = logits.shape[1]
+    if first:
+        state[0] = -math.inf
+        state[1] = 0.0
+        state[2] = math.nan
+    m = torch.maximum(state[0], logits.amax(dim=1))
+    s = (state[1] * torch.exp(state[0] - m)
+         + torch.exp(logits - m[:, None]).sum(dim=1))
+    lab = labels.long() - v0
+    hit = (lab >= 0) & (lab < w)
+    picked = logits.gather(1, lab.clamp(0, w - 1)[:, None])[:, 0]
+    state[2] = torch.where(hit, picked, state[2])
+    if last:
+        lse.copy_(m + torch.log(s))
+    else:
+        state[0], state[1] = m, s
+
+
+def split_planes(g: torch.Tensor) -> torch.Tensor:
+    """fp32 ``g`` [T, w] as three bf16 planes [T, 3, w]: hi = bf16(g), mid =
+    bf16(g - hi), lo = bf16(g - hi - mid), each rounded to nearest even.
+    Their sum is g exactly wherever g's lowest bit lies above bf16's least
+    subnormal (2^-133): 8 + 8 + 8 of fp32's 24 significant bits."""
+    hi = g.bfloat16()
+    r1 = g - hi.float()
+    mid = r1.bfloat16()
+    lo = (r1 - mid.float()).bfloat16()
+    return torch.stack((hi, mid, lo), dim=1)
+
+
+def ce_grad_reference(logits: torch.Tensor, labels: torch.Tensor, v0: int,
+                      lse: torch.Tensor, dce: torch.Tensor, *,
+                      planes: torch.Tensor | None = None) -> torch.Tensor:
+    """``ce_grad_kernel``'s plain version, in place as the kernel: the
+    softmax gradient of the chunk ``logits`` [T, w] fp32 (columns ``v0``
+    .. v0 + w) for the mean loss's gradient ``dce``, g = (exp(logits -
+    lse) - onehot) * (dce / T), in fp32; with ``planes`` [T, 3, w] bf16
+    written there as ``split_planes(g)``, else written over ``logits``.
+    Returns what it wrote."""
+    rows, w = logits.shape
+    cols = torch.arange(v0, v0 + w, device=logits.device)
+    onehot = (cols[None, :] == labels.long()[:, None]).float()
+    g = (torch.exp(logits - lse[:, None]) - onehot) * (dce.float() / rows)
+    if planes is None:
+        return logits.copy_(g)
+    return planes.copy_(split_planes(g))

@@ -158,8 +158,10 @@ def kernel_launches() -> dict:
     from repro_torch.kernels.ssd import (
         ssd_chunked_bwd_kernel, ssd_chunked_bwd_kernel_bf16,
         ssd_chunked_kernel, ssd_chunked_kernel_bf16)
+    from repro_torch.kernels.unembed_ce import ce_fold_kernel, ce_grad_kernel
     return {fn.__name__: fn.launches
             for fn in (flash_attention, flash_attention_bwd,
                        flash_attention_bwd_deterministic, ssd_chunked_kernel,
                        ssd_chunked_bwd_kernel, ssd_chunked_kernel_bf16,
-                       ssd_chunked_bwd_kernel_bf16)}
+                       ssd_chunked_bwd_kernel_bf16, ce_fold_kernel,
+                       ce_grad_kernel)}

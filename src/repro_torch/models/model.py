@@ -31,9 +31,10 @@ Three entry points, matching the reference's:
                    call, the SSM and conv states for each Mamba2 layer),
                    returns last-token fp32 logits;
   ``decode_step``  one new token against those caches, updated in place;
-  ``train_loss``   mean cross-entropy of full-sequence fp32 logits, each
-                   layer recomputed in the backward pass (``remat``) as
-                   under the reference's ``Rules.remat``.
+  ``train_loss``   mean cross-entropy of full-sequence fp32 logits (on
+                   one device made a vocabulary chunk at a time, never
+                   whole), each layer recomputed in the backward pass
+                   (``remat``) as under the reference's ``Rules.remat``.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ops import attention_op, ssd_op
+from repro_torch.kernels.ops import (attention_op, ssd_op,
+                                     unembed_cross_entropy)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -355,11 +357,12 @@ class PlainOps:
         return ssm_mix(self.cfg.ssm, self.model.rules, x, Bm, Cm, dtr, p,
                        cache, mode)
 
-    def cross_entropy(self, logits: torch.Tensor, labels) -> torch.Tensor:
-        """Mean over positions of logsumexp(logits) - logits[label]."""
-        lse = torch.logsumexp(logits, dim=-1)
-        label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
-        return (lse - label_logit).mean()
+    def unembed_cross_entropy(self, h: torch.Tensor, table: torch.Tensor,
+                              labels) -> torch.Tensor:
+        """The mean over positions of logsumexp(h @ table) - the label's
+        logit, the logits made a vocabulary chunk at a time, never whole:
+        ``kernels/ops.py``'s operator."""
+        return unembed_cross_entropy(h, table, labels)
 
 
 class Model:
@@ -597,8 +600,9 @@ class Model:
 
     def _logits(self, params: dict, h: torch.Tensor,
                 unembed: torch.Tensor | None) -> torch.Tensor:
-        """fp32 logits [B, S, V] (vocab-sharded on a mesh, ``act_logits``)
-        of bf16 operands, as ``layers.unembed``."""
+        """Serving's fp32 logits [B, S, V] (vocab-sharded on a mesh,
+        ``act_logits``) of bf16 operands, as ``layers.unembed``; training
+        takes ``unembed_cross_entropy`` instead."""
         h = self._norm(h, params["final_norm"])
         if unembed is None:
             unembed = self.unembed_table(params)
@@ -606,16 +610,21 @@ class Model:
         return self.ops.put(logits, self.rules.act_logits(
             h.shape[0], self.cfg.vocab_size))
 
+    def _unembed_in_compute_dtype(self, params: dict) -> torch.Tensor:
+        """The unembedding table [d, V] in the compute dtype: the fp32
+        master rounded to it, as the reference's unembed casts the table to
+        the activations' dtype (tied: a transposed view of the embedding's
+        cast)."""
+        table = (params["embed"].t() if self.cfg.tie_embeddings
+                 else params["lm_head"])
+        return self.ops.use(table, self.compute_dtype)
+
     def unembed_table(self, params: dict) -> torch.Tensor:
         """The unembedding table [d, V] in fp32, made from ``params`` now.
         The entry points take it as ``unembed=`` so that a caller who
         unembeds often (the serving engine) upcasts the table once per set
         of weights, not on every call (151936 x 2048 at full width)."""
-        table = (params["embed"].t() if self.cfg.tie_embeddings
-                 else params["lm_head"])
-        # fp32 masters round to the compute dtype first, as the reference's
-        # unembed casts the table to the activations' dtype
-        return self.ops.use(table, self.compute_dtype).float()
+        return self._unembed_in_compute_dtype(params).float()
 
     def mamba_sublayer(self, p: dict, h: torch.Tensor, cache: dict | None,
                        *, mode: str) -> torch.Tensor:
@@ -770,7 +779,8 @@ class Model:
         ``embed`` leaf then takes no gradient), optional mrope_pos
         [B, S, 3], and labels [B, S]. Returns (loss, {"ce", "aux"}):
         ce, the mean over positions of logsumexp(logits) - logits[label]
-        on fp32 logits of the whole sequence, plus, with ``cfg.moe``,
+        on fp32 logits of bf16 operands (``ops.unembed_cross_entropy``: on
+        one device a vocabulary chunk at a time), plus, with ``cfg.moe``,
         ``router_aux_weight`` times the layers' mean load-balance aux, as
         the reference's ``train_loss``. The masters are cast to the
         compute dtype where they are used, inside each (checkpointed)
@@ -781,8 +791,9 @@ class Model:
         h, aux = self.apply_layers(params, h, mode="train",
                                    positions=positions,
                                    mrope_pos=batch.get("mrope_pos"))
-        logits = self._logits(params, h, None)
-        ce = self.ops.cross_entropy(logits, batch["labels"])
+        ce = self.ops.unembed_cross_entropy(
+            self._norm(h, params["final_norm"]),
+            self._unembed_in_compute_dtype(params), batch["labels"])
         loss = ce
         if self.cfg.moe:
             loss = ce + self.cfg.moe.router_aux_weight * aux

@@ -511,6 +511,15 @@ class ShardedPath:
 
     # ----- the loss -----
 
+    def unembed_cross_entropy(self, h: DTensor, table: DTensor,
+                              labels) -> torch.Tensor:
+        """The training loss on the mesh, as the one-device path made it
+        before its vocab-chunked operator: the fp32 upcasts' product, the
+        logits vocab-sharded (``act_logits``), then ``cross_entropy``."""
+        logits = self.put(self.mm(h.float(), table.float()),
+                          self.r.act_logits(h.shape[0], self.cfg.vocab_size))
+        return self.cross_entropy(logits, labels)
+
     def cross_entropy(self, logits: DTensor, labels) -> torch.Tensor:
         """Mean over positions of logsumexp(logits) - logits[label] on the
         vocab-sharded fp32 logits: each rank scores its vocab rows; the row

@@ -25,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.kernels.ssd import TILE
-from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
+from repro_torch.roofline.analysis import (HBM_BW, PEAK_FLOPS,
+                                           PEAK_FP32_FLOPS)
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 
@@ -116,6 +117,43 @@ def ssd_bwd_bound(b: int, s: int, h: int, p: int, g: int, n: int, *,
     write of dx, dB, dC, ddt (bf16 except dt and ddt; dA, dD are [H])."""
     nbytes = 3 * 2 * b * s * h * p + 4 * 2 * b * s * g * n + 2 * 4 * b * s * h
     return _bound(ssd_bwd_flops(b, s, h, p, g, n), nbytes, peak_flops)
+
+
+def unembed_ce_flops(t: int, d: int, v: int, *,
+                     backward: bool = False) -> int:
+    """The vocab-chunked unembedding and cross-entropy's least work: the
+    product h @ W, 2 T d V, forward; dh and dW, 4 T d V, backward. The
+    operator's own arithmetic is more (``unembed_ce_bound``), as the
+    bf16-intra SSD instances' is the kernel's, not the function's."""
+    return (4 if backward else 2) * t * d * v
+
+
+def unembed_ce_bound(t: int, d: int, v: int, *,
+                     bf16: bool = True) -> tuple[float, str]:
+    """The operator's forward and backward (``kernels/unembed_ce.py``),
+    its own arithmetic: the logits forward and again backward, 2 T d V
+    each, and with bf16 operands dh and dW on the three planes, 6 T d V
+    each (16 T d V on the tensor cores), with fp32 ones on g, 2 T d V each
+    (8 T d V at the fp32 rate); bytes: h, the table and their gradients
+    once, in the operands' dtype."""
+    size = 2 if bf16 else 4
+    flops = (16 if bf16 else 8) * t * d * v
+    return _bound(flops, 2 * size * (t * d + d * v),
+                  PEAK_FLOPS if bf16 else PEAK_FP32_FLOPS)
+
+
+def ce_fold_bound(t: int, w: int) -> tuple[float, str]:
+    """``ce_fold_kernel`` on one chunk of fp32 logits [T, w]: it reads them
+    once, and each row's three running values and labels."""
+    return _bound(0, 4 * t * w + 16 * t, PEAK_FLOPS)
+
+
+def ce_grad_bound(t: int, w: int, *, planes: bool = True
+                  ) -> tuple[float, str]:
+    """``ce_grad_kernel`` on one chunk [T, w]: it reads the fp32 logits
+    once and writes three bf16 planes (6 bytes an element) or fp32 g."""
+    return _bound(0, 4 * t * w + (6 if planes else 4) * t * w + 8 * t,
+                  PEAK_FLOPS)
 
 
 def _steps(chains: np.ndarray, slots: int) -> int:

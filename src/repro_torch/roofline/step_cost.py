@@ -27,7 +27,10 @@ Conventions, as the reference's where it has one:
     weak reference's callback), and their peak. Storages a kernel wrapper
     allocates inside its operator are not seen (the flash backward's fp32
     scratch, at most 0.4 GB at the cells' shapes); the SSD backward's
-    workspace is an argument of its operator and is.
+    workspace is an argument of its operator and is, and so are the
+    training loss's two workspaces (``kernels/unembed_ce.py``: every
+    chunk buffer; only a few [T] vectors inside them, the labels in
+    int32 and the loss's terms, are not).
   DTensors (a sharded step): the mode steps aside for every operator on
     DTensors (``NotImplemented``, as ``CommDebugMode`` does), so DTensor
     runs it and what it runs on the local shards comes back through the
