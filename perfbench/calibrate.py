@@ -28,7 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     from perfbench import check, harness
-    from perfbench.reference.model import Precision
+    from perfbench.reference.common import Precision
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)

@@ -32,7 +32,7 @@ def device_norms(tree: dict, minus: dict | None = None,
                  minus_scale: float = 1.0, scale: float = 1.0) -> dict:
     """{leaf name: 0-d device tensor}: the norm of each leaf of a program
     tree (stacked ``layers``), each layer's slice its own leaf, named as
-    ``reference.model.named_leaves`` names them; of ``tree - minus_scale *
+    ``reference.common.named_leaves`` names them; of ``tree - minus_scale *
     minus`` when ``minus`` is given. Nothing waits for the device."""
     out = {}
 

@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from perfbench.reference import architecture
+
 
 def derived_seed(seed: int, tag: str) -> int:
     """A 63-bit seed for ``tag``'s draws, from the run's seed."""
@@ -63,42 +65,10 @@ def stream_seed(seed: int) -> int:
 
 def schema(cfg: dict) -> dict:
     """{path: (shape, init)} of the parameters in the program's layout and
-    names (stacked [L, ...] layer leaves), sorted by path. ``init`` is
-    ("normal", std), ("ones",), ("zeros",), ("a_log",): log of U(1, 16),
-    or ("dt_bias",): the inverse softplus of a log-uniform dt in [1e-3,
-    1e-1], as Mamba2 initialises them."""
-    if cfg["arch_type"] != "ssm":
-        raise ValueError(f"no parameter schema for arch_type "
-                         f"{cfg['arch_type']!r}")
-    d, v, n = cfg["d_model"], cfg["vocab_size"], cfg["num_layers"]
-    s = cfg["ssm"]
-    di = s["expand"] * d
-    h = di // s["head_dim"]
-    gn = s["ngroups"] * s["state_dim"]
-    w = s["conv_width"]
-    normal, out = ("normal", 0.02), ("normal", 0.02 / math.sqrt(2 * n))
-    leaves = {
-        "embed": ((v, d), normal), "final_norm": ((d,), ("ones",)),
-        "lm_head": ((d, v), normal),
-        "layers.norm": ((n, d), ("ones",)),
-        "layers.z_proj": ((n, d, di), normal),
-        "layers.x_proj": ((n, d, di), normal),
-        "layers.B_proj": ((n, d, gn), normal),
-        "layers.C_proj": ((n, d, gn), normal),
-        "layers.dt_proj": ((n, d, h), normal),
-        "layers.conv_x_w": ((n, w, di), ("normal", 0.2)),
-        "layers.conv_x_b": ((n, di), ("zeros",)),
-        "layers.conv_B_w": ((n, w, gn), ("normal", 0.2)),
-        "layers.conv_B_b": ((n, gn), ("zeros",)),
-        "layers.conv_C_w": ((n, w, gn), ("normal", 0.2)),
-        "layers.conv_C_b": ((n, gn), ("zeros",)),
-        "layers.A_log": ((n, h), ("a_log",)),
-        "layers.ssm_D": ((n, h), ("ones",)),
-        "layers.dt_bias": ((n, h), ("dt_bias",)),
-        "layers.gate_norm": ((n, di), ("ones",)),
-        "layers.out_proj": ((n, di, d), out),
-    }
-    return dict(sorted(leaves.items()))
+    names (stacked [L, ...] layer leaves), sorted by path, from the module
+    of the configuration's architecture. ``init`` is ("normal", std),
+    ("ones",), ("zeros",) or ("uniform", fn): ``fn`` of U(0, 1) draws."""
+    return architecture(cfg).schema(cfg)
 
 
 def nest(flat: dict) -> dict:
@@ -134,8 +104,7 @@ def weights(cfg: dict, seed: int, device) -> dict:
         derived_seed(seed, "weights"))
     sch = schema(cfg)
     normal = [p for p, (_, init) in sch.items() if init[0] == "normal"]
-    uniform = [p for p, (_, init) in sch.items()
-               if init[0] in ("a_log", "dt_bias")]
+    uniform = [p for p, (_, init) in sch.items() if init[0] == "uniform"]
     drawn = dict(zip(normal, _draws([sch[p][0] for p in normal], "normal",
                                     gen, device)))
     drawn.update(zip(uniform, _draws([sch[p][0] for p in uniform],
@@ -149,12 +118,8 @@ def weights(cfg: dict, seed: int, device) -> dict:
             t = torch.ones(shape, device=device)
         elif kind == "zeros":
             t = torch.zeros(shape, device=device)
-        elif kind == "a_log":
-            t = torch.log(1.0 + 15.0 * drawn[path])
         else:
-            lo, hi = math.log(1e-3), math.log(1e-1)
-            dt = torch.exp(lo + (hi - lo) * drawn[path])
-            t = dt + torch.log(-torch.expm1(-dt))
+            t = init[1](drawn[path])
         out[path] = t
     del drawn
     return nest(out)

@@ -27,6 +27,7 @@ import math
 import os
 import sys
 import time
+import typing
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -83,13 +84,24 @@ def kind_module(kind: str):
 
 def program_config(cfg: dict):
     """The program's ``ModelConfig`` of a configuration file: its keys that
-    are the dataclass's fields, the ``ssm`` group as an ``SSMConfig``."""
-    from repro_torch.configs.base import ModelConfig, SSMConfig
-    fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    kw = {k: v for k, v in cfg.items() if k in fields}
-    if "ssm" in kw:
-        kw["ssm"] = SSMConfig(**kw["ssm"])
-    return ModelConfig(**kw)
+    are the dataclass's fields, each as the field's type: a group as the
+    dataclass the field holds (``ssm``, ``moe``), a list as a tuple."""
+    from repro_torch.configs.base import ModelConfig
+    hints = typing.get_type_hints(ModelConfig)
+    return ModelConfig(**{f.name: _as_field(hints[f.name], cfg[f.name])
+                          for f in dataclasses.fields(ModelConfig)
+                          if f.name in cfg})
+
+
+def _as_field(hint, value):
+    """A JSON value as a field of type ``hint`` takes it."""
+    if isinstance(value, dict):
+        for t in typing.get_args(hint) or (hint,):
+            if dataclasses.is_dataclass(t):
+                return t(**value)
+    if isinstance(value, list) and typing.get_origin(hint) is tuple:
+        return tuple(value)
+    return value
 
 
 def launches() -> dict:

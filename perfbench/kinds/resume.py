@@ -35,7 +35,7 @@ from torch.profiler import record_function
 from perfbench import generator
 from perfbench.check import device_norms, stacked_norms
 from perfbench.kinds.train import free_card, no_tf32, update_norms
-from perfbench.reference.model import Precision, unstack
+from perfbench.reference.common import Precision, unstack
 from perfbench.reference.train import train_steps
 
 

@@ -23,8 +23,8 @@ from torch.profiler import record_function
 
 from perfbench import generator
 from perfbench.check import stacked_norms
-from perfbench.reference.model import (Precision, map_tree, named_leaves,
-                                       unstack)
+from perfbench.reference.common import (Precision, map_tree, named_leaves,
+                                        unstack)
 from perfbench.reference.train import train_steps
 
 

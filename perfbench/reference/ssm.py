@@ -1,14 +1,8 @@
-"""The plain reference: the Mamba2 (SSD) language model of the benchmark's
-configurations (``arch_type`` "ssm"), its loss and gradients, in plain
-PyTorch at float32 (TF32 off), written from the published description
-(arXiv:2405.21060) with no kernel, cache or batching, and importing nothing
-of the program.
-
-Parameters are a tree of float32 tensors under the names the program's
-training step takes (``embed`` [V, D], ``final_norm`` [D], ``lm_head``
-[D, V], ``layers`` {name: [L, ...]}), all in ``x @ W`` orientation. The reference itself holds the
-layers as a list of per-layer dicts (``unstack``), so that each layer's
-gradient lands in a tensor of its own.
+"""The plain reference of ``arch_type`` "ssm": the Mamba2 (SSD) language
+model, its loss and gradients, in plain PyTorch at float32 (TF32 off),
+written from the published description (arXiv:2405.21060) with no kernel,
+cache or batching, and importing nothing of the program; its parameter
+schema and the model FLOPs of a training step beyond 6 N T.
 
 A Mamba2 layer: h + out_proj(rmsnorm(ssd(conv(x), dt, A, conv(B),
 conv(C), D) * silu(z))), with z, x, B, C and dt_raw projections of
@@ -16,88 +10,18 @@ rmsnorm(h), depthwise causal convolutions (width 4, with bias) followed by
 SiLU on x, B and C, dt = softplus(dt_raw + dt_bias) and A = -exp(A_log).
 The SSD scan is computed in its chunked form, which is exact: within a
 chunk the masked decay-weighted product, across chunks the carried state.
-
-``Precision`` rounds the operands of every matrix product: ``"fp32"`` is
-the reference; ``"fp8"``, each operand scaled to the e4m3 range by its
-largest magnitude and rounded (the gradient passes straight through), is
-the control that a comparison has to reject.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-FP8_MAX = 448.0  # the largest finite float8 e4m3fn
-
-
-@dataclass(frozen=True)
-class Precision:
-    operands: str = "fp32"   # "fp32" or "fp8"
-
-    def round(self, t: torch.Tensor) -> torch.Tensor:
-        if self.operands == "fp32":
-            return t
-        if self.operands != "fp8":
-            raise ValueError(f"Precision: operands {self.operands!r}")
-        scale = FP8_MAX / t.detach().abs().amax().clamp_min(1e-30)
-        q = (t.detach() * scale).to(torch.float8_e4m3fn).float() / scale
-        return t + (q - t.detach())
-
-    def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self.round(a) @ self.round(b)
-
-
-FP32 = Precision()
-
-
-def unstack(params: dict) -> dict:
-    """The tree with ``layers`` as a list of per-layer dicts of float32
-    copies, each a leaf of its own."""
-    out = {k: _copy(v) for k, v in params.items() if k != "layers"}
-    stacked = params["layers"]
-    n = next(iter(stacked.values())).shape[0]
-    out["layers"] = [{name: t[i].detach().float().clone()
-                      for name, t in stacked.items()} for i in range(n)]
-    return out
-
-
-def _copy(tree):
-    return map_tree(lambda t: t.detach().float().clone(), tree)
-
-
-def map_tree(fn, tree):
-    """``fn`` over the tensors of a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [map_tree(fn, v) for v in tree]
-    return fn(tree)
-
-
-def named_leaves(tree: dict, prefix: str = "") -> list:
-    """(name, tensor) of every leaf, per layer for a list of layers:
-    ``layers.x_proj[3]``, ``embed``; names sorted."""
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        name = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out += named_leaves(v, name + ".")
-        elif isinstance(v, list):
-            for i, layer in enumerate(v):
-                out += [(f"{name}.{n}[{i}]", t) for n, t in
-                        sorted(layer.items())]
-        else:
-            out.append((name, v))
-    return out
-
-
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float):
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * scale
+from perfbench import yardstick
+from perfbench.reference.common import FP32, Precision, rms_norm
 
 
 def causal_conv_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -201,3 +125,61 @@ class Reference:
         logits = self.prec.mm(h, params["lm_head"])
         return F.cross_entropy(logits.flatten(0, 1), labels.long().flatten(),
                                reduction="sum")
+
+
+def a_log(u: torch.Tensor) -> torch.Tensor:
+    """A_log from U(0, 1) draws: the log of U(1, 16)."""
+    return torch.log(1.0 + 15.0 * u)
+
+
+def dt_bias(u: torch.Tensor) -> torch.Tensor:
+    """dt_bias from U(0, 1) draws: the inverse softplus of a log-uniform dt
+    in [1e-3, 1e-1]."""
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * u)
+    return dt + torch.log(-torch.expm1(-dt))
+
+
+def schema(cfg: dict) -> dict:
+    """{path: (shape, init)} of the parameters in the program's layout and
+    names (stacked [L, ...] layer leaves), sorted by path, initialised as
+    Mamba2 does (``generator.schema`` gives the inits' forms)."""
+    d, v, n = cfg["d_model"], cfg["vocab_size"], cfg["num_layers"]
+    s = cfg["ssm"]
+    di = s["expand"] * d
+    h = di // s["head_dim"]
+    gn = s["ngroups"] * s["state_dim"]
+    w = s["conv_width"]
+    normal, out = ("normal", 0.02), ("normal", 0.02 / math.sqrt(2 * n))
+    leaves = {
+        "embed": ((v, d), normal), "final_norm": ((d,), ("ones",)),
+        "lm_head": ((d, v), normal),
+        "layers.norm": ((n, d), ("ones",)),
+        "layers.z_proj": ((n, d, di), normal),
+        "layers.x_proj": ((n, d, di), normal),
+        "layers.B_proj": ((n, d, gn), normal),
+        "layers.C_proj": ((n, d, gn), normal),
+        "layers.dt_proj": ((n, d, h), normal),
+        "layers.conv_x_w": ((n, w, di), ("normal", 0.2)),
+        "layers.conv_x_b": ((n, di), ("zeros",)),
+        "layers.conv_B_w": ((n, w, gn), ("normal", 0.2)),
+        "layers.conv_B_b": ((n, gn), ("zeros",)),
+        "layers.conv_C_w": ((n, w, gn), ("normal", 0.2)),
+        "layers.conv_C_b": ((n, gn), ("zeros",)),
+        "layers.A_log": ((n, h), ("uniform", a_log)),
+        "layers.ssm_D": ((n, h), ("ones",)),
+        "layers.dt_bias": ((n, h), ("uniform", dt_bias)),
+        "layers.gate_norm": ((n, di), ("ones",)),
+        "layers.out_proj": ((n, di, d), out),
+    }
+    return dict(sorted(leaves.items()))
+
+
+def step_flops(cfg: dict, batch: int, seq: int) -> int:
+    """Model FLOPs of one training step beyond 6 N T: the SSD scan's
+    forward and backward at every Mamba2 layer."""
+    s = cfg["ssm"]
+    h = s["expand"] * cfg["d_model"] // s["head_dim"]
+    shape = (batch, seq, h, s["head_dim"], s["ngroups"], s["state_dim"])
+    return cfg["num_layers"] * (yardstick.ssd_fwd_cost(*shape)[0]
+                                + yardstick.ssd_bwd_cost(*shape)[0])

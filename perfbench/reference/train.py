@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import torch
 
-from perfbench.reference.model import Precision, Reference, named_leaves
+from perfbench.reference import architecture
+from perfbench.reference.common import Precision, named_leaves
 
 
 def adamw(params: list, grads: list, mu: list, nu: list, step: int,
@@ -29,7 +30,7 @@ def adamw(params: list, grads: list, mu: list, nu: list, step: int,
                             + opt["weight_decay"] * p))
 
 
-def grads_of(model: Reference, params: dict, tokens: torch.Tensor,
+def grads_of(model, params: dict, tokens: torch.Tensor,
              labels: torch.Tensor, rows: int, half_batch: bool = False):
     """(mean loss, gradients in ``named_leaves`` order) over the batch
     [B, S], ``rows`` rows at a time. ``half_batch`` is a planted fault: the
@@ -61,7 +62,7 @@ def train_steps(cfg: dict, params: dict, opt_state: dict, batches: list,
     ``batches`` [(tokens, labels)] from ``opt_state`` ({"mu", "nu":
     trees like params, "step": the steps taken}). Returns the losses, the
     first step's clipped gradient's norm by leaf, and the final moments."""
-    model = Reference(cfg, prec)
+    model = architecture(cfg).Reference(cfg, prec)
     names = [n for n, _ in named_leaves(params)]
     ps = [t for _, t in named_leaves(params)]
     mu = [t for _, t in named_leaves(opt_state["mu"])]

@@ -1,7 +1,7 @@
-"""The plain reference at small sizes on the CPU: its chunked SSD scan
-against the step-by-step recurrence, and its loss and gradients against
-the program run in float32 (the program's plain CPU versions), from the
-same weights and rows."""
+"""The plain reference at small sizes on the CPU: its module found by the
+configuration's arch_type, its chunked SSD scan against the step-by-step
+recurrence, and its loss and gradients against the program run in float32
+(the program's plain CPU versions), from the same weights and rows."""
 
 import sys
 from pathlib import Path
@@ -13,7 +13,10 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from perfbench import generator  # noqa: E402
-from perfbench.reference import model as ref  # noqa: E402
+from perfbench.harness import RunError  # noqa: E402
+from perfbench.reference import architecture  # noqa: E402
+from perfbench.reference import ssm as ref  # noqa: E402
+from perfbench.reference.common import named_leaves, unstack  # noqa: E402
 from perfbench.reference.train import grads_of  # noqa: E402
 
 
@@ -58,6 +61,12 @@ CFGS = {
 
 
 def test_only_the_ssm_architecture_is_modelled():
+    """The configuration's arch_type finds its module by file; one with no
+    file is refused, naming the path looked for; ssm.py's reference
+    models its own architecture alone."""
+    assert architecture(CFGS["ssm"]) is ref
+    with pytest.raises(RunError, match="perfbench/reference/unmodelled.py"):
+        architecture(dict(CFGS["ssm"], arch_type="unmodelled"))
     with pytest.raises(ValueError, match="hybrid"):
         ref.Reference(dict(CFGS["ssm"], arch_type="hybrid"))
 
@@ -76,12 +85,12 @@ def test_loss_and_gradients_are_the_programs_in_float32(arch):
     loss, _ = loss_and_grads(model, params, {"tokens": tokens.contiguous(),
                                              "labels": labels.contiguous()},
                              grads)
-    mine = ref.unstack(params)
+    mine = unstack(params)
     ref_loss, ref_grads = grads_of(ref.Reference(cfg), mine, tokens, labels,
                                    rows=2)
     assert ref_loss == pytest.approx(float(loss), rel=1e-5)
-    names = [n for n, _ in ref.named_leaves(mine)]
-    theirs = dict(ref.named_leaves(ref.unstack(grads)))
+    names = [n for n, _ in named_leaves(mine)]
+    theirs = dict(named_leaves(unstack(grads)))
     for name, g in zip(names, ref_grads):
         scale = max(float(theirs[name].abs().max()), 1e-6)
         assert float((g - theirs[name]).abs().max()) <= 2e-4 * scale, name

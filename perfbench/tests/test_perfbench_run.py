@@ -161,7 +161,7 @@ def _control(cell, seed, device, cfg_override=None, traffic_override=None):
     """The control's numbers: the reference with every matrix product's
     operands in scaled float8, put in the program's place."""
     from perfbench import check
-    from perfbench.reference.model import Precision
+    from perfbench.reference.common import Precision
     bench = harness.spec()
     w = harness.cell_of(bench, cell)
     cfg = dict(harness.load_json("configs", f"{w['config']}.json"),
@@ -210,7 +210,7 @@ IMPORTS = """
 import json, sys
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 from perfbench import harness
-for m in ("reference.model", "reference.train"):
+for m in ("reference.common", "reference.ssm", "reference.train"):
     __import__("perfbench." + m)
 tops = {m.split(".")[0] for m in sys.modules}
 print(json.dumps(sorted(tops & {"repro_torch", "repro", "jax", "jaxlib",

@@ -114,17 +114,53 @@ for trace in (False, True):
     r = harness.run_cell("tiny-mamba.train-b2s64", 7, 0.2, trace,
                          device="cpu", cfg_override=tiny)
     print(json.dumps(r))
+print(json.dumps(getattr(sys.modules["perfbench.reference.ssm"], "CALLS",
+                         None)))
+"""
+
+# the test's own reference module: the real one, loaded from its file, with
+# the three names the harness resolves counted as they are called
+OWN_REFERENCE = """
+import collections
+import importlib.util
+
+_spec = importlib.util.spec_from_file_location("real_ssm", {real!r})
+real = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(real)
+globals().update({{k: v for k, v in vars(real).items()
+                  if not k.startswith("__")}})
+CALLS = collections.Counter()
+
+
+def _counted(fn):
+    def counted(*args, **kw):
+        CALLS[fn.__name__] += 1
+        return fn(*args, **kw)
+    return counted
+
+
+Reference = _counted(real.Reference)
+schema = _counted(real.schema)
+step_flops = _counted(real.step_flops)
 """
 
 
-def test_a_cell_config_and_metric_added_by_files_alone(tmp_path):
+@pytest.mark.parametrize("own_reference", [False, True])
+def test_a_cell_config_and_metric_added_by_files_alone(tmp_path,
+                                                       own_reference):
     """A copy of perfbench/ gains a configuration, a traffic mix, a cell's
     limits, an end-to-end and a per-layer metric's readers, and
     BENCHMARK.json their entries; no file of the copy is edited, and the
-    new cell runs and reports them."""
+    new cell runs and reports them. With ``own_reference`` the copy's
+    reference module of the architecture is the test's own (the real one
+    re-exported), and the cell runs to ``correct`` through it: its model,
+    schema and step FLOPs."""
     shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     pb = tmp_path / "perfbench"
+    if own_reference:
+        (pb / "reference" / "ssm.py").write_text(OWN_REFERENCE.format(
+            real=str(ROOT / "perfbench" / "reference" / "ssm.py")))
     before = {p: p.read_bytes() for p in pb.rglob("*") if p.is_file()}
     cfg = json.loads((pb / "configs" / "mamba2-370m.json").read_text())
     cfg["name"] = "tiny-mamba"
@@ -151,6 +187,10 @@ def test_a_cell_config_and_metric_added_by_files_alone(tmp_path):
                                 "better": "higher", "bound": 0.01,
                                 "source": "host_clock",
                                 "workloads": ["tiny-mamba.train-b2s64"]})
+    if own_reference:
+        for m in bench["per_layer"]:
+            if m["name"] == "step_mfu.train":
+                m["workloads"].append("tiny-mamba.train-b2s64")
     bench["per_layer"].append({"name": "steps_traced.test", "unit": "steps",
                                "better": "higher", "source": "host_clock",
                                "layer": "step", "moves": "steps_done",
@@ -161,14 +201,37 @@ def test_a_cell_config_and_metric_added_by_files_alone(tmp_path):
         [sys.executable, "-c", ADDED, str(tmp_path), str(ROOT / "src")],
         capture_output=True, text=True, timeout=600, cwd=tmp_path)
     assert out.returncode == 0, out.stderr[-3000:]
-    plain, traced = (json.loads(x) for x in out.stdout.strip().splitlines())
+    plain, traced, calls = (json.loads(x)
+                            for x in out.stdout.strip().splitlines())
     assert plain["metrics"]["steps_done"]["value"] >= 1
     assert set(plain["metrics"]) == {"steps_done", "setup_s",
                                      "train_tokens_per_s"}
     assert traced["metrics"]["steps_traced.test"]["value"] == 3
-    assert "step_mfu.train" not in traced["metrics"]
+    if own_reference:
+        assert plain["correct"] and traced["correct"]
+        assert traced["metrics"]["step_mfu.train"]["value"] > 0
+        assert set(calls) == {"Reference", "schema", "step_flops"}
+    else:
+        assert "step_mfu.train" not in traced["metrics"]
+        assert calls is None
     for p, data in before.items():
         assert p.read_bytes() == data, p
+
+
+def test_program_config_takes_groups_and_tuples():
+    """A configuration's groups become the dataclasses of the program's
+    fields, and a list a tuple where the field is one."""
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from perfbench import harness
+    from repro_torch.configs.base import MoEConfig, SSMConfig
+    cfg = harness.program_config(dict(
+        name="t", arch_type="moe", source="test", mrope_sections=[8, 12, 12],
+        moe=dict(num_experts=4, experts_per_token=2, capacity_factor=8.0),
+        ssm=dict(state_dim=16), frontend="none"))
+    assert cfg.moe == MoEConfig(4, 2, capacity_factor=8.0)
+    assert cfg.ssm == SSMConfig(state_dim=16)
+    assert cfg.mrope_sections == (8, 12, 12)
+    assert cfg.frontend == "none"
 
 
 @pytest.mark.parametrize("cfg", [c["file"] for c in BENCH["configs"]])

@@ -11,6 +11,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from perfbench import generator, yardstick  # noqa: E402
+from perfbench.harness import RunError  # noqa: E402
+from perfbench.reference import architecture  # noqa: E402
 
 
 def test_ssd_costs_by_hand():
@@ -44,12 +46,20 @@ def test_step_flops_by_hand():
     n = generator.count_params(TINY)
     ssd = 3 * (yardstick.ssd_fwd_cost(b, s, 4, 4, 1, 2)[0]
                + yardstick.ssd_bwd_cost(b, s, 4, 4, 1, 2)[0])
+    assert architecture(TINY).step_flops(TINY, b, s) == ssd
     assert yardstick.step_model_flops(TINY, b, s, n) == 6 * n * b * s + ssd
 
 
 def test_an_architecture_without_a_schema_is_refused():
-    with pytest.raises(ValueError, match="hybrid"):
-        generator.schema(dict(TINY, arch_type="hybrid"))
+    """Schema, weights and step FLOPs of an arch_type with no reference
+    module are refused, naming the file looked for."""
+    cfg = dict(TINY, arch_type="unmodelled")
+    looked_for = "perfbench/reference/unmodelled.py"
+    for fn in (lambda: generator.schema(cfg),
+               lambda: generator.weights(cfg, 1, "cpu"),
+               lambda: yardstick.step_model_flops(cfg, 2, 4, 1)):
+        with pytest.raises(RunError, match=looked_for):
+            fn()
 
 
 def ev(name, start, end, device=False, shapes=(), inside=0.0):

@@ -6,12 +6,16 @@ the reading of a profiler trace.
 The formulas are frozen copies of the program's ``roofline/kernel_cost.py``
 (the SSD scan's ``ssd_flops`` and ``ssd_bwd_flops``, each input read once
 and each output written once) and of the model-FLOPs arithmetic of
-``chip_smoke.py``'s training phase (6 N T, N outside the embedding).
+``chip_smoke.py``'s training phase (6 N T, N outside the embedding); what
+a step adds beyond 6 N T is counted by its architecture's reference module
+(``perfbench/reference/<arch_type>.py``'s ``step_flops``).
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
+
+from perfbench.reference import architecture
 
 
 # NVIDIA H100 SXM, data sheet, dense, at the 700 W limit
@@ -67,13 +71,11 @@ def least_seconds(flops: float, nbytes: float) -> float:
 
 def step_model_flops(cfg: dict, batch: int, seq: int, n_params: int) -> float:
     """Model FLOPs of one training step, recomputation not counted: 6 N T
-    for the ``n_params`` parameters outside the embedding, and the SSD
-    scan's forward and backward at every Mamba2 layer."""
-    s = cfg["ssm"]
-    h = s["expand"] * cfg["d_model"] // s["head_dim"]
-    shape = (batch, seq, h, s["head_dim"], s["ngroups"], s["state_dim"])
-    return 6.0 * n_params * batch * seq + cfg["num_layers"] * (
-        ssd_fwd_cost(*shape)[0] + ssd_bwd_cost(*shape)[0])
+    for the ``n_params`` parameters outside the embedding, and what the
+    module of the configuration's architecture counts beyond it (its
+    ``step_flops``)."""
+    return 6.0 * n_params * batch * seq + architecture(cfg).step_flops(
+        cfg, batch, seq)
 
 
 # ----- reading a profiler trace -----
